@@ -1,38 +1,66 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives imagen_tpu_torch's serving path once at the paper presets' full
-widths: BaseUnet64 -> SRUnet256 (bf16, random weights from a seed), an
-`ImagenServer` that warms up and answers three requests. Then it holds each
-hand-written kernel, at every shape the requests launched it at, against its
-plain PyTorch version, and a small bf16 U-Net that reaches all three kernels
-against the same U-Net on the plain path, both measured against fp32.
+Drives imagen_tpu_torch's two paths at the paper presets' full widths, with
+bf16 compute over fp32 parameters and random weights from a seed:
+- serving: BaseUnet64 -> SRUnet256, an `ImagenServer` that warms up and
+  answers three requests;
+- training: `ImagenTrainer.step_with_batch` for 3 steps of each of the two
+  configurations the JAX bench trains, unet 1 (BaseUnet64 alone, batch 8)
+  and unet 2 (NullUnet + SRUnet256 with the low-res conditioning loss,
+  batch 4), with Adam, clipping and EMA.
+The launch counts are set to 0 just before each path and read just after.
+Then it holds each hand-written kernel, at every shape the two paths launched
+it at, against its plain PyTorch version, and a small bf16 U-Net that reaches
+every kernel against the same U-Net on the plain path, outputs and
+gradients, both measured against fp32.
 
 Prints, in order: the card (nvidia-smi name and power limit) and CUDA
 version; the kernel build time; per request latency, shape, finiteness and
-range; launch counts; peak memory; per-kernel errors and CUDA-event times;
-then one JSON line of kernel results and, last, the result line
-{"ok": ..., "device": {...}}. In the kernel line, `ms` and `plain_ms` are
-the kernel's and the plain version's per-call times at each launched
-shape times that shape's launches in the requests, summed; `max_abs_err`
-is the kernel's worst error against the fp32 truth over those shapes. Exits non-zero if any phase fails. Needs a GPU
-and the imagen_tpu_torch package beside this file; imports no JAX.
+range; per training step loss, time and peak memory; launch counts per path;
+per-kernel errors, CUDA-event times and bounds at each shape; the small
+U-Net's errors; then the card again, one JSON line of kernel results and,
+last, the result line {"ok": ..., "device": {...}}.
+
+In the kernel line, `launches` is the sum over both paths (split in
+`launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
+times at each launched shape times that shape's launches in the two paths,
+summed. `bound_ms` is the least time the H100 could take for that work, the
+larger of its operations at the dense bf16 peak and its bytes (each input
+read once, each output written once) at the HBM rate; `bound_by` says which of
+the two bounds most of it. `library_ms` times one PyTorch call that computes
+the same function (`F.scaled_dot_product_attention`, its backward,
+`F.conv2d`), null where there is none. `max_abs_err` is the kernel's worst
+error against the fp32 truth over those shapes and outputs.
+
+Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
+package beside this file; imports no JAX.
 """
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
 import traceback
-from collections import defaultdict
+from collections import Counter, defaultdict
+from contextlib import contextmanager
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-TIMESTEPS = (16, 8)          # cut for the run's time; the widths are not cut
+TIMESTEPS = (16, 8)          # serving steps, cut for the run's time; widths are not cut
 REQUEST_SIZES = (4, 2, 3)
+TRAIN_STEPS = 3
+TRAIN_CONFIGS = ((1, 8), (2, 4))   # (unet number, batch), as the JAX bench trains them
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes per second
 KERNEL_INFO = {
     'flash_rows_fwd_bf16': dict(
         source='imagen_tpu_torch/csrc/flash_rows_fwd.cu',
         replaces='imagen_tpu/ops/flash_attention.py:249'),
+    'flash_rows_bwd_bf16': dict(
+        source='imagen_tpu_torch/csrc/flash_rows_bwd.cu',
+        replaces='imagen_tpu/ops/flash_attention.py:591'),
     'conv2d_same_3x3_bf16': dict(
         source='imagen_tpu_torch/csrc/conv2d_same.cu',
         replaces='imagen_tpu/ops/conv2d.py:199'),
@@ -59,7 +87,15 @@ def cuda_time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def free_cuda():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def randomize_final_conv(unet, seed):
+    """The final conv starts at zero; random values let every weight reach
+    the output (and, in training, receive a gradient)."""
     import torch
     g = torch.Generator(device='cuda').manual_seed(seed)
     with torch.no_grad():
@@ -67,11 +103,20 @@ def randomize_final_conv(unet, seed):
             p.copy_(torch.randn(p.shape, generator=g, device='cuda') * 0.02)
 
 
-def record_launch_shapes(build):
-    """Wrap `_build.launch` to record the size arguments (those after the
-    leading pointers) of every launch; the wrapped launch still counts."""
+def text_batch(torch, g, n):
+    """Mock T5 embeddings (n, 256, 768), zero past a random length, and their mask."""
+    emb = torch.randn((n, 256, 768), generator=g, device='cuda')
+    lengths = torch.randint(8, 257, (n,), generator=g, device='cuda')
+    mask = torch.arange(256, device='cuda')[None] < lengths[:, None]
+    return emb * mask[..., None], mask
+
+
+@contextmanager
+def counting_path(build, shapes, counts):
+    """Set the launch counts to 0, record the size arguments (those after the
+    leading pointers) of every launch into `shapes`, and add the counts of
+    the block to `counts`; the wrapped launch still counts."""
     import ctypes
-    shapes = defaultdict(lambda: defaultdict(int))
     original = build.launch
 
     def launch(name, *args):
@@ -80,74 +125,165 @@ def record_launch_shapes(build):
         shapes[name][tuple(args[n_ptr:])] += 1
         return original(name, *args)
 
+    build.reset_launches()
     build.launch = launch
-    return shapes, lambda: setattr(build, 'launch', original)
+    try:
+        yield
+    finally:
+        build.launch = original
+        counts.update(build.LAUNCHES)
 
 
-def phase_slice(torch, it, build, results):
+def check_launched(counts, names, path):
+    ok = True
+    for name in names:
+        c = counts.get(name, 0)
+        ok &= c > 0
+        log(f'{path} launches {name}: {c}{"" if c > 0 else " -> FAIL: not on the path"}')
+    return ok
+
+
+# --- serving --------------------------------------------------------------------------
+
+def phase_serving(torch, it, build, results):
     bf16 = torch.bfloat16
     torch.manual_seed(0)
     t0 = time.perf_counter()
-    with torch.device('cuda'):
-        base = it.BaseUnet64(dtype=bf16, text_embed_dim=768, max_text_len=256)
-        sr = it.SRUnet256(dtype=bf16, text_embed_dim=768, max_text_len=256, lowres_cond=True)
+    base = it.BaseUnet64(dtype=bf16, text_embed_dim=768, max_text_len=256)
+    sr = it.SRUnet256(dtype=bf16, text_embed_dim=768, max_text_len=256, lowres_cond=True)
     randomize_final_conv(base, 1)
     randomize_final_conv(sr, 2)
     imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=TIMESTEPS,
                        cond_drop_prob=0.1).eval()
     n_params = [sum(p.numel() for p in u.parameters()) for u in imagen.unets]
     torch.cuda.synchronize()
-    log(f'slice: BaseUnet64 {n_params[0] / 1e9:.3f} B params, SRUnet256 '
+    log(f'serving: BaseUnet64 {n_params[0] / 1e9:.3f} B params, SRUnet256 '
         f'{n_params[1] / 1e9:.3f} B params, built in {time.perf_counter() - t0:.1f} s')
 
     t0 = time.perf_counter()
     server = it.ImagenServer(imagen, batch_size=4, cond_scale=3., seed=0)
-    log(f'slice: warmup {time.perf_counter() - t0:.2f} s '
+    log(f'serving: warmup {time.perf_counter() - t0:.2f} s '
         f'(timesteps {TIMESTEPS}, serving batch 4, cond_scale 3)')
 
     g = torch.Generator(device='cuda').manual_seed(1234)
-    requests = []
-    for n in REQUEST_SIZES:
-        emb = torch.randn((n, 256, 768), generator=g, device='cuda')
-        lengths = torch.randint(8, 257, (n,), generator=g, device='cuda')
-        mask = torch.arange(256, device='cuda')[None] < lengths[:, None]
-        requests.append((emb * mask[..., None], mask))
+    requests = [text_batch(torch, g, n) for n in REQUEST_SIZES]
 
-    build.reset_launches()
-    shapes, restore = record_launch_shapes(build)
+    counts = Counter()
     torch.cuda.reset_peak_memory_stats()
     ok = True
-    latencies = []
-    try:
+    with counting_path(build, results['shapes']['serving'], counts):
         for i, (emb, mask) in enumerate(requests):
             t0 = time.perf_counter()
             images = server.generate(text_embeds=emb, text_masks=mask)
             lat = time.perf_counter() - t0
-            latencies.append(lat)
             finite = bool(torch.isfinite(torch.from_numpy(images)).all())
             in_range = bool(images.min() >= 0. and images.max() <= 1.)
             good = images.shape == (emb.shape[0], 256, 256, 3) and finite and in_range
             ok &= good
             log(f'request {i}: n={emb.shape[0]} latency {lat:.3f} s shape {images.shape} '
                 f'finite {finite} in [0,1] {in_range} -> {"ok" if good else "FAIL"}')
-    finally:
-        restore()
-    counts = dict(build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name in KERNEL_INFO:
-        c = counts.get(name, 0)
-        ok &= c > 0
-        log(f'launches {name}: {c} ({len(shapes[name])} distinct shapes)'
-            f'{"" if c > 0 else " -> FAIL: kernel not on the main path"}')
-    log(f'peak memory allocated during the requests: {peak:.2f} GiB')
-    results['counts'] = counts
-    results['shapes'] = shapes
-    results['latencies'] = latencies
+    ok &= check_launched(counts, [n for n in KERNEL_INFO if n != 'flash_rows_bwd_bf16'],
+                         'serving')
+    log(f'serving: peak memory allocated during the requests: '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    results['counts']['serving'] = counts
     return ok
 
 
+# --- training -------------------------------------------------------------------------
+
+def training_imagen(torch, it, unet_number):
+    common = dict(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
+    if unet_number == 1:
+        unets, sizes, steps = (it.BaseUnet64(**common),), (64,), 1000
+    else:
+        unets = (it.NullUnet(), it.SRUnet256(**common, lowres_cond=True))
+        sizes, steps = (64, 256), (1000, 500)
+    imagen = it.Imagen(unets, image_sizes=sizes, timesteps=steps, cond_drop_prob=0.1)
+    randomize_final_conv(imagen.unets[unet_number - 1], 10 + unet_number)
+    return imagen
+
+
+def train_config(torch, it, build, results, counts, unet_number, batch):
+    torch.manual_seed(20 + unet_number)
+    t0 = time.perf_counter()
+    imagen = training_imagen(torch, it, unet_number)
+    unet = imagen.unets[unet_number - 1]
+    trainer = it.ImagenTrainer(imagen, lr=1e-4, max_grad_norm=1.0, use_ema=True,
+                               ema_update_after_step=0, ema_update_every=1,
+                               only_train_unet_number=unet_number, seed=0, verbose=False)
+    size = imagen.image_sizes[unet_number - 1]
+    g = torch.Generator(device='cuda').manual_seed(100 + unet_number)
+    emb, mask = text_batch(torch, g, batch)
+    data = dict(images=torch.rand((batch, size, size, 3), generator=g, device='cuda'),
+                text_embeds=emb, text_masks=mask)
+    named = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
+    before = [p.detach().flatten()[:4096].clone() for _, p in named]
+    torch.cuda.synchronize()
+    stages = 'BaseUnet64' if unet_number == 1 else 'NullUnet + SRUnet256'
+    label = f'train unet {unet_number} ({stages}, batch {batch}, {size}px)'
+    log(f'{label}: {sum(p.numel() for _, p in named) / 1e9:.3f} B trainable params, '
+        f'built in {time.perf_counter() - t0:.1f} s')
+
+    # every parameter's gradient, checked between the first backward and its update
+    grad_report = {}
+    apply_update = trainer._apply_update
+
+    def checked_update(index):
+        if not grad_report:
+            missing = [n for n, p in named if p.grad is None]
+            finite = torch.stack([torch.isfinite(p.grad).all() for _, p in named
+                                  if p.grad is not None]).cpu()
+            grad_report.update(missing=missing, nonfinite=int((~finite).sum()))
+        apply_update(index)
+
+    trainer._apply_update = checked_update
+    losses = []
+    with counting_path(build, results['shapes']['training'], counts):
+        for step in range(1, TRAIN_STEPS + 1):
+            torch.cuda.reset_peak_memory_stats()
+            loss = trainer.step_with_batch(data, unet_number=unet_number)
+            losses.append(loss)
+            log(f'{label} step {step}: loss {loss:.6f} step time '
+                f'{trainer.step_timer.times[-1]:.4f} s peak allocated '
+                f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    ok = all(math.isfinite(x) for x in losses)
+    grads_ok = not grad_report['missing'] and grad_report['nonfinite'] == 0
+    log(f'{label}: after step 1, {len(grad_report["missing"])} parameters without a gradient '
+        f'{grad_report["missing"][:5]}, {grad_report["nonfinite"]} with non-finite values '
+        f'-> {"ok" if grads_ok else "FAIL"}')
+    ema = dict(trainer.ema_unets[unet_number - 1].named_parameters())
+    moved = sum(not torch.equal(p.detach().flatten()[:4096], b)
+                for (_, p), b in zip(named, before))
+    ema_moved = sum(not torch.equal(ema[n].flatten()[:4096], b)
+                    and not torch.equal(ema[n], p.detach())
+                    for (n, p), b in zip(named, before))
+    changed = moved >= 0.9 * len(named) and ema_moved >= 0.9 * len(named)
+    log(f'{label}: {moved} of {len(named)} parameter tensors changed, {ema_moved} EMA tensors '
+        f'differ from both the start and the online weights -> {"ok" if changed else "FAIL"}; '
+        f'trainer.timings() {trainer.timings()}')
+    return ok and grads_ok and changed
+
+
+def phase_training(torch, it, build, results):
+    ok = True
+    counts = Counter()
+    for unet_number, batch in TRAIN_CONFIGS:
+        ok &= train_config(torch, it, build, results, counts, unet_number, batch)
+        free_cuda()
+    ok &= check_launched(counts, KERNEL_INFO, 'training')
+    results['counts']['training'] = counts
+    return ok
+
+
+# --- each kernel against its plain version --------------------------------------------
+
 def kernel_cases(torch, name, dims, g):
-    """(kernel, plain, bf16 inputs, fp32 inputs) at one recorded launch shape."""
+    """(kernel, plain, library or None, served or None, bf16 inputs, fp32
+    inputs, flops, bytes) at one recorded launch shape. kernel and plain
+    return tuples of outputs; `served` is the flash forward as serving calls
+    it, without the LSE that training asks for."""
+    import torch.nn.functional as F
     from imagen_tpu_torch.ops import conv2d as c2d
     from imagen_tpu_torch.ops import flash_attention as fa
     from imagen_tpu_torch.ops import fused_norm as fn
@@ -156,22 +292,70 @@ def kernel_cases(torch, name, dims, g):
     def rnd(*shape, scale=1.):
         return torch.randn(shape, generator=g, device='cuda') * scale
 
+    served = None
     if name == fa.KERNEL:
         b, rows, nk, d, scale2 = dims
         scale = scale2 / fa.LOG2E
         qs, ks = 1. + rnd(d, scale=0.1), 1. + rnd(d, scale=0.1)
         inputs = [rnd(b, rows, d).to(bf16), rnd(b, nk, d).to(bf16), rnd(b, nk, d).to(bf16)]
+        qn = fa.l2norm_scale(inputs[0], qs)
 
         def kernel(q, k, v):
-            return fa.flash_cosine_mqa_rows(q, k, v, qs, ks, scale)
+            return fa._rows_forward(q, fa.l2norm_scale(k, ks), v, scale, qs, with_lse=True)
 
         def plain(q, k, v):
-            return fa.flash_rows_reference(q, fa.l2norm_scale(k, ks), v, scale, qs)
+            return fa.flash_rows_reference(q, fa.l2norm_scale(k, ks), v, scale, qs,
+                                           return_lse=True)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(qn[:, None], fa.l2norm_scale(k, ks)[:, None],
+                                                  v[:, None], scale=scale)
+
+        def served(q, k, v):
+            return fa.flash_cosine_mqa_rows(q, k, v, qs, ks, scale)
+        flops = 4 * b * rows * nk * d
+        nbytes = 2 * (2 * b * rows * d + 2 * b * nk * d) + 4 * b * rows
+    elif name == fa.BWD_KERNEL:
+        b, rows, nk, d, scale = dims
+        q, k = (fa.l2norm_scale(rnd(b, n, d), torch.ones(d, device='cuda')) for n in (rows, nk))
+        v, do = rnd(b, nk, d), rnd(b, rows, d)
+        q, k, v, do = (x.to(bf16) for x in (q, k, v, do))
+        out, lse = fa.flash_rows_reference(q.float(), k.float(), v.float(), scale,
+                                           return_lse=True)
+        delta = fa._delta(do, out)
+        inputs = [q, k, v, do]
+
+        def kernel(q, k, v, do):
+            return fa.flash_rows_backward(q, k, v, do, lse, delta, scale)
+
+        def plain(q, k, v, do):
+            return fa.flash_rows_backward_reference(q, k, v, do, lse, delta, scale)
+
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*(x[:, None] for x in leaves), scale=scale)
+        lib_do = do[:, None]
+
+        def library(*_):
+            return torch.autograd.grad(lib_out, leaves, lib_do, retain_graph=True)
+        flops = 10 * b * rows * nk * d
+        nbytes = 2 * (4 * b * rows * d + 4 * b * nk * d) + 8 * b * rows
     elif name == c2d.KERNEL:
         b, H, W, cin, cout = dims
-        inputs = [rnd(b, H, W, cin).to(bf16), rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(bf16),
+        inputs = [rnd(b, H, W, cin).to(bf16),
+                  rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(bf16),
                   rnd(cout, scale=0.1).to(bf16)]
-        kernel, plain = c2d.conv2d_same, c2d.conv2d_same_reference
+        w_oihw = inputs[1].permute(3, 2, 0, 1).contiguous()
+
+        def kernel(x, w, bias):
+            return (c2d.conv2d_same(x, w, bias),)
+
+        def plain(x, w, bias):
+            return (c2d.conv2d_same_reference(x, w, bias),)
+
+        def library(x, w, bias):
+            return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=1)
+        flops = 2 * b * H * W * 9 * cin * cout
+        nbytes = 2 * (b * H * W * (cin + cout) + 9 * cin * cout + cout)
     else:
         rows, k, hid, eps = dims
         g0, g1 = 1. + rnd(k, scale=0.1), 1. + rnd(hid, scale=0.1)
@@ -179,11 +363,14 @@ def kernel_cases(torch, name, dims, g):
                   rnd(k, hid, scale=hid ** -0.5).to(bf16)]
 
         def kernel(x, w0, w1):
-            return fn.fused_feedforward(x, g0, w0, g1, w1, eps)
+            return (fn.fused_feedforward(x, g0, w0, g1, w1, eps),)
 
         def plain(x, w0, w1):
-            return fn.feedforward_reference(x, g0, w0, g1, w1, eps)
-    return kernel, plain, inputs, [x.float() for x in inputs]
+            return (fn.feedforward_reference(x, g0, w0, g1, w1, eps),)
+        library = None
+        flops = 4 * rows * k * hid
+        nbytes = 2 * (2 * rows * k + 2 * k * hid) + 4 * (k + hid)
+    return kernel, plain, library, served, inputs, [x.float() for x in inputs], flops, nbytes
 
 
 def phase_kernels(torch, results):
@@ -191,80 +378,132 @@ def phase_kernels(torch, results):
     ok = True
     summary = []
     for name, info in KERNEL_INFO.items():
-        worst, ms_total, plain_total = 0., 0., 0.
-        for dims, count in sorted(results['shapes'][name].items()):
-            kernel, plain, xb, xf = kernel_cases(torch, name, dims, g)
+        worst = 0.
+        totals = defaultdict(float)
+        lib_total = None
+        by_dims = defaultdict(Counter)
+        for path, shapes in results['shapes'].items():
+            for dims, count in shapes[name].items():
+                by_dims[dims][path] += count
+        for dims, counts in sorted(by_dims.items()):
+            count = sum(counts.values())
+            kernel, plain, library, served, xb, xf, flops, nbytes = kernel_cases(
+                torch, name, dims, g)
             with torch.no_grad():
                 truth = plain(*xf)
-                err_k = (kernel(*xb).float() - truth).abs().max().item()
-                err_p = (plain(*xb).float() - truth).abs().max().item()
+                errs_k = [(o.float() - t).abs().max().item() for o, t in zip(kernel(*xb), truth)]
+                errs_p = [(o.float() - t).abs().max().item() for o, t in zip(plain(*xb), truth)]
                 del truth
                 # kernel and plain in turns: plain, kernel, kernel, plain
                 p1 = cuda_time_ms(lambda: plain(*xb))
                 k1 = cuda_time_ms(lambda: kernel(*xb))
                 k2 = cuda_time_ms(lambda: kernel(*xb))
                 p2 = cuda_time_ms(lambda: plain(*xb))
+                served_ms = cuda_time_ms(lambda: served(*xb)) if served else None
+            lib_ms = cuda_time_ms(lambda: library(*xb)) if library else None
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            bound = max(2 * err_p, 1e-3)
-            good = err_k <= bound
+            bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            bounds = [max(2 * e, 1e-3) for e in errs_p]
+            good = all(e <= b for e, b in zip(errs_k, bounds))
             ok &= good
-            worst = max(worst, err_k)
-            ms_total += count * ms
-            plain_total += count * plain_ms
-            log(f'{name} {dims} x{count}: max_abs_err kernel {err_k:.3e} plain-bf16 '
-                f'{err_p:.3e} bound {bound:.3e} -> {"ok" if good else "FAIL"}; '
-                f'{ms:.4f} ms vs plain {plain_ms:.4f} ms')
-        summary.append(dict(name=name, route='cuda', source=info['source'],
-                            replaces=info['replaces'], launches=results['counts'].get(name, 0),
-                            max_abs_err=worst, ms=ms_total, plain_ms=plain_total))
+            worst = max(worst, *errs_k)
+            # serving launches the flash forward without the LSE
+            totals['ms'] += (count * ms if served_ms is None else
+                             counts['serving'] * served_ms + counts['training'] * ms)
+            totals['plain_ms'] += count * plain_ms
+            totals['operations'] += count * bound_ops if bound_ops >= bound_bytes else 0.
+            totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
+            if lib_ms is not None:
+                lib_total = (lib_total or 0.) + count * lib_ms
+            fmt = ', '.join(f'{e:.3e}' for e in errs_k)
+            fmt_p = ', '.join(f'{e:.3e}' for e in errs_p)
+            served_note = '' if served_ms is None else f' ({served_ms:.4f} ms as served)'
+            log(f'{name} {dims} x{count} {dict(counts)}: max_abs_err kernel [{fmt}] '
+                f'plain-bf16 [{fmt_p}] -> {"ok" if good else "FAIL"}; {ms:.4f} ms'
+                f'{served_note} vs plain {plain_ms:.4f} ms, '
+                f'library {"n/a" if lib_ms is None else f"{lib_ms:.4f} ms"}, bound '
+                f'{max(bound_ops, bound_bytes):.4f} ms by '
+                f'{"operations" if bound_ops >= bound_bytes else "bytes"} '
+                f'({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)')
+            free_cuda()
+        launches = {path: c.get(name, 0) for path, c in results['counts'].items()}
+        summary.append(dict(
+            name=name, route='cuda', source=info['source'], replaces=info['replaces'],
+            launches=sum(launches.values()), launches_by_path=launches, max_abs_err=worst,
+            ms=totals['ms'], plain_ms=totals['plain_ms'],
+            bound_ms=totals['operations'] + totals['bytes'],
+            bound_by='operations' if totals['operations'] >= totals['bytes'] else 'bytes',
+            library_ms=lib_total))
     results['kernels'] = summary
     return ok
 
 
-def phase_small_unet(torch, it):
-    """A small bf16 U-Net that reaches all three kernels (128x128 input,
-    128 channels, attention at 64x64), against the same U-Net on the plain
-    path; both measured against the U-Net in fp32."""
+# --- a small U-Net on both paths ------------------------------------------------------
+
+@contextmanager
+def plain_path():
+    """Every kernel gate closed: the U-Net runs its plain PyTorch path."""
     from imagen_tpu_torch.models import blocks
+    import imagen_tpu_torch.ops.attention as attn
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (blocks, 'conv2d_same_available'), (blocks, 'fused_feedforward_available'),
+        (attn, 'flash_attention_available'))]
+    try:
+        for m, n, _ in saved:
+            setattr(m, n, lambda *a, **k: False)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def phase_small_unet(torch, it):
+    """A small bf16 U-Net that reaches every kernel (128x128 input, 128
+    channels, attention at 64x64), against the same U-Net on the plain path;
+    outputs and parameter gradients, both measured against the U-Net in fp32."""
+    from imagen_tpu_torch.ops import _build
     torch.manual_seed(3)
     cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
                layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
                text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8)
-    with torch.device('cuda'):
-        ref = it.Unet(**cfg).eval()
-        fast = it.Unet(**cfg, dtype=torch.bfloat16).eval()
+    ref = it.Unet(**cfg).eval()
+    fast = it.Unet(**cfg, dtype=torch.bfloat16).eval()
     randomize_final_conv(ref, 4)
     fast.load_state_dict(ref.state_dict())
     g = torch.Generator(device='cuda').manual_seed(5)
     x = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
     t = torch.rand((2,), generator=g, device='cuda')
     emb = torch.randn((2, 16, 64), generator=g, device='cuda')
-    with torch.no_grad():
-        truth = ref(x, t, text_embeds=emb)
-        from imagen_tpu_torch.ops import _build
-        before = dict(_build.LAUNCHES)
-        out_k = fast(x, t, text_embeds=emb).float()
-        reached = all(_build.LAUNCHES.get(n, 0) > before.get(n, 0) for n in KERNEL_INFO)
-        gates = ('conv2d_same_available', 'fused_feedforward_available')
-        saved = {n: getattr(blocks, n) for n in gates}
-        import imagen_tpu_torch.ops.attention as attn
-        saved_flash = attn.flash_attention_available
-        try:
-            for n in gates:
-                setattr(blocks, n, lambda *a, **k: False)
-            attn.flash_attention_available = lambda *a, **k: False
-            out_p = fast(x, t, text_embeds=emb).float()
-        finally:
-            for n, f in saved.items():
-                setattr(blocks, n, f)
-            attn.flash_attention_available = saved_flash
-    err_k = (out_k - truth).abs().max().item()
-    err_p = (out_p - truth).abs().max().item()
-    scale = truth.abs().max().item()
-    good = reached and bool(torch.isfinite(out_k).all()) and err_k <= max(2 * err_p, 1e-3)
-    log(f'small unet (b2 128x128, dim 128) vs fp32: kernel path max_abs_err {err_k:.3e}, '
-        f'plain bf16 path {err_p:.3e}, |truth| max {scale:.3e}, all kernels reached {reached} '
-        f'-> {"ok" if good else "FAIL"}')
+    cot = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
+
+    def run(unet):
+        unet.zero_grad(set_to_none=True)
+        out = unet(x, t, text_embeds=emb).float()
+        (out * cot).sum().backward()
+        return out.detach(), {n: p.grad.float() for n, p in unet.named_parameters()}
+
+    truth, truth_g = run(ref)
+    before = dict(_build.LAUNCHES)
+    out_k, grads_k = run(fast)
+    reached = all(_build.LAUNCHES.get(n, 0) > before.get(n, 0) for n in KERNEL_INFO)
+    with plain_path():
+        out_p, grads_p = run(fast)
+
+    def grad_err(grads):
+        """|g - truth| / |truth| over every parameter gradient as one vector."""
+        num = sum(((grads[n] - truth_g[n]) ** 2).sum() for n in truth_g)
+        return math.sqrt(float(num) / float(sum((v ** 2).sum() for v in truth_g.values())))
+
+    err_k, err_p = (out_k - truth).abs().max().item(), (out_p - truth).abs().max().item()
+    gerr_k, gerr_p = grad_err(grads_k), grad_err(grads_p)
+    finite = bool(torch.isfinite(out_k).all()) and all(
+        bool(torch.isfinite(v).all()) for v in grads_k.values())
+    good = (reached and finite and err_k <= max(2 * err_p, 1e-3)
+            and gerr_k <= max(2 * gerr_p, 1e-3))
+    log(f'small unet (b2 128x128, dim 128) vs fp32: output max_abs_err kernel path {err_k:.3e}, '
+        f'plain bf16 path {err_p:.3e} (|truth| max {truth.abs().max().item():.3e}); '
+        f'gradient relative error kernel path {gerr_k:.3e}, plain bf16 path {gerr_p:.3e}; '
+        f'all kernels reached {reached}, finite {finite} -> {"ok" if good else "FAIL"}')
     return good
 
 
@@ -294,14 +533,17 @@ def main():
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     ok = True
-    results = {'kernels': []}
+    results = {'kernels': [], 'counts': {},
+               'shapes': {path: defaultdict(Counter) for path in ('serving', 'training')}}
     try:
         import imagen_tpu_torch as it
         from imagen_tpu_torch.ops import _build
         t0 = time.perf_counter()
         _build.library()
         log(f'kernel build: {time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})')
-        ok &= phase_slice(torch, it, _build, results)
+        ok &= phase_serving(torch, it, _build, results)
+        free_cuda()
+        ok &= phase_training(torch, it, _build, results)
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)
     except Exception:  # a failed phase ends the run with ok: false

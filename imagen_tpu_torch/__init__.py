@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of imagen_tpu: the 64->256 text-to-image serving path."""
+"""PyTorch + CUDA port of imagen_tpu: the 64->256 text-to-image cascade, its
+serving path and its training step."""
 from imagen_tpu_torch.version import __version__
 
 from imagen_tpu_torch.models.unet2d import (
@@ -11,3 +12,5 @@ from imagen_tpu_torch.models.unet2d import (
 
 from imagen_tpu_torch.diffusion.imagen import Imagen
 from imagen_tpu_torch.serving import ImagenServer
+from imagen_tpu_torch.trainer import ImagenTrainer
+from imagen_tpu_torch.ema import EMAConfig

@@ -11,7 +11,10 @@
 // to bf16. Without q_scale the row is only multiplied by scale * log2(e).
 // k arrives already normalised. The softmax is an exp2 online softmax with
 // fp32 statistics and an fp32 output accumulator; P is rounded to bf16 for
-// the P @ V product, as the Pallas kernel does.
+// the P @ V product, as the Pallas kernel does. Given an `lse` pointer it also
+// writes each row's log2-sum-exp2 m + log2(l) in that scaled base-2 domain
+// (`return_stats=True` of the JAX forward), which the backward
+// (flash_rows_bwd.cu) needs; serving passes null and writes nothing.
 //
 // What bounds it on the H100: at the slice's shape (b 8, R 8192, nk 1063,
 // D 64) it does 4*R*nk*D flops per batch row for 2*R*D bytes of q and o, so
@@ -29,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
 constexpr int BQ = 128;   // q rows per block
@@ -45,43 +50,6 @@ struct Smem {
   static constexpr size_t total = q + 4 * kv;        // K and V, two stages each
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global -> shared copy; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_rows_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -89,6 +57,7 @@ flash_rows_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       const float* __restrict__ q_scale,
                       __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse,
                       int rows, int nk, float scale2) {
   using S = Smem<D>;
   constexpr int LD = S::LD;
@@ -227,10 +196,8 @@ flash_rows_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P V, P rounded to bf16 straight from the score registers
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int nb2 = 0; nb2 < D / 16; ++nb2) {
         uint32_t b[4];
@@ -255,11 +222,17 @@ flash_rows_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bb * rows + r1) * D + c) =
           __floats2bfloat162_rn(o[nb][2] * il1, o[nb][3] * il1);
   }
+  // row log2-sum-exp2 in the scaled base-2 domain, for the backward
+  if (lse && lane % 4 == 0) {
+    if (r0 < rows) lse[(size_t)bb * rows + r0] = m0 + log2f(l0);
+    if (r1 < rows) lse[(size_t)bb * rows + r1] = m1 + log2f(l1);
+  }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_scale,
-                   void* out, int b, int rows, int nk, float scale2, cudaStream_t stream) {
+                   void* out, void* lse, int b, int rows, int nk, float scale2,
+                   cudaStream_t stream) {
   const size_t smem = Smem<D>::total;
   cudaError_t err = cudaFuncSetAttribute(flash_rows_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -269,27 +242,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_sc
   flash_rows_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(q_scale),
-      static_cast<__nv_bfloat16*>(out), rows, nk, scale2);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), rows, nk, scale2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (b, rows, d), k/v (b, nk, d) bf16 contiguous; q_scale fp32 (d,) or null;
-// out (b, rows, d) bf16. d must be a multiple of 16, at most 128.
+// out (b, rows, d) bf16; lse fp32 (b, rows) or null. d must be a multiple of
+// 16, at most 128.
 extern "C" int flash_rows_fwd_bf16(const void* q, const void* k, const void* v,
-                                   const void* q_scale, void* out, int b, int rows,
-                                   int nk, int d, float scale2, void* stream) {
+                                   const void* q_scale, void* out, void* lse, int b,
+                                   int rows, int nk, int d, float scale2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 32: return launch<32>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 48: return launch<48>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 64: return launch<64>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 80: return launch<80>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 96: return launch<96>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 112: return launch<112>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
-    case 128: return launch<128>(q, k, v, q_scale, out, b, rows, nk, scale2, s);
+    case 16: return launch<16>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 32: return launch<32>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 48: return launch<48>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 64: return launch<64>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 80: return launch<80>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 96: return launch<96>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 112: return launch<112>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
+    case 128: return launch<128>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,14 @@
-"""Cascading continuous-time DDPM sampler (the `Imagen` class), sampling half.
+"""Cascading continuous-time DDPM (the `Imagen` class): sampling and the
+training loss.
 
-Counterpart of `imagen_tpu/diffusion/imagen.py`: classifier-free guidance as
-one doubled-batch forward, dynamic thresholding, low-res noise-aug
-conditioning, and the stage loop as a plain Python loop over steps. Noise
-comes from a `torch.Generator`, or from `noise_override`.
+Counterpart of `imagen_tpu/diffusion/imagen.py`. Sampling: classifier-free
+guidance as one doubled-batch forward, dynamic thresholding, low-res
+noise-aug conditioning, and the stage loop as a plain Python loop over steps.
+Training (`forward` -> `p_losses`): random times, the degraded low-res
+condition with its noise augmentation, the paired random crop, the three
+objectives and min-SNR weighting. Every draw comes from a `torch.Generator`
+(or is passed in: `noise_override` when sampling, `noise` and
+`lowres_aug_noise` in `p_losses`).
 """
 from __future__ import annotations
 
@@ -15,13 +20,20 @@ from torch import nn
 from imagen_tpu_torch.models.unet2d import NullUnet
 from imagen_tpu_torch.ops.diffusion_math import GaussianDiffusionContinuousTimes
 from imagen_tpu_torch.ops.tensor_utils import (
+    cast_uint8_images_to_float,
     normalize_neg_one_to_one,
     quantile_rows,
     resize_image_to,
     right_pad_dims_to,
     unnormalize_zero_to_one,
 )
-from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, pad_tuple_to_length
+from imagen_tpu_torch.utils.helpers import (
+    cast_tuple,
+    default,
+    exists,
+    pad_tuple_to_length,
+    resolve_device,
+)
 
 T5_ENCODED_DIMS = {
     'google/t5-v1_1-small': 512,
@@ -30,6 +42,22 @@ T5_ENCODED_DIMS = {
     'google/t5-v1_1-xl': 2048,
     'google/t5-v1_1-xxl': 4096,
 }
+
+def _l1_loss(pred, target):
+    return (pred - target).abs()
+
+
+def _l2_loss(pred, target):
+    return (pred - target) ** 2
+
+
+def _huber_loss(pred, target, beta: float = 1.0):
+    """smooth_l1 with beta 1."""
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff ** 2 / beta, diff - 0.5 * beta)
+
+
+LOSS_FNS = {'l1': _l1_loss, 'l2': _l2_loss, 'huber': _huber_loss}
 
 _CFG_BATCHED_KWARGS = ('text_embeds', 'text_mask', 'lowres_cond_img', 'lowres_noise_times')
 
@@ -53,6 +81,20 @@ def unet_forward_with_cond_scale(unet, x, time, *, cond_scale=1., **kwargs):
     return null_logits + (logits - null_logits) * cond_scale
 
 
+def _per_sample_random_crop(tensors, crop_size, generator=None):
+    """Paired per-sample random crop of NHWC tensors: the same offsets across
+    the tensors, drawn per sample from `generator`."""
+    b, h, w, _ = tensors[0].shape
+    device = tensors[0].device
+    tops = torch.randint(0, h - crop_size + 1, (b,), generator=generator, device=device)
+    lefts = torch.randint(0, w - crop_size + 1, (b,), generator=generator, device=device)
+    offsets = torch.arange(crop_size, device=device)
+    rows = (tops[:, None] + offsets)[:, :, None]
+    cols = (lefts[:, None] + offsets)[:, None, :]
+    batch = torch.arange(b, device=device)[:, None, None]
+    return tuple(t[batch, rows, cols] for t in tensors)
+
+
 class Imagen(nn.Module):
     """Cascade of unets with their noise schedules. Keyword names mirror the
     JAX `Imagen` fields.
@@ -60,16 +102,24 @@ class Imagen(nn.Module):
     Unets whose conditioning config the cascade must correct are rebuilt by
     `cast_model_parameters` with fresh weights: load weights after building
     the `Imagen`, or build each unet with the config it will have here
-    (`lowres_cond=True` for every stage after the first).
+    (`lowres_cond=True` for every stage after the first). The cascade lives on
+    `device` (None: the card; raises without one) and moves its unets there.
     """
 
     def __init__(self, unets, *, image_sizes, text_encoder_name='google/t5-v1_1-base',
                  text_embed_dim=None, channels=3, timesteps=1000, cond_drop_prob=0.1,
-                 noise_schedules='cosine', pred_objectives='noise',
-                 lowres_noise_schedule='linear', lowres_sample_noise_level=0.2,
+                 loss_type='l2', noise_schedules='cosine', pred_objectives='noise',
+                 random_crop_sizes=None, lowres_noise_schedule='linear',
+                 lowres_sample_noise_level=0.2, per_sample_random_aug_noise_level=False,
                  condition_on_text=True, auto_normalize_img=True,
-                 dynamic_thresholding=True, dynamic_thresholding_percentile=0.95):
+                 dynamic_thresholding=True, dynamic_thresholding_percentile=0.95,
+                 only_train_unet_number=None, min_snr_loss_weight=True, min_snr_gamma=5,
+                 device=None):
         super().__init__()
+        if loss_type not in LOSS_FNS:
+            raise NotImplementedError(f'unknown loss type {loss_type}')
+        self.loss_type = loss_type
+        self.loss_fn = LOSS_FNS[loss_type]
         unets = cast_tuple(unets)
         num_unets = len(unets)
         self.num_unets = num_unets
@@ -92,6 +142,15 @@ class Imagen(nn.Module):
             noise_schedule=lowres_noise_schedule)
         self.pred_objectives = cast_tuple(pred_objectives, num_unets)
         self.dynamic_thresholding = cast_tuple(dynamic_thresholding, num_unets)
+        self.random_crop_sizes = cast_tuple(random_crop_sizes, num_unets)
+        if exists(self.random_crop_sizes[0]):
+            raise ValueError('random_crop_sizes should be None for the base unet '
+                             '(e.g. (None, 128, 256))')
+        self.per_sample_random_aug_noise_level = per_sample_random_aug_noise_level
+        self.only_train_unet_number = only_train_unet_number
+        self.min_snr_gamma = tuple(
+            gamma if use else None for use, gamma in
+            zip(cast_tuple(min_snr_loss_weight, num_unets), cast_tuple(min_snr_gamma, num_unets)))
 
         if condition_on_text and text_embed_dim is None:
             if text_encoder_name not in T5_ENCODED_DIMS:
@@ -112,6 +171,8 @@ class Imagen(nn.Module):
 
         self.normalize_img = normalize_neg_one_to_one if auto_normalize_img else (lambda t: t)
         self.unnormalize_img = unnormalize_zero_to_one if auto_normalize_img else (lambda t: t)
+        self.input_image_range = (0. if auto_normalize_img else -1., 1.)
+        self.to(resolve_device(device))
 
     @property
     def device(self):
@@ -267,3 +328,131 @@ class Imagen(nn.Module):
                 break
 
         return img
+
+    # --- training loss ---------------------------------------------------------------------
+
+    def p_losses(self, unet, x_start, times, *, noise_scheduler, lowres_cond_img=None,
+                 lowres_aug_times=None, text_embeds=None, text_mask=None, noise=None,
+                 lowres_aug_noise=None, pred_objective='noise', min_snr_gamma=None,
+                 random_crop_size=None, generator=None):
+        """Denoising loss of one unet on a batch of images in the input range.
+
+        `noise` and `lowres_aug_noise` (the low-res condition's augmentation
+        noise, after any crop) are drawn from `generator` when not given, as
+        are the crop offsets and the text drop of classifier-free guidance.
+        """
+        def randn(shape, dtype):
+            return torch.randn(shape, generator=generator, device=x_start.device, dtype=dtype)
+
+        noise = default(noise, lambda: randn(x_start.shape, x_start.dtype))
+        x_start = self.normalize_img(x_start)
+        if exists(lowres_cond_img):
+            lowres_cond_img = self.normalize_img(lowres_cond_img)
+
+        if exists(random_crop_size):
+            tensors = (x_start, noise) + ((lowres_cond_img,) if exists(lowres_cond_img) else ())
+            x_start, noise, *rest = _per_sample_random_crop(tensors, random_crop_size, generator)
+            if exists(lowres_cond_img):
+                lowres_cond_img = rest[0]
+
+        x_noisy, log_snr, alpha, sigma = noise_scheduler.q_sample(x_start, times, noise)
+
+        lowres_cond_img_noisy = None
+        if exists(lowres_cond_img):
+            lowres_aug_times = default(lowres_aug_times, times)
+            lowres_aug_noise = default(
+                lowres_aug_noise, lambda: randn(lowres_cond_img.shape, lowres_cond_img.dtype))
+            lowres_cond_img_noisy, *_ = self.lowres_noise_schedule.q_sample(
+                lowres_cond_img, lowres_aug_times, lowres_aug_noise)
+
+        pred = unet(x_noisy, noise_scheduler.get_condition(times), text_embeds=text_embeds,
+                    text_mask=text_mask, lowres_cond_img=lowres_cond_img_noisy,
+                    lowres_noise_times=self.lowres_noise_schedule.get_condition(
+                        lowres_aug_times),
+                    cond_drop_prob=self.cond_drop_prob, generator=generator)
+
+        if pred_objective == 'noise':
+            target = noise
+        elif pred_objective == 'x_start':
+            target = x_start
+        elif pred_objective == 'v':
+            target = alpha * noise - sigma * x_start
+        else:
+            raise ValueError(f'unknown objective {pred_objective}')
+
+        losses = self.loss_fn(pred.float(), target.float())
+        losses = losses.reshape(losses.shape[0], -1).mean(dim=-1)
+
+        # min-SNR loss weighting (arXiv 2303.09556)
+        snr = torch.exp(log_snr.float())
+        clipped_snr = snr.clamp(max=min_snr_gamma) if exists(min_snr_gamma) else snr
+        if pred_objective == 'noise':
+            loss_weight = clipped_snr / snr
+        elif pred_objective == 'x_start':
+            loss_weight = clipped_snr
+        else:
+            loss_weight = clipped_snr / (snr + 1)
+        return (losses * loss_weight).mean()
+
+    def forward(self, images, *, unet_number=None, texts=None, text_embeds=None,
+                text_masks=None, generator=None):
+        """Training loss of unet `unet_number` on a batch of NHWC images in
+        [0, 1] (or uint8), drawing every random value from `generator`."""
+        if self.num_unets > 1 and not exists(unet_number):
+            raise ValueError(f'specify unet_number in [1, {self.num_unets}] for a cascade')
+        unet_number = default(unet_number, 1)
+        if exists(self.only_train_unet_number) and self.only_train_unet_number != unet_number:
+            raise ValueError(f'only unet {self.only_train_unet_number} may be trained')
+        if exists(texts):
+            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
+        index = unet_number - 1
+        unet = self.unets[index]
+        if isinstance(unet, NullUnet):
+            raise ValueError('a NullUnet cannot be trained')
+
+        device = self.device
+        images = cast_uint8_images_to_float(images.to(device))
+        if images.shape[-2] != images.shape[-3] or images.shape[-1] != self.channels:
+            raise ValueError(f'images must be square with {self.channels} channels, '
+                             f'got {tuple(images.shape)}')
+        noise_scheduler = self.noise_schedulers[index]
+        target_size = self.image_sizes[index]
+        b = images.shape[0]
+        if images.shape[-2] < target_size:
+            raise ValueError(f'images of {images.shape[-2]} px are smaller than {target_size}')
+
+        times = noise_scheduler.sample_random_times(b, generator, device)
+
+        if not self.unconditional:
+            if not exists(text_embeds):
+                raise ValueError('text embeddings must be passed to a conditional imagen')
+            text_embeds = text_embeds.to(device)
+            if text_embeds.shape[-1] != self.text_embed_dim:
+                raise ValueError(f'text embeddings of dim {text_embeds.shape[-1]}, '
+                                 f'expected {self.text_embed_dim}')
+            text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
+                else text_masks.to(device)
+        elif exists(text_embeds):
+            raise ValueError('unconditional imagen cannot take text embeddings')
+
+        # the degraded low-res condition and its augmentation times
+        lowres_cond_img = lowres_aug_times = None
+        if index > 0:
+            lowres_cond_img = resize_image_to(images, self.image_sizes[index - 1],
+                                              clamp_range=self.input_image_range)
+            lowres_cond_img = resize_image_to(lowres_cond_img, target_size,
+                                              clamp_range=self.input_image_range)
+            if self.per_sample_random_aug_noise_level:
+                lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
+                    b, generator, device)
+            else:
+                lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
+                    1, generator, device).expand(b)
+
+        images = resize_image_to(images, target_size)
+        return self.p_losses(
+            unet, images, times, noise_scheduler=noise_scheduler, text_embeds=text_embeds,
+            text_mask=text_masks, lowres_cond_img=lowres_cond_img,
+            lowres_aug_times=lowres_aug_times, pred_objective=self.pred_objectives[index],
+            min_snr_gamma=self.min_snr_gamma[index],
+            random_crop_size=self.random_crop_sizes[index], generator=generator)

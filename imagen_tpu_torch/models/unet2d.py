@@ -29,7 +29,7 @@ from imagen_tpu_torch.models.blocks import (
     UpsampleCombiner,
 )
 from imagen_tpu_torch.ops.tensor_utils import prob_mask_like
-from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
+from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
 
 DEFAULT_TEXT_EMBED_DIM = 768  # t5-v1_1-base d_model
 
@@ -97,179 +97,181 @@ class Unet(nn.Module):
         combine_upsample_fmaps=False,
         pixel_shuffle_upsample=True,
         dtype=F32,
+        device=None,
     ):
         super().__init__()
-        if attn_heads <= 1:
-            raise ValueError('you need more than 1 attention head')
-        if any(cast_tuple(use_linear_attn)) or any(cast_tuple(use_linear_cross_attn)):
-            raise NotImplementedError('linear attention is not ported yet')
-        if cross_embed_downsample or self_cond or cond_images_channels > 0:
-            raise NotImplementedError(
-                'cross-embed downsample, self-conditioning and cond images are not ported yet')
+        with torch.device(resolve_device(device)):  # build on the card unless asked
+            if attn_heads <= 1:
+                raise ValueError('you need more than 1 attention head')
+            if any(cast_tuple(use_linear_attn)) or any(cast_tuple(use_linear_cross_attn)):
+                raise NotImplementedError('linear attention is not ported yet')
+            if cross_embed_downsample or self_cond or cond_images_channels > 0:
+                raise NotImplementedError(
+                    'cross-embed downsample, self-conditioning and cond images are not ported yet')
 
-        # constructor arguments, for cast_model_parameters
-        self._config = {k: v for k, v in locals().items()
-                        if k not in ('self', '__class__')}
+            # constructor arguments, for cast_model_parameters
+            self._config = {k: v for k, v in locals().items()
+                            if k not in ('self', '__class__', 'device')}
 
-        self.channels = channels
-        self.channels_out = default(channels_out, channels)
-        self.lowres_cond = lowres_cond
-        self.cond_on_text = cond_on_text
-        self.text_embed_dim = text_embed_dim
-        self.max_text_len = max_text_len
-        self.dtype = dtype
+            self.channels = channels
+            self.channels_out = default(channels_out, channels)
+            self.lowres_cond = lowres_cond
+            self.cond_on_text = cond_on_text
+            self.text_embed_dim = text_embed_dim
+            self.max_text_len = max_text_len
+            self.dtype = dtype
 
-        num_layers = len(dim_mults)
-        init_dim = default(init_dim, dim)
-        cond_dim = default(cond_dim, dim)
-        time_cond_dim = dim * 4 * (2 if lowres_cond else 1)
-        self.skip_connect_scale = 1. if not scale_skip_connection else 2 ** -0.5
+            num_layers = len(dim_mults)
+            init_dim = default(init_dim, dim)
+            cond_dim = default(cond_dim, dim)
+            time_cond_dim = dim * 4 * (2 if lowres_cond else 1)
+            self.skip_connect_scale = 1. if not scale_skip_connection else 2 ** -0.5
 
-        num_resnet_blocks = cast_tuple(num_resnet_blocks, num_layers)
-        layer_attns = cast_tuple(layer_attns, num_layers)
-        layer_attns_depth = cast_tuple(layer_attns_depth, num_layers)
-        layer_cross_attns = cast_tuple(layer_cross_attns, num_layers)
+            num_resnet_blocks = cast_tuple(num_resnet_blocks, num_layers)
+            layer_attns = cast_tuple(layer_attns, num_layers)
+            layer_attns_depth = cast_tuple(layer_attns_depth, num_layers)
+            layer_cross_attns = cast_tuple(layer_cross_attns, num_layers)
 
-        dims = [init_dim, *(dim * m for m in dim_mults)]
-        in_out = list(zip(dims[:-1], dims[1:]))
-        attn_kwargs = dict(heads=attn_heads, dim_head=attn_dim_head)
-        resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads, dtype=dtype)
+            dims = [init_dim, *(dim * m for m in dim_mults)]
+            in_out = list(zip(dims[:-1], dims[1:]))
+            attn_kwargs = dict(heads=attn_heads, dim_head=attn_dim_head)
+            resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads, dtype=dtype)
 
-        # input channels: image + lowres conditioning image
-        init_channels = channels * (1 + int(lowres_cond))
-        if init_cross_embed:
-            self.init_conv = CrossEmbedLayer(init_channels, init_cross_embed_kernel_sizes,
-                                             dim_out=init_dim, stride=1, dtype=dtype)
-        else:
-            k = init_conv_kernel_size
-            self.init_conv = Conv2d(init_channels, init_dim, k, padding=k // 2, dtype=dtype)
-        self.init_conv_to_final_conv_residual = init_conv_to_final_conv_residual
-
-        # time conditioning
-        sinu_dim = learned_sinu_pos_emb_dim
-
-        def time_heads():
-            hiddens = nn.Sequential(LearnedSinusoidalPosEmb(sinu_dim),
-                                    Linear(sinu_dim + 1, time_cond_dim, dtype=dtype),
-                                    nn.SiLU())
-            cond = nn.Sequential(Linear(time_cond_dim, time_cond_dim, dtype=dtype))
-            tokens = nn.Sequential(Linear(time_cond_dim, cond_dim * num_time_tokens,
-                                          dtype=dtype), _Rearrange(num_time_tokens))
-            return hiddens, cond, tokens
-
-        self.to_time_hiddens, self.to_time_cond, self.to_time_tokens = time_heads()
-        if lowres_cond:
-            (self.to_lowres_time_hiddens, self.to_lowres_time_cond,
-             self.to_lowres_time_tokens) = time_heads()
-
-        # text conditioning
-        self.norm_cond = TorchLayerNorm(cond_dim, dtype=dtype)
-        if cond_on_text:
-            if not exists(text_embed_dim):
-                raise ValueError('text_embed_dim must be given when conditioning on text')
-            self.text_to_cond = Linear(text_embed_dim, cond_dim, dtype=dtype)
-            self.attn_pool = PerceiverResampler(
-                cond_dim, depth=2, dim_head=attn_dim_head, heads=attn_heads,
-                num_latents=attn_pool_num_latents, dtype=dtype) if attn_pool_text else None
-            self.null_text_embed = nn.Parameter(torch.randn(1, max_text_len, cond_dim))
-            self.null_text_hidden = nn.Parameter(torch.randn(1, time_cond_dim))
-            self.to_text_non_attn_cond = nn.Sequential(
-                TorchLayerNorm(cond_dim, dtype=dtype),
-                Linear(cond_dim, time_cond_dim, dtype=dtype),
-                nn.SiLU(),
-                Linear(time_cond_dim, time_cond_dim, dtype=dtype),
-            )
-
-        self.init_resnet_block = ResnetBlock(
-            init_dim, init_dim, time_cond_dim=time_cond_dim,
-            use_gca=use_global_context_attn, **resnet_kwargs) if memory_efficient else None
-
-        def transformer(layer_attn, depth, dim_):
-            if not layer_attn:
-                return None
-            return TransformerBlock(dim_, depth=depth, ff_mult=ff_mult, context_dim=cond_dim,
-                                    dtype=dtype, **attn_kwargs)
-
-        # down path: [pre_downsample, init block, blocks, transformer, post_downsample]
-        self.downs = nn.ModuleList()
-        for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn) in \
-                enumerate(zip(in_out, num_resnet_blocks, layer_attns, layer_attns_depth,
-                              layer_cross_attns)):
-            is_last = ind >= (num_layers - 1)
-            layer_cond_dim = cond_dim if layer_cross_attn else None
-            current_dim = dim_out if memory_efficient else dim_in
-            pre = Downsample(dim_in, dim_out, dtype=dtype) if memory_efficient else None
-            if memory_efficient:
-                post = None
-            elif not is_last:
-                post = Downsample(current_dim, dim_out, dtype=dtype)
+            # input channels: image + lowres conditioning image
+            init_channels = channels * (1 + int(lowres_cond))
+            if init_cross_embed:
+                self.init_conv = CrossEmbedLayer(init_channels, init_cross_embed_kernel_sizes,
+                                                 dim_out=init_dim, stride=1, dtype=dtype)
             else:
-                post = Parallel(Conv2d(dim_in, dim_out, 3, padding=1, dtype=dtype),
-                                Conv1x1(dim_in, dim_out, dtype=dtype))
-            self.downs.append(nn.ModuleList([
-                pre,
-                ResnetBlock(current_dim, current_dim, cond_dim=layer_cond_dim,
-                            time_cond_dim=time_cond_dim, **resnet_kwargs),
-                nn.ModuleList([
-                    ResnetBlock(current_dim, current_dim, time_cond_dim=time_cond_dim,
-                                use_gca=use_global_context_attn, **resnet_kwargs)
-                    for _ in range(nblocks)]),
-                transformer(layer_attn, attn_depth, current_dim),
-                post,
-            ]))
+                k = init_conv_kernel_size
+                self.init_conv = Conv2d(init_channels, init_dim, k, padding=k // 2, dtype=dtype)
+            self.init_conv_to_final_conv_residual = init_conv_to_final_conv_residual
 
-        # middle: plain ResnetBlocks, so their cross-attention keeps the defaults
-        mid_dim = dims[-1]
-        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
-                                      time_cond_dim=time_cond_dim, dtype=dtype)
-        self.mid_attn = TransformerBlock(
-            mid_dim, depth=layer_mid_attns_depth, dtype=dtype,
-            **attn_kwargs) if attend_at_middle else None
-        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
-                                      time_cond_dim=time_cond_dim, dtype=dtype)
+            # time conditioning
+            sinu_dim = learned_sinu_pos_emb_dim
 
-        # up path: [init block, blocks, transformer, upsample]
-        upsample_klass = PixelShuffleUpsample if pixel_shuffle_upsample else Upsample
-        self.ups = nn.ModuleList()
-        upsample_fmap_dims = []
-        skip_dims = [dim_out if memory_efficient else dim_in for dim_in, dim_out in in_out]
-        rev = lambda tup: tuple(reversed(tup))  # noqa: E731
-        for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn) in \
-                enumerate(zip(rev(in_out), rev(num_resnet_blocks), rev(layer_attns),
-                              rev(layer_attns_depth), rev(layer_cross_attns))):
-            is_last = ind == (num_layers - 1)
-            layer_cond_dim = cond_dim if layer_cross_attn else None
-            skip_dim = skip_dims[num_layers - 1 - ind]
-            upsample_fmap_dims.append(dim_out)
-            self.ups.append(nn.ModuleList([
-                ResnetBlock(dim_out + skip_dim, dim_out, cond_dim=layer_cond_dim,
-                            time_cond_dim=time_cond_dim, **resnet_kwargs),
-                nn.ModuleList([
-                    ResnetBlock(dim_out + skip_dim, dim_out, time_cond_dim=time_cond_dim,
-                                use_gca=use_global_context_attn, **resnet_kwargs)
-                    for _ in range(nblocks)]),
-                transformer(layer_attn, attn_depth, dim_out),
-                upsample_klass(dim_out, dim_in, dtype=dtype)
-                if (not is_last or memory_efficient) else None,
-            ]))
+            def time_heads():
+                hiddens = nn.Sequential(LearnedSinusoidalPosEmb(sinu_dim),
+                                        Linear(sinu_dim + 1, time_cond_dim, dtype=dtype),
+                                        nn.SiLU())
+                cond = nn.Sequential(Linear(time_cond_dim, time_cond_dim, dtype=dtype))
+                tokens = nn.Sequential(Linear(time_cond_dim, cond_dim * num_time_tokens,
+                                              dtype=dtype), _Rearrange(num_time_tokens))
+                return hiddens, cond, tokens
 
-        self.upsample_combiner = UpsampleCombiner(
-            dim, enabled=combine_upsample_fmaps, dim_ins=tuple(upsample_fmap_dims),
-            dim_outs=dim, dtype=dtype)
+            self.to_time_hiddens, self.to_time_cond, self.to_time_tokens = time_heads()
+            if lowres_cond:
+                (self.to_lowres_time_hiddens, self.to_lowres_time_cond,
+                 self.to_lowres_time_tokens) = time_heads()
 
-        final_conv_dim = self.upsample_combiner.dim_out
-        if init_conv_to_final_conv_residual:
-            final_conv_dim += init_dim
-        self.final_res_block = ResnetBlock(
-            final_conv_dim, dim, time_cond_dim=time_cond_dim, use_gca=True,
-            **resnet_kwargs) if final_resnet_block else None
-        final_conv_dim_in = dim if final_resnet_block else final_conv_dim
-        final_conv_dim_in += channels if lowres_cond else 0
-        k = final_conv_kernel_size
-        self.final_conv = Conv2d(final_conv_dim_in, self.channels_out, k, padding=k // 2,
-                                 dtype=dtype)
-        nn.init.zeros_(self.final_conv.weight)
-        nn.init.zeros_(self.final_conv.bias)
+            # text conditioning
+            self.norm_cond = TorchLayerNorm(cond_dim, dtype=dtype)
+            if cond_on_text:
+                if not exists(text_embed_dim):
+                    raise ValueError('text_embed_dim must be given when conditioning on text')
+                self.text_to_cond = Linear(text_embed_dim, cond_dim, dtype=dtype)
+                self.attn_pool = PerceiverResampler(
+                    cond_dim, depth=2, dim_head=attn_dim_head, heads=attn_heads,
+                    num_latents=attn_pool_num_latents, dtype=dtype) if attn_pool_text else None
+                self.null_text_embed = nn.Parameter(torch.randn(1, max_text_len, cond_dim))
+                self.null_text_hidden = nn.Parameter(torch.randn(1, time_cond_dim))
+                self.to_text_non_attn_cond = nn.Sequential(
+                    TorchLayerNorm(cond_dim, dtype=dtype),
+                    Linear(cond_dim, time_cond_dim, dtype=dtype),
+                    nn.SiLU(),
+                    Linear(time_cond_dim, time_cond_dim, dtype=dtype),
+                )
+
+            self.init_resnet_block = ResnetBlock(
+                init_dim, init_dim, time_cond_dim=time_cond_dim,
+                use_gca=use_global_context_attn, **resnet_kwargs) if memory_efficient else None
+
+            def transformer(layer_attn, depth, dim_):
+                if not layer_attn:
+                    return None
+                return TransformerBlock(dim_, depth=depth, ff_mult=ff_mult, context_dim=cond_dim,
+                                        dtype=dtype, **attn_kwargs)
+
+            # down path: [pre_downsample, init block, blocks, transformer, post_downsample]
+            self.downs = nn.ModuleList()
+            for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn) in \
+                    enumerate(zip(in_out, num_resnet_blocks, layer_attns, layer_attns_depth,
+                                  layer_cross_attns)):
+                is_last = ind >= (num_layers - 1)
+                layer_cond_dim = cond_dim if layer_cross_attn else None
+                current_dim = dim_out if memory_efficient else dim_in
+                pre = Downsample(dim_in, dim_out, dtype=dtype) if memory_efficient else None
+                if memory_efficient:
+                    post = None
+                elif not is_last:
+                    post = Downsample(current_dim, dim_out, dtype=dtype)
+                else:
+                    post = Parallel(Conv2d(dim_in, dim_out, 3, padding=1, dtype=dtype),
+                                    Conv1x1(dim_in, dim_out, dtype=dtype))
+                self.downs.append(nn.ModuleList([
+                    pre,
+                    ResnetBlock(current_dim, current_dim, cond_dim=layer_cond_dim,
+                                time_cond_dim=time_cond_dim, **resnet_kwargs),
+                    nn.ModuleList([
+                        ResnetBlock(current_dim, current_dim, time_cond_dim=time_cond_dim,
+                                    use_gca=use_global_context_attn, **resnet_kwargs)
+                        for _ in range(nblocks)]),
+                    transformer(layer_attn, attn_depth, current_dim),
+                    post,
+                ]))
+
+            # middle: plain ResnetBlocks, so their cross-attention keeps the defaults
+            mid_dim = dims[-1]
+            self.mid_block1 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
+                                          time_cond_dim=time_cond_dim, dtype=dtype)
+            self.mid_attn = TransformerBlock(
+                mid_dim, depth=layer_mid_attns_depth, dtype=dtype,
+                **attn_kwargs) if attend_at_middle else None
+            self.mid_block2 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
+                                          time_cond_dim=time_cond_dim, dtype=dtype)
+
+            # up path: [init block, blocks, transformer, upsample]
+            upsample_klass = PixelShuffleUpsample if pixel_shuffle_upsample else Upsample
+            self.ups = nn.ModuleList()
+            upsample_fmap_dims = []
+            skip_dims = [dim_out if memory_efficient else dim_in for dim_in, dim_out in in_out]
+            rev = lambda tup: tuple(reversed(tup))  # noqa: E731
+            for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn) in \
+                    enumerate(zip(rev(in_out), rev(num_resnet_blocks), rev(layer_attns),
+                                  rev(layer_attns_depth), rev(layer_cross_attns))):
+                is_last = ind == (num_layers - 1)
+                layer_cond_dim = cond_dim if layer_cross_attn else None
+                skip_dim = skip_dims[num_layers - 1 - ind]
+                upsample_fmap_dims.append(dim_out)
+                self.ups.append(nn.ModuleList([
+                    ResnetBlock(dim_out + skip_dim, dim_out, cond_dim=layer_cond_dim,
+                                time_cond_dim=time_cond_dim, **resnet_kwargs),
+                    nn.ModuleList([
+                        ResnetBlock(dim_out + skip_dim, dim_out, time_cond_dim=time_cond_dim,
+                                    use_gca=use_global_context_attn, **resnet_kwargs)
+                        for _ in range(nblocks)]),
+                    transformer(layer_attn, attn_depth, dim_out),
+                    upsample_klass(dim_out, dim_in, dtype=dtype)
+                    if (not is_last or memory_efficient) else None,
+                ]))
+
+            self.upsample_combiner = UpsampleCombiner(
+                dim, enabled=combine_upsample_fmaps, dim_ins=tuple(upsample_fmap_dims),
+                dim_outs=dim, dtype=dtype)
+
+            final_conv_dim = self.upsample_combiner.dim_out
+            if init_conv_to_final_conv_residual:
+                final_conv_dim += init_dim
+            self.final_res_block = ResnetBlock(
+                final_conv_dim, dim, time_cond_dim=time_cond_dim, use_gca=True,
+                **resnet_kwargs) if final_resnet_block else None
+            final_conv_dim_in = dim if final_resnet_block else final_conv_dim
+            final_conv_dim_in += channels if lowres_cond else 0
+            k = final_conv_kernel_size
+            self.final_conv = Conv2d(final_conv_dim_in, self.channels_out, k, padding=k // 2,
+                                     dtype=dtype)
+            nn.init.zeros_(self.final_conv.weight)
+            nn.init.zeros_(self.final_conv.bias)
 
     def cast_model_parameters(self, *, lowres_cond, text_embed_dim, channels, channels_out,
                               cond_on_text):
@@ -284,9 +286,21 @@ class Unet(nn.Module):
         config = {**self._config, 'lowres_cond': lowres_cond,
                   'text_embed_dim': text_embed_dim, 'channels': channels,
                   'channels_out': channels_out, 'cond_on_text': cond_on_text}
-        device = next(self.parameters()).device
-        with torch.device(device):
-            return Unet(**config)
+        return Unet(**config, device=self.device)
+
+    @property
+    def device(self):
+        return next(self.parameters()).device
+
+    def set_compute_dtype(self, dtype):
+        """Compute in `dtype` from now on (parameters stay as they are): the
+        trainer's `precision='bf16'`, like `unet.clone(dtype=...)` in JAX."""
+        self.dtype = dtype
+        self._config['dtype'] = dtype
+        for m in self.modules():
+            if hasattr(m, 'compute_dtype'):
+                m.compute_dtype = dtype
+        return self
 
     def _time_mlp(self, t_in, hiddens, cond, tokens):
         h = hiddens[0](t_in)
@@ -295,10 +309,12 @@ class Unet(nn.Module):
 
     def forward(self, x, time, *, lowres_cond_img=None, lowres_noise_times=None,
                 text_embeds=None, text_mask=None, cond_drop_prob=0.,
-                force_text_drop_mask=None):
-        """x (b, H, W, c) NHWC. `force_text_drop_mask` (b,) bool overrides the CFG
-        draw, True dropping to the null embeddings: classifier-free guidance
-        runs the conditional and null halves as one doubled-batch forward."""
+                force_text_drop_mask=None, generator=None):
+        """x (b, H, W, c) NHWC. The text is dropped to the null embeddings with
+        probability `cond_drop_prob`, drawn from `generator`.
+        `force_text_drop_mask` (b,) bool overrides that draw, True dropping:
+        classifier-free guidance runs the conditional and null halves as one
+        doubled-batch forward."""
         batch_size = x.shape[0]
         device = x.device
         dtype = self.dtype
@@ -325,7 +341,8 @@ class Unet(nn.Module):
             if exists(force_text_drop_mask):
                 text_keep_mask = ~force_text_drop_mask.to(device)
             else:
-                text_keep_mask = prob_mask_like((batch_size,), 1 - cond_drop_prob, device)
+                text_keep_mask = prob_mask_like((batch_size,), 1 - cond_drop_prob, device,
+                                                generator=generator)
             text_keep_mask_embed = text_keep_mask[:, None, None]
             text_keep_mask_hidden = text_keep_mask[:, None]
 
@@ -412,17 +429,18 @@ class Unet(nn.Module):
 class NullUnet(nn.Module):
     """Identity placeholder for a skipped cascade stage."""
 
-    def __init__(self, lowres_cond=False, channels=3):
+    def __init__(self, lowres_cond=False, channels=3, device=None):
         super().__init__()
         self.lowres_cond = lowres_cond
         self.channels = channels
         self.channels_out = channels
-        self.dummy = nn.Parameter(torch.zeros(1))
+        self.dummy = nn.Parameter(torch.zeros(1, device=resolve_device(device)))
 
     def cast_model_parameters(self, *, lowres_cond=False, **kwargs):
         if lowres_cond == self.lowres_cond:
             return self
-        return NullUnet(lowres_cond=lowres_cond, channels=self.channels)
+        return NullUnet(lowres_cond=lowres_cond, channels=self.channels,
+                        device=self.dummy.device)
 
     def forward(self, x, *args, **kwargs):
         return x

@@ -1,10 +1,12 @@
 """Build, load and count the hand-written Hopper kernels in `csrc/`.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens at
-first use, into `build/imagen_tpu_torch/` at the root of the checkout, under a
-name keyed by a hash of the sources, so an edit to any source rebuilds. A
-failed build raises; nothing falls back to the plain PyTorch versions.
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers it includes) is
+compiled by `nvcc` for `sm_90a`, one process per file, all at once, and
+linked into one shared library with a plain C interface, loaded with
+`ctypes`. The build happens at first use, into `build/imagen_tpu_torch/` at
+the root of the checkout, under a name keyed by a hash of the sources, so an
+edit to any source rebuilds. A failed build raises; nothing falls back to
+the plain PyTorch versions.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, launches
 on that stream and returns `cudaGetLastError()`; `launch` raises when it is
@@ -25,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'imagen_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-Xcompiler', '-fPIC')
 
 # Launches of each kernel, by name; a wrapper adds one where it launches.
 LAUNCHES: Counter = Counter()
@@ -35,8 +37,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each entry point; every one returns a cudaError_t.
 SIGNATURES = {
-    # q, k, v, q_scale (nullable), out, b, rows, nk, d, scale2, stream
-    'flash_rows_fwd_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, q_scale (nullable), out, lse (nullable), b, rows, nk, d, scale2, stream
+    'flash_rows_fwd_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, dout, lse, delta, dq, dk, dv, b, rows, nk, d, scale, stream
+    'flash_rows_bwd_bf16': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # x, w (kh, kw, I, O), bias (nullable), out, b, H, W, cin, cout, stream
     'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, stream
@@ -53,7 +57,7 @@ def _sources():
 
 def source_hash():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted(CSRC.glob('*.cu*')):  # the .cu files and the headers they include
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -70,19 +74,27 @@ def _nvcc():
     raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate() for proc in procs]  # waits for every process
+    for cmd, proc, (out, err) in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{out}\n{err}')
+
+
 def _build(target: Path):
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources()]
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-            f'{proc.stdout}\n{proc.stderr}')
-    os.replace(tmp, target)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f'{p.stem}.o') for p in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', o, str(p)]
+                  for p, o in zip(_sources(), objs)])
+        so = str(Path(tmp) / 'lib.so')
+        _run_all([[nvcc, '-shared', '-o', so, *objs]])
+        os.replace(so, target)
 
 
 def library():

@@ -9,6 +9,12 @@ its design answers that.
 On a CPU tensor `conv2d_same` runs `conv2d_same_reference`, the plain
 PyTorch version (the XLA reference `_xla_reference` of the JAX package). On
 a CUDA tensor it launches the kernel or raises.
+
+When a gradient is wanted the call is an autograd Function whose backward is
+the JAX package's: the linear transposes of the conv in its two factors
+(`imagen_tpu/ops/conv2d.py` `_bwd`, computed by XLA there, by cuDNN's
+`convolution_backward` here), with no forward recompute, and the bias
+gradient as the sum of the output gradient over (b, H, W).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
+from imagen_tpu_torch.ops.tensor_utils import wants_grad
 
 KERNEL = 'conv2d_same_3x3_bf16'
 
@@ -52,8 +59,7 @@ def conv2d_same_reference(x, w, bias):
     return y
 
 
-def conv2d_same(x, w, bias):
-    """x NHWC, w (3, 3, cin, cout), bias (cout,) or None."""
+def _conv_forward(x, w, bias):
     if x.device.type == 'cpu':
         return conv2d_same_reference(x, w, bias)
     if not x.is_cuda or w.device != x.device:
@@ -76,3 +82,35 @@ def conv2d_same(x, w, bias):
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   b, H, W, cin, coutp)
     return out if coutp == cout else out[..., :cout]
+
+
+class _Conv2dSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _conv_forward(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        # the unpadded weight, in x's dtype as the forward used it
+        wc = w.to(x.dtype).permute(3, 2, 0, 1)
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None, [1, 1], [1, 1],
+            [1, 1], False, [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        if dx is not None:
+            dx = dx.permute(0, 2, 3, 1)
+        if dw is not None:
+            dw = dw.permute(2, 3, 1, 0).to(w.dtype)
+        db = None
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+        return dx, dw, db
+
+
+def conv2d_same(x, w, bias):
+    """x NHWC, w (3, 3, cin, cout), bias (cout,) or None."""
+    if wants_grad(x, w, bias):
+        return _Conv2dSame.apply(x, w, bias)
+    return _conv_forward(x, w, bias)

@@ -1,7 +1,8 @@
 """Continuous-time Gaussian diffusion math (log-SNR formulation), in fp32.
 
 Counterpart of `imagen_tpu/ops/diffusion_math.py`
-(`GaussianDiffusionContinuousTimes`). Noise is always passed in.
+(`GaussianDiffusionContinuousTimes`). Noise is always passed in; random
+times are drawn from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -53,6 +54,11 @@ class GaussianDiffusionContinuousTimes:
     def get_times(self, batch_size, noise_level, device=None):
         return torch.full((batch_size,), noise_level, dtype=torch.float32,
                           device=device)
+
+    def sample_random_times(self, batch_size, generator=None, device=None):
+        """t ~ U(0, 1) per sample, drawn from `generator`."""
+        return torch.rand((batch_size,), generator=generator, device=device,
+                          dtype=torch.float32)
 
     def get_condition(self, times):
         return self.log_snr(times) if exists(times) else None

@@ -11,6 +11,10 @@ w0 (hid, k), w1 (k, hid); g0 (k,), g1 (hid,) are the LayerNorm gains.
 On a CPU tensor `fused_feedforward` runs `feedforward_reference`, the plain
 PyTorch version (`_ff_xla` of the JAX package). On a CUDA tensor it launches
 the kernel or raises.
+
+When a gradient is wanted the call is an autograd Function whose backward is
+the JAX package's (`_ff_bwd`): the plain chain recomputed and differentiated
+by autograd, so only the inputs are kept between forward and backward.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
+from imagen_tpu_torch.ops.tensor_utils import wants_grad
 
 KERNEL = 'fused_feedforward_bf16'
 _FF_WEIGHT_BUDGET = 4 * 1024 * 1024
@@ -62,8 +67,7 @@ def feedforward_reference(x, g0, w0, g1, w1, eps):
     return F.linear(h, w1.to(h.dtype))
 
 
-def fused_feedforward(x, g0, w0, g1, w1, eps):
-    """x (..., k) -> (..., k)."""
+def _ff_forward(x, g0, w0, g1, w1, eps):
     if x.device.type == 'cpu':
         return feedforward_reference(x, g0, w0, g1, w1, eps)
     if not x.is_cuda or w0.device != x.device or w1.device != x.device:
@@ -87,3 +91,28 @@ def fused_feedforward(x, g0, w0, g1, w1, eps):
     _build.launch(KERNEL, x2.data_ptr(), g0f.data_ptr(), w0c.data_ptr(), g1f.data_ptr(),
                   w1c.data_ptr(), out.data_ptr(), rows, k, hid, float(eps))
     return out.reshape(shape)
+
+
+class _FusedFeedForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g0, w0, g1, w1, eps):
+        ctx.save_for_backward(x, g0, w0, g1, w1)
+        ctx.eps = eps
+        return _ff_forward(x, g0, w0, g1, w1, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = feedforward_reference(*inputs, ctx.eps)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def fused_feedforward(x, g0, w0, g1, w1, eps):
+    """x (..., k) -> (..., k)."""
+    if wants_grad(x, g0, w0, g1, w1):
+        return _FusedFeedForward.apply(x, g0, w0, g1, w1, eps)
+    return _ff_forward(x, g0, w0, g1, w1, eps)

@@ -10,6 +10,13 @@ import torch.nn.functional as F
 from imagen_tpu_torch.utils.helpers import exists
 
 
+def wants_grad(*tensors):
+    """Whether autograd would record a call on these tensors (None skipped):
+    the kernel wrappers take their autograd Function only then."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def log(t, eps: float = 1e-12):
     """Stable log."""
     return torch.log(t.clamp(min=eps))
@@ -37,15 +44,26 @@ def masked_mean(t, *, dim, mask=None):
     return masked_t.sum(dim=dim) / denom.clamp(min=1e-5)
 
 
-def resize_image_to(image, target_image_size):
-    """Nearest resize of an NHWC batch to a square size.
+def resize_image_to(image, target_image_size, clamp_range=None):
+    """Nearest resize of an NHWC batch to a square size, then clamped to
+    `clamp_range` (lo, hi) when given.
 
     'nearest-exact' samples at half-pixel centres, as `jax.image.resize` does.
     """
     if image.shape[-2] == target_image_size:
         return image
-    return F.interpolate(image.permute(0, 3, 1, 2), size=target_image_size,
-                         mode='nearest-exact').permute(0, 2, 3, 1)
+    out = F.interpolate(image.permute(0, 3, 1, 2), size=target_image_size,
+                        mode='nearest-exact').permute(0, 2, 3, 1)
+    if exists(clamp_range):
+        out = out.clamp(*clamp_range)
+    return out
+
+
+def cast_uint8_images_to_float(images):
+    """uint8 [0, 255] -> float [0, 1]; other dtypes pass through."""
+    if images.dtype != torch.uint8:
+        return images
+    return images.float() / 255
 
 
 def normalize_neg_one_to_one(img):
@@ -56,13 +74,14 @@ def unnormalize_zero_to_one(normed_img):
     return (normed_img + 1) * 0.5
 
 
-def prob_mask_like(shape, prob, device):
-    """Bernoulli keep-mask for classifier-free-guidance dropout."""
+def prob_mask_like(shape, prob, device, generator=None):
+    """Bernoulli keep-mask for classifier-free-guidance dropout, drawn from
+    `generator` (torch's global generator when None)."""
     if prob == 1:
         return torch.ones(shape, dtype=torch.bool, device=device)
     if prob == 0:
         return torch.zeros(shape, dtype=torch.bool, device=device)
-    return torch.rand(shape, device=device) < prob
+    return torch.rand(shape, device=device, generator=generator) < prob
 
 
 def quantile_rows(flat, q):

@@ -21,7 +21,8 @@ import imagen_tpu_torch as it
 STEPS = (16, 8)  # the steps of chip_smoke.py, cut from (1000, 1000) for time
 
 CATEGORIES = (
-    ('port kernels', ('conv2d_same_3x3', 'flash_rows_fwd', 'fused_feedforward')),
+    ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward')),
+    ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),
     ('copy / cast', ('copy', 'memcpy', 'memset', 'cat', 'pad')),
@@ -47,10 +48,9 @@ def main():
         sys.exit('needs a CUDA device')
 
     torch.manual_seed(0)
-    with torch.device('cuda'):
-        base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
-        sr = it.SRUnet256(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
-                          lowres_cond=True)
+    base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
+    sr = it.SRUnet256(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
+                      lowres_cond=True)
     with torch.no_grad():
         for unet in (base, sr):
             unet.final_conv.weight.normal_(0., 0.02)

@@ -33,3 +33,14 @@ def pad_tuple_to_length(t, length, fillvalue=None):
     if remain_length <= 0:
         return t
     return (*t, *((fillvalue,) * remain_length))
+
+
+def resolve_device(device=None):
+    """The device to build on: None means the card ('cuda'). Raises when no
+    GPU is present rather than falling back to the CPU; pass device='cpu'
+    to build there."""
+    import torch
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available: pass device="cpu" to build on the CPU')
+    return device

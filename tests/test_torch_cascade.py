@@ -42,9 +42,9 @@ def cascades():
         if unet.lowres_cond:
             kw.update(lowres_cond_img=x, lowres_noise_times=time)
         params.append(random_params(unet, x, time, **kw, seed=20 + i))
-    tunets = [load_into(it.Unet(**cfg), p) for cfg, p in zip((BASE_CFG, SR_CFG), params)]
+    tunets = [load_into(it.Unet(**cfg, device='cpu'), p) for cfg, p in zip((BASE_CFG, SR_CFG), params)]
     timagen = it.Imagen(tunets, image_sizes=SIZES, text_embed_dim=16, timesteps=STEPS,
-                        cond_drop_prob=0.1)
+                        cond_drop_prob=0.1, device='cpu')
     return jimagen, params, timagen
 
 

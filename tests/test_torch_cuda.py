@@ -3,6 +3,8 @@
 Each kernel's bf16 output and the plain version's bf16 output are measured
 against the plain version in fp32 on the same (bf16-valued) inputs; the
 kernel passes if its error is at most max(2x the plain bf16 error, 1e-3).
+Gradients are held the same way: through the kernels' autograd Functions
+against plain autograd in fp32, each gradient to its own bound.
 These tests need an NVIDIA GPU and nvcc and skip without a GPU. They import
 no JAX, so on a machine without JAX run them without the repo's conftest:
 
@@ -13,6 +15,7 @@ import torch
 
 from torch_port_bridge import max_abs, randn, rng, t
 
+import imagen_tpu_torch as it
 from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.ops import conv2d as c2d
 from imagen_tpu_torch.ops import flash_attention as fa
@@ -92,3 +95,141 @@ def test_wrappers_raise_on_wrong_dtype(cuda):
     x = torch.zeros(1, 8, 64, 32, device=cuda)
     with pytest.raises(TypeError):
         c2d.conv2d_same(x, torch.zeros(3, 3, 32, 32, device=cuda), None)
+
+
+def _bound(err_plain):
+    return max(2 * err_plain, 1e-3)
+
+
+def _flash_bwd_inputs(cuda, rows, nk, d, seed):
+    """bf16-valued q, k (normalised rows, as on the cosine path), v, dO, and
+    the fp32 forward's lse and delta, which both versions then share."""
+    r = rng(seed)
+    q, k = (fa.l2norm_scale(t(randn(r, 2, n, d)).to(cuda), torch.ones(d, device=cuda))
+            for n in (rows, nk))
+    v, do = t(randn(r, 2, nk, d)).to(cuda), t(randn(r, 2, rows, d)).to(cuda)
+    q, k, v, do = (x.to(BF16).float() for x in (q, k, v, do))
+    out, lse = fa.flash_rows_reference(q, k, v, 8., return_lse=True)
+    return q, k, v, do, lse, fa._delta(do, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (512, 77, 32), (200, 200, 40)])
+def test_flash_backward_kernel_matches_plain(cuda, rows, nk, d):
+    q, k, v, do, lse, delta = _flash_bwd_inputs(cuda, rows, nk, d, seed=6)
+    before = _build.LAUNCHES[fa.BWD_KERNEL]
+    got = fa.flash_rows_backward(*(x.to(BF16) for x in (q, k, v, do)), lse, delta, 8.)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fa.BWD_KERNEL] == before + 1
+    truth = fa.flash_rows_backward_reference(q, k, v, do, lse, delta, 8.)
+    plain = fa.flash_rows_backward_reference(*(x.to(BF16) for x in (q, k, v, do)), lse,
+                                             delta, 8.)
+    for name, g, p, ref in zip(('dq', 'dk', 'dv'), got, plain, truth):
+        assert g.shape == ref.shape and g.dtype == BF16
+        err_k, err_p = max_abs(g.float(), ref), max_abs(p.float(), ref)
+        assert err_k <= _bound(err_p), (name, err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (200, 200, 40)])
+def test_flash_forward_lse_matches_plain(cuda, rows, nk, d):
+    r = rng(8)
+    q, k, v = (t(randn(r, 2, n, d)).to(cuda).to(BF16) for n in (rows, nk, nk))
+    qs, ks = (t(1. + randn(r, d, scale=0.1)).to(cuda) for _ in range(2))
+    kn = fa.l2norm_scale(k, ks)
+    _, lse = fa._rows_forward(q, kn, v, 8., qs, with_lse=True)
+    _, truth = fa.flash_rows_reference(q.float(), kn.float(), v.float(), 8., qs,
+                                       return_lse=True)
+    _, plain = fa.flash_rows_reference(q, kn, v, 8., qs, return_lse=True)
+    assert lse.shape == (2, rows) and lse.dtype == torch.float32
+    assert max_abs(lse, truth) <= _bound(max_abs(plain, truth))
+
+
+def _grads(fn, inputs):
+    """Gradients of sum(fn(*inputs) * cotangent) with respect to every input."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    cot = torch.randn(out.shape, generator=torch.Generator(out.device).manual_seed(9),
+                      device=out.device)
+    (out.float() * cot).sum().backward()
+    return [x.grad for x in leaves]
+
+
+def _check_grads(kernel_fn, plain_fn, bf16_inputs, name):
+    before = _build.LAUNCHES[name]
+    got = _grads(kernel_fn, bf16_inputs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] > before
+    truth = _grads(plain_fn, [x.float() for x in bf16_inputs])
+    plain = _grads(plain_fn, bf16_inputs)
+    for i, (g, p, ref) in enumerate(zip(got, plain, truth)):
+        assert g is not None and bool(torch.isfinite(g).all()), i
+        err_k, err_p = max_abs(g.float(), ref), max_abs(p.float(), ref)
+        assert err_k <= _bound(err_p), (i, err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_flash_function_gradients_match_plain(cuda):
+    r = rng(10)
+    rows, nk, d = 2048, 1063, 64
+    inputs = [t(randn(r, 2, n, d)).to(cuda).to(BF16) for n in (rows, nk, nk)]
+    inputs += [t(1. + randn(r, d, scale=0.1)).to(cuda) for _ in range(2)]
+
+    def plain(q, k, v, qs, ks):
+        return fa.flash_rows_reference(q, fa.l2norm_scale(k, ks), v, 8., qs)
+
+    _check_grads(lambda *a: fa.flash_cosine_mqa_rows(*a, 8.), plain, inputs, fa.BWD_KERNEL)
+
+
+@pytest.mark.cuda
+def test_conv2d_function_gradients_match_plain(cuda):
+    r = rng(11)
+    x = t(randn(r, 2, 16, 128, 128)).to(cuda).to(BF16)
+    w = t(randn(r, 3, 3, 128, 120, scale=(9 * 128) ** -0.5)).to(cuda).to(BF16)
+    bias = t(randn(r, 120, scale=0.1)).to(cuda)
+    _check_grads(c2d.conv2d_same, c2d.conv2d_same_reference, [x, w, bias], c2d.KERNEL)
+
+
+@pytest.mark.cuda
+def test_fused_feedforward_function_gradients_match_plain(cuda):
+    r = rng(12)
+    k, hid = 256, 512
+    inputs = [t(randn(r, 300, k)).to(cuda).to(BF16), t(1. + randn(r, k, scale=0.1)).to(cuda),
+              t(randn(r, hid, k, scale=k ** -0.5)).to(cuda),
+              t(1. + randn(r, hid, scale=0.1)).to(cuda),
+              t(randn(r, k, hid, scale=hid ** -0.5)).to(cuda)]
+
+    def run(x, g0, w0, g1, w1):
+        return fn.fused_feedforward(x, g0, w0, g1, w1, 1e-3)
+
+    def plain(x, g0, w0, g1, w1):
+        return fn.feedforward_reference(x, g0, w0, g1, w1, 1e-3)
+
+    _check_grads(run, plain, inputs, fn.KERNEL)
+
+
+@pytest.mark.cuda
+def test_every_unet_parameter_gets_a_gradient_through_the_kernels(cuda):
+    """A small bf16 Unet whose forward reaches all three forward kernels:
+    after one backward every parameter holds a finite gradient, and the
+    flash backward ran."""
+    torch.manual_seed(0)
+    unet = it.Unet(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
+                   layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
+                   text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
+                   dtype=BF16, device=cuda)
+    with torch.no_grad():
+        unet.final_conv.weight.normal_(0., 0.02)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 128, 128, 3), generator=g, device=cuda)
+    time = torch.rand((2,), generator=g, device=cuda)
+    emb = torch.randn((2, 16, 64), generator=g, device=cuda)
+    before = dict(_build.LAUNCHES)
+    out = unet(x, time, text_embeds=emb, cond_drop_prob=0.5, generator=g)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    for name in (fa.KERNEL, fa.BWD_KERNEL, c2d.KERNEL, fn.KERNEL):
+        assert _build.LAUNCHES[name] > before.get(name, 0), name
+    for name, p in unet.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name

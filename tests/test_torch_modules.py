@@ -45,8 +45,8 @@ def test_threshold_x_start_matches_jax(pct):
                 layer_cross_attns=(False, True))
     jimagen = JImagen(unets=(JUnet(**tiny),), image_sizes=(16,), text_embed_dim=16,
                       timesteps=4, dynamic_thresholding_percentile=pct)
-    timagen = it.Imagen(it.Unet(**tiny), image_sizes=(16,), text_embed_dim=16,
-                        timesteps=4, dynamic_thresholding_percentile=pct)
+    timagen = it.Imagen(it.Unet(**tiny, device='cpu'), image_sizes=(16,), text_embed_dim=16,
+                        timesteps=4, dynamic_thresholding_percentile=pct, device='cpu')
     x = randn(rng(0), 3, 16, 16, 3, scale=2.5)
     ref = jimagen.threshold_x_start(jnp.asarray(x), True)
     assert max_abs(timagen.threshold_x_start(t(x), True), ref) <= 1e-6

@@ -49,7 +49,7 @@ def test_unet_forward_matches_jax(name, cond_scale):
     junet = JUnet(**cfg)
     params = random_params(junet, jnp.asarray(x[:1]), jnp.asarray(time[:1]),
                            **{k: v[:1] for k, v in jkw.items()}, seed=11)
-    unet = load_into(it.Unet(**cfg), params)
+    unet = load_into(it.Unet(**cfg, device='cpu'), params)
     tkw = {k: t(v) for k, v in kw.items()}
 
     if cond_scale != 1.:
