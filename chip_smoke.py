@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives imagen_tpu_torch's two paths at the paper presets' full widths, with
-bf16 compute over fp32 parameters and random weights from a seed:
+Drives imagen_tpu_torch's three paths at full width, with bf16 compute over
+fp32 parameters and random weights from a seed:
 - serving: BaseUnet64 -> SRUnet256, an `ImagenServer` that warms up and
   answers three requests;
 - training: `ImagenTrainer.step_with_batch` for 3 steps of each of the two
   configurations the JAX bench trains, unet 1 (BaseUnet64 alone, batch 8)
   and unet 2 (NullUnet + SRUnet256 with the low-res conditioning loss,
-  batch 4), with Adam, clipping and EMA.
+  batch 4), with Adam, clipping and EMA;
+- video: the `Unet3D` of the JAX bench's video mode (dim 64, mults 1-2-4,
+  16 frames at 64 px), an `ImagenServer(video_frames=16)` that warms up and
+  answers three requests of one prompt.
 The launch counts are set to 0 just before each path and read just after.
 Then it holds each hand-written kernel, at every shape the two paths launched
 it at, against its plain PyTorch version, and a small bf16 U-Net that reaches
@@ -18,19 +21,22 @@ gradients, both measured against fp32.
 Prints, in order: the card (nvidia-smi name and power limit) and CUDA
 version; the kernel build time; per request latency, shape, finiteness and
 range; per training step loss, time and peak memory; launch counts per path;
+per video request latency, shape, finiteness, range and peak memory;
 per-kernel errors, CUDA-event times and bounds at each shape; the small
 U-Net's errors; then the card again, one JSON line of kernel results and,
 last, the result line {"ok": ..., "device": {...}}.
 
-In the kernel line, `launches` is the sum over both paths (split in
+In the kernel line, `launches` is the sum over the paths (split in
 `launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
-times at each launched shape times that shape's launches in the two paths,
+times at each launched shape times that shape's launches in the paths,
 summed. `bound_ms` is the least time the H100 could take for that work, the
 larger of its operations at the dense bf16 peak and its bytes (each input
 read once, each output written once) at the HBM rate; `bound_by` says which of
 the two bounds most of it. `library_ms` times one PyTorch call that computes
 the same function (`F.scaled_dot_product_attention`, its backward,
-`F.conv2d`), null where there is none. `max_abs_err` is the kernel's worst
+`F.conv2d`; for the temporal kernel SDPA on the pre-normalised q and k, K and
+V expanded over the heads, with the bias table as `attn_mask`), null where
+there is none. `max_abs_err` is the kernel's worst
 error against the fp32 truth over those shapes and outputs.
 
 Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
@@ -49,6 +55,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TIMESTEPS = (16, 8)          # serving steps, cut for the run's time; widths are not cut
+VIDEO_STEPS = 16             # video steps, cut from the JAX bench's 32 for time
+VIDEO_FRAMES = 16
+VIDEO_TEMPORAL_SITES = 8     # TemporalAttention sites per Unet3D forward
 REQUEST_SIZES = (4, 2, 3)
 TRAIN_STEPS = 3
 TRAIN_CONFIGS = ((1, 8), (2, 4))   # (unet number, batch), as the JAX bench trains them
@@ -67,7 +76,11 @@ KERNEL_INFO = {
     'fused_feedforward_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_feedforward.cu',
         replaces='imagen_tpu/ops/fused_norm.py:271'),
+    'temporal_attn_fwd_bf16': dict(
+        source='imagen_tpu_torch/csrc/temporal_attn_fwd.cu',
+        replaces='imagen_tpu/ops/flash_attention.py:886'),
 }
+PATHS = ('serving', 'training', 'video')
 
 
 def log(msg):
@@ -182,8 +195,8 @@ def phase_serving(torch, it, build, results):
             ok &= good
             log(f'request {i}: n={emb.shape[0]} latency {lat:.3f} s shape {images.shape} '
                 f'finite {finite} in [0,1] {in_range} -> {"ok" if good else "FAIL"}')
-    ok &= check_launched(counts, [n for n in KERNEL_INFO if n != 'flash_rows_bwd_bf16'],
-                         'serving')
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
+                                  'fused_feedforward_bf16'], 'serving')
     log(f'serving: peak memory allocated during the requests: '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     results['counts']['serving'] = counts
@@ -271,8 +284,62 @@ def phase_training(torch, it, build, results):
     for unet_number, batch in TRAIN_CONFIGS:
         ok &= train_config(torch, it, build, results, counts, unet_number, batch)
         free_cuda()
-    ok &= check_launched(counts, KERNEL_INFO, 'training')
+    ok &= check_launched(counts, [n for n in KERNEL_INFO if n != 'temporal_attn_fwd_bf16'],
+                         'training')
     results['counts']['training'] = counts
+    return ok
+
+
+# --- video serving ----------------------------------------------------------------------
+
+def phase_video(torch, it, build, results):
+    """The JAX bench's video configuration (`bench.py`, mode 'video') at full
+    width: 16 frames of 64 px, batch 1 (2 with CFG), cond_scale 3."""
+    bf16 = torch.bfloat16
+    torch.manual_seed(30)
+    t0 = time.perf_counter()
+    unet = it.Unet3D(dim=64, dim_mults=(1, 2, 4), num_resnet_blocks=2, layer_attns=False,
+                     layer_cross_attns=(False, True, True), text_embed_dim=768,
+                     max_text_len=256, dtype=bf16)
+    randomize_final_conv(unet, 31)
+    imagen = it.Imagen((unet,), image_sizes=(64,), timesteps=VIDEO_STEPS,
+                       cond_drop_prob=0.1).eval()
+    torch.cuda.synchronize()
+    log(f'video: Unet3D {sum(p.numel() for p in unet.parameters()) / 1e6:.1f} M params, '
+        f'built in {time.perf_counter() - t0:.1f} s')
+
+    t0 = time.perf_counter()
+    server = it.ImagenServer(imagen, batch_size=1, video_frames=VIDEO_FRAMES, cond_scale=3.,
+                             seed=0)
+    log(f'video: warmup {time.perf_counter() - t0:.2f} s (timesteps {VIDEO_STEPS}, '
+        f'{VIDEO_FRAMES} frames, serving batch 1, cond_scale 3)')
+
+    g = torch.Generator(device='cuda').manual_seed(4321)
+    requests = [text_batch(torch, g, 1) for _ in range(3)]
+    counts = Counter()
+    ok = True
+    with counting_path(build, results['shapes']['video'], counts):
+        for i, (emb, mask) in enumerate(requests):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            video = server.generate(text_embeds=emb, text_masks=mask)
+            lat = time.perf_counter() - t0
+            finite = bool(torch.isfinite(torch.from_numpy(video)).all())
+            in_range = bool(video.min() >= 0. and video.max() <= 1.)
+            good = video.shape == (1, VIDEO_FRAMES, 64, 64, 3) and finite and in_range
+            ok &= good
+            log(f'video request {i}: latency {lat:.3f} s shape {video.shape} finite {finite} '
+                f'in [0,1] {in_range} peak allocated '
+                f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+                f'-> {"ok" if good else "FAIL"}')
+    ok &= check_launched(counts, ['temporal_attn_fwd_bf16', 'flash_rows_fwd_bf16'], 'video')
+    expected = VIDEO_TEMPORAL_SITES * VIDEO_STEPS * len(requests)
+    per_step = counts['temporal_attn_fwd_bf16'] == expected
+    ok &= per_step
+    log(f'video: temporal kernel launches {counts["temporal_attn_fwd_bf16"]}, expected '
+        f'{VIDEO_TEMPORAL_SITES} per step x {VIDEO_STEPS} steps x {len(requests)} requests = '
+        f'{expected} -> {"ok" if per_step else "FAIL"}')
+    results['counts']['video'] = counts
     return ok
 
 
@@ -315,6 +382,29 @@ def kernel_cases(torch, name, dims, g):
             return fa.flash_cosine_mqa_rows(q, k, v, qs, ks, scale)
         flops = 4 * b * rows * nk * d
         nbytes = 2 * (2 * b * rows * d + 2 * b * nk * d) + 4 * b * rows
+    elif name == fa.TEMPORAL_KERNEL:
+        P, f, h, nk, d, scale2 = dims
+        scale = scale2 / fa.LOG2E
+        qs = 1. + rnd(d, scale=0.1)
+        causal = torch.ones((f, nk), dtype=torch.bool, device='cuda').triu(nk - f + 1)
+        bias = fa.build_grouped_bias(rnd(h, f, nk), causal)
+        kn = fa.l2norm_scale(rnd(P, nk, d).to(bf16), 1. + rnd(d, scale=0.1))
+        inputs = [rnd(P, f, h * d).to(bf16), kn, rnd(P, nk, d).to(bf16)]
+        qn = fa.l2norm_scale(inputs[0].reshape(P, f, h, d), qs).transpose(1, 2)
+        mask = bias.to(bf16)
+
+        def kernel(q, k, v):
+            return (fa._temporal_forward(q, k, v, qs, bias, scale, h),)
+
+        def plain(q, k, v):
+            return (fa.temporal_attention_reference(q, k, v, qs, bias, scale, h),)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                qn, k[:, None].expand(P, h, nk, d), v[:, None].expand(P, h, nk, d),
+                attn_mask=mask, scale=scale)
+        flops = 4 * P * f * h * nk * d
+        nbytes = 2 * (2 * P * f * h * d + 2 * P * nk * d) + 4 * (h * f * nk + d)
     elif name == fa.BWD_KERNEL:
         b, rows, nk, d, scale = dims
         q, k = (fa.l2norm_scale(rnd(b, n, d), torch.ones(d, device='cuda')) for n in (rows, nk))
@@ -409,7 +499,8 @@ def phase_kernels(torch, results):
             worst = max(worst, *errs_k)
             # serving launches the flash forward without the LSE
             totals['ms'] += (count * ms if served_ms is None else
-                             counts['serving'] * served_ms + counts['training'] * ms)
+                             (count - counts['training']) * served_ms
+                             + counts['training'] * ms)
             totals['plain_ms'] += count * plain_ms
             totals['operations'] += count * bound_ops if bound_ops >= bound_bytes else 0.
             totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
@@ -458,7 +549,7 @@ def plain_path():
 
 
 def phase_small_unet(torch, it):
-    """A small bf16 U-Net that reaches every kernel (128x128 input, 128
+    """A small bf16 U-Net that reaches every 2D kernel (128x128 input, 128
     channels, attention at 64x64), against the same U-Net on the plain path;
     outputs and parameter gradients, both measured against the U-Net in fp32."""
     from imagen_tpu_torch.ops import _build
@@ -485,7 +576,8 @@ def phase_small_unet(torch, it):
     truth, truth_g = run(ref)
     before = dict(_build.LAUNCHES)
     out_k, grads_k = run(fast)
-    reached = all(_build.LAUNCHES.get(n, 0) > before.get(n, 0) for n in KERNEL_INFO)
+    reached = all(_build.LAUNCHES.get(n, 0) > before.get(n, 0) for n in KERNEL_INFO
+                  if n != 'temporal_attn_fwd_bf16')  # a 2D U-Net has no temporal attention
     with plain_path():
         out_p, grads_p = run(fast)
 
@@ -534,7 +626,7 @@ def main():
 
     ok = True
     results = {'kernels': [], 'counts': {},
-               'shapes': {path: defaultdict(Counter) for path in ('serving', 'training')}}
+               'shapes': {path: defaultdict(Counter) for path in PATHS}}
     try:
         import imagen_tpu_torch as it
         from imagen_tpu_torch.ops import _build
@@ -544,6 +636,9 @@ def main():
         ok &= phase_serving(torch, it, _build, results)
         free_cuda()
         ok &= phase_training(torch, it, _build, results)
+        free_cuda()
+        ok &= phase_video(torch, it, _build, results)
+        free_cuda()
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)
     except Exception:  # a failed phase ends the run with ok: false

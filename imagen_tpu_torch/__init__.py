@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of imagen_tpu: the 64->256 text-to-image cascade, its
-serving path and its training step."""
+serving path and its training step, and text-to-video serving with `Unet3D`."""
 from imagen_tpu_torch.version import __version__
 
 from imagen_tpu_torch.models.unet2d import (
@@ -9,6 +9,7 @@ from imagen_tpu_torch.models.unet2d import (
     SRUnet256,
     SRUnet1024,
 )
+from imagen_tpu_torch.models.unet3d import Unet3D
 
 from imagen_tpu_torch.diffusion.imagen import Imagen
 from imagen_tpu_torch.serving import ImagenServer

@@ -3,7 +3,9 @@ training loss.
 
 Counterpart of `imagen_tpu/diffusion/imagen.py`. Sampling: classifier-free
 guidance as one doubled-batch forward, dynamic thresholding, low-res
-noise-aug conditioning, and the stage loop as a plain Python loop over steps.
+noise-aug conditioning, and the stage loop as a plain Python loop over steps;
+for a cascade of video unets (`Unet3D`) every stage samples NFHWC video of
+`video_frames` frames (fewer where `temporal_downsample_factor` says so).
 Training (`forward` -> `p_losses`): random times, the degraded low-res
 condition with its noise augmentation, the paired random crop, the three
 objectives and min-SNR weighting. Every draw comes from a `torch.Generator`
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from imagen_tpu_torch.models.unet2d import NullUnet
+from imagen_tpu_torch.models.video_blocks import resize_video_to
 from imagen_tpu_torch.ops.diffusion_math import GaussianDiffusionContinuousTimes
 from imagen_tpu_torch.ops.tensor_utils import (
     cast_uint8_images_to_float,
@@ -59,7 +62,8 @@ def _huber_loss(pred, target, beta: float = 1.0):
 
 LOSS_FNS = {'l1': _l1_loss, 'l2': _l2_loss, 'huber': _huber_loss}
 
-_CFG_BATCHED_KWARGS = ('text_embeds', 'text_mask', 'lowres_cond_img', 'lowres_noise_times')
+_CFG_BATCHED_KWARGS = ('text_embeds', 'text_mask', 'lowres_cond_img', 'lowres_noise_times',
+                       'cond_video_frames', 'post_cond_video_frames')
 
 
 def unet_forward_with_cond_scale(unet, x, time, *, cond_scale=1., **kwargs):
@@ -104,6 +108,11 @@ class Imagen(nn.Module):
     the `Imagen`, or build each unet with the config it will have here
     (`lowres_cond=True` for every stage after the first). The cascade lives on
     `device` (None: the card; raises without one) and moves its unets there.
+
+    A cascade with a video unet is a video cascade: `sample` needs
+    `video_frames`, and stage i samples `video_frames //
+    temporal_downsample_factor[i]` frames (the last factor must be 1).
+    Training a video cascade is not ported yet.
     """
 
     def __init__(self, unets, *, image_sizes, text_encoder_name='google/t5-v1_1-base',
@@ -113,8 +122,8 @@ class Imagen(nn.Module):
                  lowres_sample_noise_level=0.2, per_sample_random_aug_noise_level=False,
                  condition_on_text=True, auto_normalize_img=True,
                  dynamic_thresholding=True, dynamic_thresholding_percentile=0.95,
-                 only_train_unet_number=None, min_snr_loss_weight=True, min_snr_gamma=5,
-                 device=None):
+                 only_train_unet_number=None, temporal_downsample_factor=1,
+                 min_snr_loss_weight=True, min_snr_gamma=5, device=None):
         super().__init__()
         if loss_type not in LOSS_FNS:
             raise NotImplementedError(f'unknown loss type {loss_type}')
@@ -169,6 +178,12 @@ class Imagen(nn.Module):
         if len(self.image_sizes) != num_unets:
             raise ValueError(f'{num_unets} unets do not match image_sizes {self.image_sizes}')
 
+        self.is_video = any(getattr(u, 'is_video_unet', False) for u in self.unets)
+        self.temporal_downsample_factor = cast_tuple(temporal_downsample_factor, num_unets)
+        if self.temporal_downsample_factor[-1] != 1:
+            raise ValueError('the last unet must sample every frame '
+                             '(temporal_downsample_factor[-1] == 1)')
+
         self.normalize_img = normalize_neg_one_to_one if auto_normalize_img else (lambda t: t)
         self.unnormalize_img = unnormalize_zero_to_one if auto_normalize_img else (lambda t: t)
         self.input_image_range = (0. if auto_normalize_img else -1., 1.)
@@ -177,6 +192,25 @@ class Imagen(nn.Module):
     @property
     def device(self):
         return next(self.parameters()).device
+
+    def resize_to(self, x, size, target_frames=None, clamp_range=None):
+        """Nearest resize of an NHWC image batch, or of NFHWC video (spatially
+        and, with `target_frames`, in time) for a video cascade."""
+        if self.is_video:
+            return resize_video_to(x, size, target_frames=target_frames,
+                                   clamp_range=clamp_range)
+        return resize_image_to(x, size, clamp_range=clamp_range)
+
+    def _calc_all_frame_dims(self, frames):
+        """Frames sampled by each stage; None for an image cascade."""
+        if frames is None:
+            return (None,) * self.num_unets
+        dims = []
+        for divisor in self.temporal_downsample_factor:
+            if frames % divisor:
+                raise ValueError(f'frames {frames} not divisible by temporal factor {divisor}')
+            dims.append(frames // divisor)
+        return tuple(dims)
 
     # --- dynamic thresholding ------------------------------------------------------------
 
@@ -225,12 +259,12 @@ class Imagen(nn.Module):
 
     # --- one cascade stage ---------------------------------------------------------------
 
-    def _sample_stage(self, index, *, batch_size, cond_scale, unet_kwargs, init_noise,
+    def _sample_stage(self, index, *, batch_size, frames, cond_scale, unet_kwargs, init_noise,
                       step_noises, generator):
         unet = self.unets[index]
         noise_scheduler = self.noise_schedulers[index]
         size = self.image_sizes[index]
-        shape = (batch_size, size, size, self.channels)
+        shape = (batch_size, *((frames,) if exists(frames) else ()), size, size, self.channels)
         device = self.device
 
         def randn():
@@ -251,15 +285,18 @@ class Imagen(nn.Module):
 
     @torch.no_grad()
     def sample(self, *, texts=None, text_masks=None, text_embeds=None, batch_size=1,
-               cond_scale=1., start_at_unet_number=1, start_image_or_video=None,
-               stop_at_unet_number=None, noise_override: Optional[Sequence] = None,
+               video_frames=None, cond_scale=1., start_at_unet_number=1,
+               start_image_or_video=None, stop_at_unet_number=None,
+               noise_override: Optional[Sequence] = None,
                generator: Optional[torch.Generator] = None):
-        """Run the cascade; returns the last stage's NHWC images in [0, 1].
+        """Run the cascade; returns the last stage's NHWC images, or NFHWC
+        video of a video cascade, in [0, 1].
 
         `noise_override`: per-stage list (len == num_unets, entries may be None)
         of (init_noise, step_noises, lowres_aug_noise) used instead of draws
         from `generator`: init_noise (b, s, s, c), step_noises (T, b, s, s, c),
-        lowres_aug_noise (b, s, s, c) for stages after the first, else None.
+        lowres_aug_noise (b, s, s, c) for stages after the first, else None;
+        each with a frame axis after the batch, (b, f, s, s, c), for video.
         """
         if exists(texts):
             raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
@@ -278,6 +315,10 @@ class Imagen(nn.Module):
         elif exists(text_embeds):
             raise ValueError('unconditional imagen cannot take text embeddings')
 
+        if self.is_video and not exists(video_frames):
+            raise ValueError('video_frames must be passed for a video imagen')
+        all_frame_dims = self._calc_all_frame_dims(video_frames if self.is_video else None)
+
         num_unets = self.num_unets
         cond_scale = cast_tuple(cond_scale, num_unets)
         noise_override = default(noise_override, (None,) * num_unets)
@@ -288,8 +329,9 @@ class Imagen(nn.Module):
         if start_at_unet_number > 1:
             if not exists(start_image_or_video):
                 raise ValueError('starting image must be supplied if only doing upscaling')
-            img = resize_image_to(start_image_or_video.to(device),
-                                  self.image_sizes[start_at_unet_number - 2])
+            img = self.resize_to(start_image_or_video.to(device),
+                                 self.image_sizes[start_at_unet_number - 2],
+                                 target_frames=all_frame_dims[start_at_unet_number - 2])
 
         for unet_number in range(start_at_unet_number, num_unets + 1):
             index = unet_number - 1
@@ -306,7 +348,8 @@ class Imagen(nn.Module):
             if unet.lowres_cond:
                 lowres_noise_times = self.lowres_noise_schedule.get_times(
                     batch_size, self.lowres_sample_noise_level, device=device)
-                lowres_cond_img = self.normalize_img(resize_image_to(img, image_size))
+                lowres_cond_img = self.normalize_img(self.resize_to(
+                    img, image_size, target_frames=all_frame_dims[index]))
                 if exists(lowres_noise):
                     lowres_noise = lowres_noise.to(device)
                 else:
@@ -320,7 +363,8 @@ class Imagen(nn.Module):
                         lowres_noise_times))
 
             img = self._sample_stage(
-                index, batch_size=batch_size, cond_scale=cond_scale[index],
+                index, batch_size=batch_size, frames=all_frame_dims[index],
+                cond_scale=cond_scale[index],
                 unet_kwargs=unet_kwargs, init_noise=init_noise, step_noises=step_noises,
                 generator=generator)
 
@@ -405,6 +449,8 @@ class Imagen(nn.Module):
             raise ValueError(f'only unet {self.only_train_unet_number} may be trained')
         if exists(texts):
             raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
+        if self.is_video:
+            raise NotImplementedError('training a video cascade is not ported yet')
         index = unet_number - 1
         unet = self.unets[index]
         if isinstance(unet, NullUnet):

@@ -71,7 +71,9 @@ class Conv1x1(nn.Conv2d):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d on NHWC tensors. The permuted view is channels_last-strided,
-    so cuDNN takes it without a copy and the NHWC result is a free permute."""
+    so cuDNN takes it without a copy and the NHWC result is a free permute.
+    The weight may also be a unit-time Conv3d's (O, I, 1, kh, kw), as the
+    video U-Net holds it (`video_blocks.unit_time`)."""
 
     def __init__(self, dim_in, dim_out, kernel_size, stride=1, padding=0, dtype=F32):
         super().__init__(dim_in, dim_out, kernel_size, stride=stride, padding=padding)
@@ -79,7 +81,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
+        w = self.weight.reshape(*self.weight.shape[:2], *self.weight.shape[-2:])
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w.to(dt), self.bias.to(dt),
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 

@@ -45,7 +45,141 @@ class _Rearrange(nn.Module):
         return x.reshape(x.shape[0], self.r, -1)
 
 
-class Unet(nn.Module):
+class ConditionedUnet(nn.Module):
+    """What the 2D and the video U-Net share: the time and text conditioning
+    heads and their forward, the cascade's config correction, the device and
+    the compute dtype. A subclass keeps its constructor arguments in
+    `_config` and sets `channels`, `channels_out`, `lowres_cond`,
+    `cond_on_text`, `text_embed_dim`, `max_text_len` and `dtype`."""
+
+    def _build_conditioning(self, *, cond_dim, time_cond_dim, learned_sinu_pos_emb_dim,
+                            num_time_tokens, attn_pool_text, attn_pool_num_latents,
+                            attn_dim_head, attn_heads):
+        dtype, sinu_dim = self.dtype, learned_sinu_pos_emb_dim
+
+        def time_heads():
+            hiddens = nn.Sequential(LearnedSinusoidalPosEmb(sinu_dim),
+                                    Linear(sinu_dim + 1, time_cond_dim, dtype=dtype),
+                                    nn.SiLU())
+            cond = nn.Sequential(Linear(time_cond_dim, time_cond_dim, dtype=dtype))
+            tokens = nn.Sequential(Linear(time_cond_dim, cond_dim * num_time_tokens,
+                                          dtype=dtype), _Rearrange(num_time_tokens))
+            return hiddens, cond, tokens
+
+        self.to_time_hiddens, self.to_time_cond, self.to_time_tokens = time_heads()
+        if self.lowres_cond:
+            (self.to_lowres_time_hiddens, self.to_lowres_time_cond,
+             self.to_lowres_time_tokens) = time_heads()
+
+        self.norm_cond = TorchLayerNorm(cond_dim, dtype=dtype)
+        if self.cond_on_text:
+            if not exists(self.text_embed_dim):
+                raise ValueError('text_embed_dim must be given when conditioning on text')
+            self.text_to_cond = Linear(self.text_embed_dim, cond_dim, dtype=dtype)
+            self.attn_pool = PerceiverResampler(
+                cond_dim, depth=2, dim_head=attn_dim_head, heads=attn_heads,
+                num_latents=attn_pool_num_latents, dtype=dtype) if attn_pool_text else None
+            self.null_text_embed = nn.Parameter(torch.randn(1, self.max_text_len, cond_dim))
+            self.null_text_hidden = nn.Parameter(torch.randn(1, time_cond_dim))
+            self.to_text_non_attn_cond = nn.Sequential(
+                TorchLayerNorm(cond_dim, dtype=dtype),
+                Linear(cond_dim, time_cond_dim, dtype=dtype),
+                nn.SiLU(),
+                Linear(time_cond_dim, time_cond_dim, dtype=dtype),
+            )
+
+    def cast_model_parameters(self, *, lowres_cond, text_embed_dim, channels, channels_out,
+                              cond_on_text):
+        """A unet with the cascade-corrected conditioning config (a new module
+        with fresh weights), or self when nothing changes."""
+        if (lowres_cond == self.lowres_cond
+                and channels == self.channels
+                and cond_on_text == self.cond_on_text
+                and text_embed_dim == self.text_embed_dim
+                and default(channels_out, channels) == self.channels_out):
+            return self
+        config = {**self._config, 'lowres_cond': lowres_cond,
+                  'text_embed_dim': text_embed_dim, 'channels': channels,
+                  'channels_out': channels_out, 'cond_on_text': cond_on_text}
+        return type(self)(**config, device=self.device)
+
+    @property
+    def device(self):
+        return next(self.parameters()).device
+
+    def set_compute_dtype(self, dtype):
+        """Compute in `dtype` from now on (parameters stay as they are): the
+        trainer's `precision='bf16'`, like `unet.clone(dtype=...)` in JAX."""
+        self.dtype = dtype
+        self._config['dtype'] = dtype
+        for m in self.modules():
+            if hasattr(m, 'compute_dtype'):
+                m.compute_dtype = dtype
+        return self
+
+    def _time_mlp(self, t_in, hiddens, cond, tokens):
+        h = hiddens[0](t_in)
+        h = hiddens[2](hiddens[1](h.to(self.dtype)))
+        return cond(h), tokens(h)
+
+    def _condition(self, time, *, lowres_noise_times, text_embeds, text_mask, cond_drop_prob,
+                   force_text_drop_mask, generator):
+        """The FiLM vector t (b, time_cond_dim) and the cross-attention tokens
+        c (b, n, cond_dim). The text is dropped to the null embeddings with
+        probability `cond_drop_prob`, drawn from `generator`;
+        `force_text_drop_mask` (b,) bool overrides that draw, True dropping."""
+        batch_size, device, dtype = time.shape[0], time.device, self.dtype
+        t, time_tokens = self._time_mlp(time, self.to_time_hiddens, self.to_time_cond,
+                                        self.to_time_tokens)
+        if self.lowres_cond:
+            lowres_t, lowres_time_tokens = self._time_mlp(
+                lowres_noise_times, self.to_lowres_time_hiddens,
+                self.to_lowres_time_cond, self.to_lowres_time_tokens)
+            t = t + lowres_t
+            time_tokens = torch.cat((time_tokens, lowres_time_tokens), dim=-2)
+
+        text_tokens = None
+        if exists(text_embeds) and self.cond_on_text:
+            if exists(force_text_drop_mask):
+                text_keep_mask = ~force_text_drop_mask.to(device)
+            else:
+                text_keep_mask = prob_mask_like((batch_size,), 1 - cond_drop_prob, device,
+                                                generator=generator)
+            text_keep_mask_embed = text_keep_mask[:, None, None]
+            text_keep_mask_hidden = text_keep_mask[:, None]
+
+            text_tokens = self.text_to_cond(text_embeds.to(dtype))
+            text_tokens = text_tokens[:, :self.max_text_len]
+            if exists(text_mask):
+                text_mask = text_mask[:, :self.max_text_len]
+
+            remainder = self.max_text_len - text_tokens.shape[1]
+            if remainder > 0:
+                text_tokens = F.pad(text_tokens, (0, 0, 0, remainder))
+                if exists(text_mask):
+                    text_mask = F.pad(text_mask, (0, remainder), value=False)
+
+            if exists(text_mask):
+                text_keep_mask_embed = text_mask[:, :, None] & text_keep_mask_embed
+
+            text_tokens = torch.where(text_keep_mask_embed, text_tokens,
+                                      self.null_text_embed.to(text_tokens.dtype))
+
+            if exists(self.attn_pool):
+                text_tokens = self.attn_pool(text_tokens)
+
+            mean_pooled = text_tokens.mean(dim=-2)
+            text_hiddens = self.to_text_non_attn_cond(mean_pooled)
+            text_hiddens = torch.where(text_keep_mask_hidden, text_hiddens,
+                                       self.null_text_hidden.to(text_hiddens.dtype))
+            t = t + text_hiddens
+
+        c = time_tokens if not exists(text_tokens) else torch.cat(
+            (time_tokens, text_tokens), dim=-2)
+        return t, self.norm_cond(c)
+
+
+class Unet(ConditionedUnet):
     """The 2D denoiser. Keyword names mirror the JAX `Unet` attributes."""
 
     def __init__(
@@ -147,40 +281,12 @@ class Unet(nn.Module):
                 self.init_conv = Conv2d(init_channels, init_dim, k, padding=k // 2, dtype=dtype)
             self.init_conv_to_final_conv_residual = init_conv_to_final_conv_residual
 
-            # time conditioning
-            sinu_dim = learned_sinu_pos_emb_dim
-
-            def time_heads():
-                hiddens = nn.Sequential(LearnedSinusoidalPosEmb(sinu_dim),
-                                        Linear(sinu_dim + 1, time_cond_dim, dtype=dtype),
-                                        nn.SiLU())
-                cond = nn.Sequential(Linear(time_cond_dim, time_cond_dim, dtype=dtype))
-                tokens = nn.Sequential(Linear(time_cond_dim, cond_dim * num_time_tokens,
-                                              dtype=dtype), _Rearrange(num_time_tokens))
-                return hiddens, cond, tokens
-
-            self.to_time_hiddens, self.to_time_cond, self.to_time_tokens = time_heads()
-            if lowres_cond:
-                (self.to_lowres_time_hiddens, self.to_lowres_time_cond,
-                 self.to_lowres_time_tokens) = time_heads()
-
-            # text conditioning
-            self.norm_cond = TorchLayerNorm(cond_dim, dtype=dtype)
-            if cond_on_text:
-                if not exists(text_embed_dim):
-                    raise ValueError('text_embed_dim must be given when conditioning on text')
-                self.text_to_cond = Linear(text_embed_dim, cond_dim, dtype=dtype)
-                self.attn_pool = PerceiverResampler(
-                    cond_dim, depth=2, dim_head=attn_dim_head, heads=attn_heads,
-                    num_latents=attn_pool_num_latents, dtype=dtype) if attn_pool_text else None
-                self.null_text_embed = nn.Parameter(torch.randn(1, max_text_len, cond_dim))
-                self.null_text_hidden = nn.Parameter(torch.randn(1, time_cond_dim))
-                self.to_text_non_attn_cond = nn.Sequential(
-                    TorchLayerNorm(cond_dim, dtype=dtype),
-                    Linear(cond_dim, time_cond_dim, dtype=dtype),
-                    nn.SiLU(),
-                    Linear(time_cond_dim, time_cond_dim, dtype=dtype),
-                )
+            self._build_conditioning(
+                cond_dim=cond_dim, time_cond_dim=time_cond_dim,
+                learned_sinu_pos_emb_dim=learned_sinu_pos_emb_dim,
+                num_time_tokens=num_time_tokens, attn_pool_text=attn_pool_text,
+                attn_pool_num_latents=attn_pool_num_latents, attn_dim_head=attn_dim_head,
+                attn_heads=attn_heads)
 
             self.init_resnet_block = ResnetBlock(
                 init_dim, init_dim, time_cond_dim=time_cond_dim,
@@ -273,40 +379,6 @@ class Unet(nn.Module):
             nn.init.zeros_(self.final_conv.weight)
             nn.init.zeros_(self.final_conv.bias)
 
-    def cast_model_parameters(self, *, lowres_cond, text_embed_dim, channels, channels_out,
-                              cond_on_text):
-        """A unet with the cascade-corrected conditioning config (a new module
-        with fresh weights), or self when nothing changes."""
-        if (lowres_cond == self.lowres_cond
-                and channels == self.channels
-                and cond_on_text == self.cond_on_text
-                and text_embed_dim == self.text_embed_dim
-                and default(channels_out, channels) == self.channels_out):
-            return self
-        config = {**self._config, 'lowres_cond': lowres_cond,
-                  'text_embed_dim': text_embed_dim, 'channels': channels,
-                  'channels_out': channels_out, 'cond_on_text': cond_on_text}
-        return Unet(**config, device=self.device)
-
-    @property
-    def device(self):
-        return next(self.parameters()).device
-
-    def set_compute_dtype(self, dtype):
-        """Compute in `dtype` from now on (parameters stay as they are): the
-        trainer's `precision='bf16'`, like `unet.clone(dtype=...)` in JAX."""
-        self.dtype = dtype
-        self._config['dtype'] = dtype
-        for m in self.modules():
-            if hasattr(m, 'compute_dtype'):
-                m.compute_dtype = dtype
-        return self
-
-    def _time_mlp(self, t_in, hiddens, cond, tokens):
-        h = hiddens[0](t_in)
-        h = hiddens[2](hiddens[1](h.to(self.dtype)))
-        return cond(h), tokens(h)
-
     def forward(self, x, time, *, lowres_cond_img=None, lowres_noise_times=None,
                 text_embeds=None, text_mask=None, cond_drop_prob=0.,
                 force_text_drop_mask=None, generator=None):
@@ -315,10 +387,6 @@ class Unet(nn.Module):
         `force_text_drop_mask` (b,) bool overrides that draw, True dropping:
         classifier-free guidance runs the conditional and null halves as one
         doubled-batch forward."""
-        batch_size = x.shape[0]
-        device = x.device
-        dtype = self.dtype
-
         if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
             raise ValueError('low resolution conditioning image and noise times must be present')
         if exists(lowres_cond_img):
@@ -327,54 +395,10 @@ class Unet(nn.Module):
         x = self.init_conv(x)
         init_conv_residual = x if self.init_conv_to_final_conv_residual else None
 
-        t, time_tokens = self._time_mlp(time, self.to_time_hiddens, self.to_time_cond,
-                                        self.to_time_tokens)
-        if self.lowres_cond:
-            lowres_t, lowres_time_tokens = self._time_mlp(
-                lowres_noise_times, self.to_lowres_time_hiddens,
-                self.to_lowres_time_cond, self.to_lowres_time_tokens)
-            t = t + lowres_t
-            time_tokens = torch.cat((time_tokens, lowres_time_tokens), dim=-2)
-
-        text_tokens = None
-        if exists(text_embeds) and self.cond_on_text:
-            if exists(force_text_drop_mask):
-                text_keep_mask = ~force_text_drop_mask.to(device)
-            else:
-                text_keep_mask = prob_mask_like((batch_size,), 1 - cond_drop_prob, device,
-                                                generator=generator)
-            text_keep_mask_embed = text_keep_mask[:, None, None]
-            text_keep_mask_hidden = text_keep_mask[:, None]
-
-            text_tokens = self.text_to_cond(text_embeds.to(dtype))
-            text_tokens = text_tokens[:, :self.max_text_len]
-            if exists(text_mask):
-                text_mask = text_mask[:, :self.max_text_len]
-
-            remainder = self.max_text_len - text_tokens.shape[1]
-            if remainder > 0:
-                text_tokens = F.pad(text_tokens, (0, 0, 0, remainder))
-                if exists(text_mask):
-                    text_mask = F.pad(text_mask, (0, remainder), value=False)
-
-            if exists(text_mask):
-                text_keep_mask_embed = text_mask[:, :, None] & text_keep_mask_embed
-
-            text_tokens = torch.where(text_keep_mask_embed, text_tokens,
-                                      self.null_text_embed.to(text_tokens.dtype))
-
-            if exists(self.attn_pool):
-                text_tokens = self.attn_pool(text_tokens)
-
-            mean_pooled = text_tokens.mean(dim=-2)
-            text_hiddens = self.to_text_non_attn_cond(mean_pooled)
-            text_hiddens = torch.where(text_keep_mask_hidden, text_hiddens,
-                                       self.null_text_hidden.to(text_hiddens.dtype))
-            t = t + text_hiddens
-
-        c = time_tokens if not exists(text_tokens) else torch.cat(
-            (time_tokens, text_tokens), dim=-2)
-        c = self.norm_cond(c)
+        t, c = self._condition(
+            time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
+            text_mask=text_mask, cond_drop_prob=cond_drop_prob,
+            force_text_drop_mask=force_text_drop_mask, generator=generator)
 
         if exists(self.init_resnet_block):
             x = self.init_resnet_block(x, time_emb=t)

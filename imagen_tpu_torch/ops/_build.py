@@ -45,6 +45,8 @@ SIGNATURES = {
     'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, stream
     'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, k, v, q_scale, bias2, out, P, frames, heads, nk, d, scale2, stream
+    'temporal_attn_fwd_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

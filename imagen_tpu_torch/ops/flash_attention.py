@@ -1,5 +1,5 @@
-"""Flash multi-query attention over rows, forward and backward: kernels 1-3
-of the port.
+"""Flash multi-query attention over rows, forward and backward (kernels 1-3
+of the port), and per-pixel temporal attention (kernel 4).
 
 Counterpart of `imagen_tpu/ops/flash_attention.py` (`flash_cosine_mqa_rows`,
 `flash_mqa_rows` -> `_flash_rows_forward`, and their custom VJP over
@@ -20,9 +20,13 @@ backward recomputes the normalised q and k and chains the l2norm + gain VJP
 outside the kernel, as `_cos_rows_bwd` does. Under `torch.no_grad()` the
 forward computes no `lse` and saves nothing.
 
+The grouped section at the end is the video counterpart: per-pixel causal
+temporal attention (`flash_grouped_cosine`, kernel `csrc/temporal_attn_fwd.cu`).
+
 On a CPU tensor the kernels' plain PyTorch versions run
-(`flash_rows_reference`, `flash_rows_backward_reference`); on a CUDA tensor
-the kernels launch or raise.
+(`flash_rows_reference`, `flash_rows_backward_reference`,
+`temporal_attention_reference`); on a CUDA tensor the kernels launch or
+raise.
 """
 from __future__ import annotations
 
@@ -235,3 +239,140 @@ def flash_cosine_mqa(q, k, v, q_scale, k_scale, scale):
 def flash_multiquery_attention(q, k, v, scale):
     b, h, n, d = q.shape
     return flash_mqa_rows(q.reshape(b, h * n, d), k, v, scale).reshape(b, h, n, d)
+
+
+# --- grouped temporal attention (video) ---------------------------------------------------
+#
+# Counterpart of the grouped section of the JAX package (`flash_grouped_cosine`,
+# `_grouped_packed_forward`) and of its rows-packed variant
+# (`flash_temporal_rows`): per-pixel causal multi-query attention over frames,
+# with one learned bias table shared by every pixel. The TPU kernels pack G
+# pixels into one block-diagonal tile; here the layout is per pixel:
+#
+#     q: (P, f, h * d)   k, v: (P, nk, d), null key first   bias: (h, f, nk)
+#
+# with P = b * H * W pixels and nk = f + 1. `bias` is fp32 in the natural
+# domain with -1e30 where masked (`build_grouped_bias`). One kernel serves
+# both TPU kernels: a block-diagonal tile of either converts to this table.
+
+TEMPORAL_KERNEL = 'temporal_attn_fwd_bf16'
+TEMPORAL_MAX_NK = 64      # keys per pixel the kernel holds
+TEMPORAL_MAX_ROWS = 128   # frames * heads per pixel (8 warps of 16 rows)
+_TEMPORAL_DIMS = (16, 32, 64, 128)
+NEG_INF = -1e30
+
+
+def grouped_temporal_available(frames, heads, nk, dim_head, dtype=torch.bfloat16,
+                               device_type='cuda'):
+    """Whether per-pixel temporal attention takes the kernel route.
+
+    Departs from `grouped_temporal_available` of the JAX package, whose
+    conditions pick a pixel group size G for the TPU's VMEM (G divides the
+    batch, the block-diagonal bias tile fits, rows % 8): the kernel works per
+    pixel, so none of those apply. What stays: the caller routes only
+    per-pixel attention here (no context, no mask), as the JAX module does.
+    What is added: the kernel's limits (nk <= 64, dim_head <= 128,
+    frames * heads <= 128) and, on CUDA, bf16. The answer is a bool, not G.
+    """
+    return (nk <= TEMPORAL_MAX_NK and dim_head <= _TEMPORAL_DIMS[-1]
+            and frames * heads <= TEMPORAL_MAX_ROWS
+            and (device_type == 'cpu' or dtype == torch.bfloat16))
+
+
+def build_grouped_bias(bias_hfj, causal_mask=None):
+    """The per-pixel bias table of `flash_grouped_cosine`: `bias_hfj` (h, f,
+    nk) in the natural domain with -1e30 where `causal_mask` (f, nk; True =
+    masked) is set, fp32. `build_grouped_bias` of the JAX package at G = 1."""
+    blk = bias_hfj.float()
+    if causal_mask is not None:
+        blk = blk.masked_fill(causal_mask[None], NEG_INF)
+    return blk
+
+
+def temporal_attention_reference(q, kn, v, q_scale, bias, scale, heads):
+    """Plain PyTorch version of the temporal kernel, with the arithmetic of
+    `_grouped_packed_kernel`: the cosine q prologue times scale * log2(e),
+    rounded to q's dtype; fp32 scores plus bias * log2(e); an exp2 softmax
+    with fp32 statistics; P rounded to v's dtype before P @ V. `kn` is the
+    already normalised k."""
+    P, f, hd = q.shape
+    d = hd // heads
+    nk = kn.shape[1]
+    qn = l2norm_scale(q.reshape(P, f * heads, d), q_scale.float() * (scale * LOG2E))
+    s = torch.matmul(qn.float(), kn.float().transpose(-1, -2))
+    bias2 = (bias.float() * LOG2E).transpose(0, 1).reshape(f * heads, nk)
+    s = s + bias2
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / l).to(q.dtype).reshape(P, f, hd)
+
+
+def _temporal_forward(q, kn, v, q_scale, bias, scale, heads):
+    if q.device.type == 'cpu':
+        return temporal_attention_reference(q, kn, v, q_scale, bias, scale, heads)
+    if not (q.is_cuda and kn.device == q.device and v.device == q.device):
+        raise ValueError('flash_grouped_cosine: tensors must share one CUDA device')
+    if not (q.dtype == kn.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f'temporal kernel takes bf16, got {q.dtype}, {kn.dtype}, {v.dtype}')
+    if not (q.is_contiguous() and kn.is_contiguous() and v.is_contiguous()):
+        raise ValueError('flash_grouped_cosine: q, k and v must be contiguous')
+    P, f, hd = q.shape
+    d, nk = hd // heads, kn.shape[1]
+    if hd != heads * d or kn.shape != (P, nk, d) or v.shape != (P, nk, d):
+        raise ValueError(f'shape mismatch q {tuple(q.shape)} k {tuple(kn.shape)} '
+                         f'v {tuple(v.shape)} heads {heads}')
+    if tuple(bias.shape) != (heads, f, nk) or tuple(q_scale.shape) != (d,):
+        raise ValueError(f'bias {tuple(bias.shape)} != {(heads, f, nk)} or q_scale '
+                         f'{tuple(q_scale.shape)} != {(d,)}')
+    if not grouped_temporal_available(f, heads, nk, d, q.dtype, 'cuda'):
+        raise ValueError(f'temporal kernel: frames {f} x heads {heads}, nk {nk}, d {d} '
+                         'outside its limits')
+    q_rows = q.reshape(P, f * heads, d)
+    dp = next(x for x in _TEMPORAL_DIMS if x >= d)
+    if dp != d:  # zero columns change no dot product and no norm; sliced off after
+        q_rows, kn, v = (F.pad(t, (0, dp - d)).contiguous() for t in (q_rows, kn, v))
+    qs = q_scale.float()
+    qs = (F.pad(qs, (0, dp - d)) if dp != d else qs).contiguous()
+    bias2 = (bias.float() * LOG2E).contiguous()
+    out = torch.empty_like(q_rows)
+    _build.launch(TEMPORAL_KERNEL, q_rows.data_ptr(), kn.data_ptr(), v.data_ptr(),
+                  qs.data_ptr(), bias2.data_ptr(), out.data_ptr(), P, f, heads, nk, dp,
+                  scale * LOG2E)
+    if dp != d:
+        out = out[..., :d]
+    return out.reshape(P, f, hd)
+
+
+class _GroupedTemporal(torch.autograd.Function):
+    """The temporal kernel forward; the backward differentiates the plain
+    version, recomputed (an XLA recompute in the JAX package, `_grouped_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_scale, k_scale, bias, scale, heads):
+        ctx.save_for_backward(q, k, v, q_scale, k_scale, bias)
+        ctx.scale, ctx.heads = scale, heads
+        return _temporal_forward(q, l2norm_scale(k, k_scale), v, q_scale, bias, scale, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            q, k, v, q_scale, k_scale, bias = inputs
+            out = temporal_attention_reference(q, l2norm_scale(k, k_scale), v, q_scale, bias,
+                                               ctx.scale, ctx.heads)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+
+
+def flash_grouped_cosine(q, k, v, q_scale, k_scale, bias, scale, heads):
+    """Per-pixel cosine-sim temporal attention: q (P, f, h * d) packed, raw k
+    and v (P, nk, d), learned gains q_scale, k_scale (d,), bias (h, f, nk)
+    from `build_grouped_bias`. k is normalised here, once; the q
+    normalisation runs inside the kernel. Returns (P, f, h * d)."""
+    if wants_grad(q, k, v, q_scale, k_scale, bias):
+        return _GroupedTemporal.apply(q, k, v, q_scale, k_scale, bias, scale, heads)
+    return _temporal_forward(q, l2norm_scale(k, k_scale), v, q_scale, bias, scale, heads)

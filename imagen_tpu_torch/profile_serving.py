@@ -1,15 +1,19 @@
-"""Where one request of the PyTorch port's 64->256 serving path spends device time.
+"""Where one request of the PyTorch port's serving path spends device time.
 
-    python -m imagen_tpu_torch.profile_serving
+    python -m imagen_tpu_torch.profile_serving            # 64->256 images
+    python -m imagen_tpu_torch.profile_serving --video    # 16-frame video
 
-Builds paper-preset BaseUnet64 + SRUnet256 (bf16 compute, random weights
-from seed 0) on one NVIDIA GPU, warms an `ImagenServer` at batch 4, then
-times one request of 4 prompts unprofiled, then one under `torch.profiler`
-(device activity only). Prints both wall times, the summed device time of
+Builds, on one NVIDIA GPU with bf16 compute and random weights from seed 0,
+either paper-preset BaseUnet64 + SRUnet256 with an `ImagenServer` at batch 4
+(a request of 4 prompts), or the `Unet3D` of `chip_smoke.py`'s video phase
+(dim 64, mults 1-2-4, 16 frames at 64 px) with a server at batch 1 (a request
+of 1 prompt). Warms the server, then times one request unprofiled, then one
+under `torch.profiler` (device activity only). Prints both wall times, the summed device time of
 the kernels (and so the device idle share), device time by category (the
 port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies)
 and the top kernels by device time. Needs a GPU; imports no JAX.
 """
+import argparse
 import sys
 import time
 from collections import defaultdict
@@ -19,9 +23,10 @@ import torch
 import imagen_tpu_torch as it
 
 STEPS = (16, 8)  # the steps of chip_smoke.py, cut from (1000, 1000) for time
+VIDEO_STEPS, VIDEO_FRAMES = 16, 16  # chip_smoke.py's video phase
 
 CATEGORIES = (
-    ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward')),
+    ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),
@@ -43,22 +48,49 @@ def device_us(event):
     return event.self_device_time_total
 
 
+def randomize_final_conv(*unets):
+    """The final conv starts at zero; random values let every weight reach the output."""
+    with torch.no_grad():
+        for unet in unets:
+            unet.final_conv.weight.normal_(0., 0.02)
+
+
+def image_server():
+    base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
+    sr = it.SRUnet256(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
+                      lowres_cond=True)
+    randomize_final_conv(base, sr)
+    imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=STEPS,
+                       cond_drop_prob=0.1).eval()
+    return it.ImagenServer(imagen, batch_size=4, cond_scale=3., seed=0), \
+        f'steps {STEPS}, batch 4 (8 with CFG)'
+
+
+def video_server():
+    unet = it.Unet3D(dim=64, dim_mults=(1, 2, 4), num_resnet_blocks=2, layer_attns=False,
+                     layer_cross_attns=(False, True, True), text_embed_dim=768,
+                     max_text_len=256, dtype=torch.bfloat16)
+    randomize_final_conv(unet)
+    imagen = it.Imagen((unet,), image_sizes=(64,), timesteps=VIDEO_STEPS,
+                       cond_drop_prob=0.1).eval()
+    server = it.ImagenServer(imagen, batch_size=1, video_frames=VIDEO_FRAMES, cond_scale=3.,
+                             seed=0)
+    return server, (f'video, {VIDEO_FRAMES} frames of 64 px, steps {VIDEO_STEPS}, '
+                    'batch 1 (2 with CFG)')
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--video', action='store_true',
+                        help='profile the 16-frame text-to-video request')
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
 
     torch.manual_seed(0)
-    base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
-    sr = it.SRUnet256(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
-                      lowres_cond=True)
-    with torch.no_grad():
-        for unet in (base, sr):
-            unet.final_conv.weight.normal_(0., 0.02)
-    imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=STEPS,
-                       cond_drop_prob=0.1).eval()
-    server = it.ImagenServer(imagen, batch_size=4, cond_scale=3., seed=0)
+    server, label = video_server() if args.video else image_server()
     g = torch.Generator(device='cuda').manual_seed(1234)
-    emb = torch.randn((4, 256, 768), generator=g, device='cuda')
+    emb = torch.randn((server.batch_size, 256, 768), generator=g, device='cuda')
 
     t0 = time.perf_counter()
     server.generate(text_embeds=emb)
@@ -70,7 +102,7 @@ def main():
 
     kernels = [e for e in prof.key_averages() if device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
-    print(f'{torch.cuda.get_device_name(0)}; steps {STEPS}, batch 4 (8 with CFG)')
+    print(f'{torch.cuda.get_device_name(0)}; {label}')
     print(f'request wall {plain_wall_ms:.1f} ms unprofiled, {wall_ms:.1f} ms profiled; '
           f'device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}')
     by_cat = defaultdict(float)

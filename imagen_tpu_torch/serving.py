@@ -25,9 +25,11 @@ from imagen_tpu_torch.utils.helpers import default, exists
 class ImagenServer:
     """Fixed-shape sampling server around an `Imagen` whose unets hold their weights."""
 
-    def __init__(self, imagen, *, batch_size=4, text_len=256, cond_scale=3., seed=0):
+    def __init__(self, imagen, *, batch_size=4, text_len=256, cond_scale=3., seed=0,
+                 video_frames=8):
         self.imagen = imagen
         self.batch_size = batch_size
+        self.video_frames = video_frames  # frames per sample of a video cascade
         self.text_len = text_len
         self.cond_scale = cond_scale
         self.device = imagen.device
@@ -52,8 +54,9 @@ class ImagenServer:
         return self
 
     def _sample(self, text_embeds, text_masks, generator):
+        kwargs = dict(video_frames=self.video_frames) if self.imagen.is_video else {}
         return self.imagen.sample(text_embeds=text_embeds, text_masks=text_masks,
-                                  cond_scale=self.cond_scale, generator=generator)
+                                  cond_scale=self.cond_scale, generator=generator, **kwargs)
 
     def _pad_request(self, text_embeds, text_masks):
         """Pad or cut a request to (batch_size, text_len)."""
@@ -79,7 +82,8 @@ class ImagenServer:
         return text_embeds, text_masks, n
 
     def generate(self, *, texts=None, text_embeds=None, text_masks=None, generator=None):
-        """Sample images for up to `batch_size` prompts; returns (n, H, W, C) in [0, 1]."""
+        """Sample images for up to `batch_size` prompts; returns (n, H, W, C)
+        in [0, 1], or (n, video_frames, H, W, C) from a video cascade."""
         if exists(texts):
             raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
         if not exists(text_embeds):

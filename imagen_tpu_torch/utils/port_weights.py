@@ -1,12 +1,29 @@
 """Weights bridge: JAX package params -> this package's `state_dict`.
 
 The port's modules keep lucidrains' `state_dict` key names and torch shapes,
-so this is the inverse of `tools/port_weights.py` (reference `state_dict`
--> flax params): the same path table (`ref_key_for`), with each layout
-conversion of `convert_tensor` undone. Numpy only; no JAX import.
+so this is the inverse of the JAX side's tables (reference `state_dict` ->
+flax params): the same path tables (`utils/_ref_keys.py`, the port's own
+copy), with each layout conversion undone. Numpy only; no JAX import.
 
     sd = state_dict_from_jax(jax_variables['params'])
     unet.load_state_dict(sd, strict=True)
+
+Video (`Unet3D`) params are recognised by their temporal modules, or named
+with `video=True`. lucidrains' video `Conv2d` is an `nn.Conv3d` with a unit
+time kernel, so most video convs carry 5-D weights:
+
+- PseudoConv3d spatial conv (kh, kw, I, O) -> (O, I, kh, kw); temporal conv
+  (k, I, O) -> Conv1d (O, I, k);
+- every other k x k conv (kh, kw, I, O) -> (O, I, 1, kh, kw);
+- 1x1 convs held as Dense kernels (I, O) -> (O, I, 1, 1, 1);
+- the temporal PEG's depthwise kernel (3, 1, C) -> (C, 1, 3, 1, 1);
+- the temporal resamplers' Dense (I, O) -> Conv1d (O, I, 1);
+- the video feedforward's ChanLayerNorm gains (C,) -> (1, C, 1, 1, 1).
+
+lucidrains allocates `null_attn_bias` on every video attention; the JAX
+package, and so the port, holds it only where a relative position bias uses
+it (the temporal attentions, not `mid_attn`), so it is neither produced
+here nor expected by `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
@@ -15,14 +32,23 @@ import re
 import numpy as np
 import torch
 
-from tools.port_weights import ref_key_for
+from imagen_tpu_torch.utils._ref_keys import ref_key_for, ref_key_for_video
 
-# reference tensors that are 1x1 Conv2d weights (O, I, 1, 1) where flax holds a
-# Dense kernel (I, O)
+# 2D: reference 1x1 Conv2d weights (O, I, 1, 1) where flax holds a Dense kernel (I, O)
 _CONV1X1 = re.compile(
     r'(res_conv|gca\.to_k|gca\.net\.[02]|downs\.\d+\.[04]\.1|downs\.\d+\.4\.fns\.1)\.weight$')
 # ChanRMSNorm gains, (C, 1, 1) in the reference
 _CHAN_GAMMA = re.compile(r'(^|\.)norm\.gamma$')
+
+# video: Dense kernels that are 1x1x1 Conv3d weights (O, I, 1, 1, 1)
+_VIDEO_CONV1X1X1 = re.compile(
+    r'(res_conv|gca\.to_k|gca\.net\.[02]|downs\.\d+\.[07]\.1|downs\.\d+\.7\.fns\.1'
+    r'|ups\.\d+\.6\.net\.0|(downs\.\d+\.3|ups\.\d+\.2)\.layers\.\d+\.1\.[15])\.weight$')
+# video: Dense kernels that are Conv1d weights (O, I, 1)
+_VIDEO_CONV1D = re.compile(r'(downs\.\d+\.6|ups\.\d+\.5)\.conv\.weight$')
+# video: ChanLayerNorm gains of the feedforward, (1, C, 1, 1, 1)
+_VIDEO_CHAN_LN = re.compile(r'(downs\.\d+\.3|ups\.\d+\.2)\.layers\.\d+\.1\.[04]\.g$')
+_VIDEO_PATH = re.compile(r'(^|/)(\w+_temporal_(peg|attn|down|up)|spatial_conv)(/|$)')
 
 
 def _flatten(tree, prefix=()):
@@ -46,18 +72,48 @@ def _to_torch_layout(a, ref_key, leaf):
     return a
 
 
-def state_dict_from_jax(flax_params):
+def _to_torch_layout_video(a, ref_key, path):
+    if path.endswith('/kernel'):
+        if a.ndim == 2:
+            a = a.T
+            if _VIDEO_CONV1X1X1.search(ref_key):
+                return a[:, :, None, None, None]
+            return a[:, :, None] if _VIDEO_CONV1D.search(ref_key) else a
+        if a.ndim == 3:
+            if 'temporal_peg/' in path:  # depthwise (3, 1, C) -> (C, 1, 3, 1, 1)
+                return a[:, 0, :].T.reshape(a.shape[2], 1, a.shape[0], 1, 1)
+            return a.transpose(2, 1, 0)  # temporal conv (k, I, O) -> (O, I, k)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+            return a if ref_key.endswith('spatial_conv.weight') else a[:, :, None]
+        raise ValueError(f'kernel of rank {a.ndim} at {ref_key}')
+    if _CHAN_GAMMA.search(ref_key):
+        return a.reshape(-1, 1, 1)
+    if _VIDEO_CHAN_LN.search(ref_key):
+        return a.reshape(1, -1, 1, 1, 1)
+    return a
+
+
+def state_dict_from_jax(flax_params, video=None):
     """Map the JAX package's params (a nested dict of arrays, with or without
-    the top 'params' key) to the port's `state_dict`. Every JAX leaf is
-    consumed exactly once; `load_state_dict(strict=True)` then checks that
-    every port parameter was given."""
+    the top 'params' key) to the port's `state_dict`. `video` selects the
+    `Unet3D` table; None tells it from the paths. Every JAX leaf is consumed
+    exactly once; `load_state_dict(strict=True)` then checks that every port
+    parameter was given."""
     if set(flax_params.keys()) == {'params'}:
         flax_params = flax_params['params']
+    leaves = list(_flatten(flax_params))
+    if video is None:
+        video = any(_VIDEO_PATH.search(path) for path, _ in leaves)
     out = {}
-    for path, leaf in _flatten(flax_params):
-        key = ref_key_for(path)
+    for path, leaf in leaves:
+        key = ref_key_for_video(path) if video else ref_key_for(path)
         if key in out:
             raise KeyError(f'two JAX leaves map to {key!r} (second: {path!r})')
-        a = _to_torch_layout(np.asarray(leaf, dtype=np.float32), key, path.rsplit('/', 1)[-1])
+        a = np.asarray(leaf, dtype=np.float32)
+        if video:
+            a = _to_torch_layout_video(a, key, path)
+        else:
+            a = _to_torch_layout(a, key, path.rsplit('/', 1)[-1])
         out[key] = torch.from_numpy(np.array(a, dtype=np.float32, order='C'))
     return out

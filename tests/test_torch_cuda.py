@@ -233,3 +233,52 @@ def test_every_unet_parameter_gets_a_gradient_through_the_kernels(cuda):
     for name, p in unet.named_parameters():
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
+
+
+def _temporal_inputs(cuda, P, f, h, d, seed):
+    """bf16 q, k, v for P pixels of f frames and h heads, fp32 gains, and a
+    causal DynamicPositionBias-like table with the null column first."""
+    r = rng(seed)
+    nk = f + 1
+    q = t(randn(r, P, f, h * d)).to(cuda).to(BF16)
+    k, v = (t(randn(r, P, nk, d)).to(cuda).to(BF16) for _ in range(2))
+    qs, ks = (t(1. + randn(r, d, scale=0.1)).to(cuda) for _ in range(2))
+    causal = torch.ones((f, nk), dtype=torch.bool, device=cuda).triu(2)
+    bias = fa.build_grouped_bias(t(randn(r, h, f, nk)).to(cuda), causal)
+    return q, k, v, qs, ks, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('P,f,h,d', [(512, 16, 8, 64), (100, 5, 3, 40), (300, 8, 2, 16)])
+def test_temporal_kernel_matches_plain(cuda, P, f, h, d):
+    q, k, v, qs, ks, bias = _temporal_inputs(cuda, P, f, h, d, seed=13)
+
+    def plain(q, k, v):
+        return fa.temporal_attention_reference(q, fa.l2norm_scale(k, ks), v, qs, bias, 8., h)
+
+    _check(lambda q, k, v: fa.flash_grouped_cosine(q, k, v, qs, ks, bias, 8., h), plain,
+           (q, k, v), (q.float(), k.float(), v.float()), fa.TEMPORAL_KERNEL)
+
+
+@pytest.mark.cuda
+def test_temporal_function_gradients_match_plain(cuda):
+    q, k, v, qs, ks, bias = _temporal_inputs(cuda, 512, 16, 8, 64, seed=14)
+
+    def plain(q, k, v, qs, ks, bias):
+        return fa.temporal_attention_reference(q, fa.l2norm_scale(k, ks), v, qs, bias, 8., 8)
+
+    _check_grads(lambda *a: fa.flash_grouped_cosine(*a, 8., 8), plain,
+                 [q, k, v, qs, ks, bias], fa.TEMPORAL_KERNEL)
+
+
+@pytest.mark.cuda
+def test_temporal_wrapper_raises_outside_its_limits(cuda):
+    q, k, v, qs, ks, bias = _temporal_inputs(cuda, 4, 4, 2, 32, seed=15)
+    with pytest.raises(TypeError):
+        fa.flash_grouped_cosine(q.float(), k.float(), v.float(), qs, ks, bias, 8., 2)
+    with pytest.raises(ValueError):
+        fa.flash_grouped_cosine(q[:, :, ::2], k, v, qs, ks, bias, 8., 1)
+    big = torch.zeros(2, 20, 8 * 32, device=cuda, dtype=BF16)   # 160 rows
+    kv = torch.zeros(2, 21, 32, device=cuda, dtype=BF16)
+    with pytest.raises(ValueError):
+        fa.flash_grouped_cosine(big, kv, kv, qs, ks, torch.zeros(8, 20, 21, device=cuda), 8., 8)

@@ -94,14 +94,15 @@ def load_into(torch_module, flax_params):
     return torch_module.eval()
 
 
-def load_block(torch_module, flax_params, flax_path, torch_prefix):
+def load_block(torch_module, flax_params, flax_path, torch_prefix, video=None):
     """Bridge the params of one block. `flax_path` places them where a Unet
     holds such a block (e.g. 'mid_attn/attn_0'), so the Unet's key table
-    applies; `torch_prefix` (e.g. 'mid_attn.layers.0.0.') is then stripped."""
+    applies; `torch_prefix` (e.g. 'mid_attn.layers.0.0.') is then stripped.
+    `video` picks the `Unet3D` table where the path does not tell."""
     tree = flax_params
     for name in reversed(flax_path.split('/')):
         tree = {name: tree}
-    sd = state_dict_from_jax(tree)
+    sd = state_dict_from_jax(tree, video=video)
     if not all(k.startswith(torch_prefix) for k in sd):
         raise KeyError(f'keys outside {torch_prefix!r}: {sorted(sd)[:3]}')
     torch_module.load_state_dict({k[len(torch_prefix):]: v for k, v in sd.items()},
