@@ -11,20 +11,26 @@ fp32 parameters and random weights from a seed:
   batch 4), with Adam, clipping and EMA;
 - video: the `Unet3D` of the JAX bench's video mode (dim 64, mults 1-2-4,
   16 frames at 64 px), an `ImagenServer(video_frames=16)` that warms up and
-  answers three requests of one prompt.
+  answers three requests of one prompt;
+- video training: the same `Unet3D` with its fused temporal norms on
+  (`temporal_fused_ln=True`, so kernels 12 and 13 lie on the path),
+  `ImagenTrainer.step_with_batch` for 3 steps on batch 4 clips of 16 frames
+  at 64 px, with Adam, clipping and EMA.
 The launch counts are set to 0 just before each path and read just after.
-Then it holds each hand-written kernel, at every shape the two paths launched
-it at, against its plain PyTorch version, and a small bf16 U-Net that reaches
-every kernel against the same U-Net on the plain path, outputs and
-gradients, both measured against fp32.
+Then it holds each hand-written kernel, at every shape the paths launched
+it at, against its plain PyTorch version, and a small bf16 U-Net and a
+small bf16 Unet3D that reach every kernel against the same nets on the
+plain path, outputs and gradients, both measured against fp32.
 
 Prints, in order: the card (nvidia-smi name and power limit) and CUDA
 version; the kernel build time; per request latency, shape, finiteness and
 range; per training step loss, time and peak memory; launch counts per path;
-per video request latency, shape, finiteness, range and peak memory;
-per-kernel errors, CUDA-event times and bounds at each shape; the small
-U-Net's errors; then the card again, one JSON line of kernel results and,
-last, the result line {"ok": ..., "device": {...}}.
+per video request latency, shape, finiteness, range and peak memory; per
+video training step loss, time and peak memory; per-kernel errors,
+CUDA-event times and bounds at each shape (with the unfused route's time
+for kernels 12 and 13); the small nets' errors; then the card again, one
+JSON line of kernel results and, last, the result line
+{"ok": ..., "device": {...}}.
 
 In the kernel line, `launches` is the sum over the paths (split in
 `launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
@@ -36,7 +42,9 @@ the two bounds most of it. `library_ms` times one PyTorch call that computes
 the same function (`F.scaled_dot_product_attention`, its backward,
 `F.conv2d`; for the temporal kernel SDPA on the pre-normalised q and k, K and
 V expanded over the heads, with the bias table as `attn_mask`), null where
-there is none. `max_abs_err` is the kernel's worst
+there is none (the feedforward, and kernels 12 and 13: no one call fuses a
+LayerNorm with a relayout; their `unfused_route_ms` times the port's
+unfused route instead). `max_abs_err` is the kernel's worst
 error against the fp32 truth over those shapes and outputs.
 
 Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
@@ -61,6 +69,7 @@ VIDEO_TEMPORAL_SITES = 8     # TemporalAttention sites per Unet3D forward
 REQUEST_SIZES = (4, 2, 3)
 TRAIN_STEPS = 3
 TRAIN_CONFIGS = ((1, 8), (2, 4))   # (unet number, batch), as the JAX bench trains them
+VIDEO_TRAIN_BATCH = 4
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes per second
 KERNEL_INFO = {
@@ -79,8 +88,15 @@ KERNEL_INFO = {
     'temporal_attn_fwd_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_attn_fwd.cu',
         replaces='imagen_tpu/ops/flash_attention.py:886'),
+    'ln_transpose_bf16': dict(
+        source='imagen_tpu_torch/csrc/temporal_layout.cu',
+        replaces='imagen_tpu/ops/temporal_layout.py:136'),
+    'norm_untranspose_bf16': dict(
+        source='imagen_tpu_torch/csrc/temporal_layout.cu',
+        replaces='imagen_tpu/ops/temporal_layout.py:184'),
 }
-PATHS = ('serving', 'training', 'video')
+VIDEO_KERNELS = ('temporal_attn_fwd_bf16', 'ln_transpose_bf16', 'norm_untranspose_bf16')
+PATHS = ('serving', 'training', 'video', 'video_training')
 
 
 def log(msg):
@@ -221,21 +237,30 @@ def train_config(torch, it, build, results, counts, unet_number, batch):
     torch.manual_seed(20 + unet_number)
     t0 = time.perf_counter()
     imagen = training_imagen(torch, it, unet_number)
-    unet = imagen.unets[unet_number - 1]
-    trainer = it.ImagenTrainer(imagen, lr=1e-4, max_grad_norm=1.0, use_ema=True,
-                               ema_update_after_step=0, ema_update_every=1,
-                               only_train_unet_number=unet_number, seed=0, verbose=False)
     size = imagen.image_sizes[unet_number - 1]
     g = torch.Generator(device='cuda').manual_seed(100 + unet_number)
     emb, mask = text_batch(torch, g, batch)
     data = dict(images=torch.rand((batch, size, size, 3), generator=g, device='cuda'),
                 text_embeds=emb, text_masks=mask)
+    stages = 'BaseUnet64' if unet_number == 1 else 'NullUnet + SRUnet256'
+    label = f'train unet {unet_number} ({stages}, batch {batch}, {size}px)'
+    return train_steps(torch, it, build, results['shapes']['training'], counts, label, imagen,
+                       unet_number, data, t0)
+
+
+def train_steps(torch, it, build, shapes, counts, label, imagen, unet_number, data, t0):
+    """TRAIN_STEPS steps of `ImagenTrainer.step_with_batch` on `data`, with
+    the launches counted into `counts`; checks finite losses, a finite
+    gradient for every parameter, and that the weights and the EMA moved."""
+    unet = imagen.unets[unet_number - 1]
+    trainer = it.ImagenTrainer(imagen, lr=1e-4, max_grad_norm=1.0, use_ema=True,
+                               ema_update_after_step=0, ema_update_every=1,
+                               only_train_unet_number=unet_number, seed=0, verbose=False)
     named = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
     before = [p.detach().flatten()[:4096].clone() for _, p in named]
     torch.cuda.synchronize()
-    stages = 'BaseUnet64' if unet_number == 1 else 'NullUnet + SRUnet256'
-    label = f'train unet {unet_number} ({stages}, batch {batch}, {size}px)'
-    log(f'{label}: {sum(p.numel() for _, p in named) / 1e9:.3f} B trainable params, '
+    n_params = sum(p.numel() for _, p in named)
+    log(f'{label}: {n_params / 1e9:.3f} B trainable params, '
         f'built in {time.perf_counter() - t0:.1f} s')
 
     # every parameter's gradient, checked between the first backward and its update
@@ -252,7 +277,7 @@ def train_config(torch, it, build, results, counts, unet_number, batch):
 
     trainer._apply_update = checked_update
     losses = []
-    with counting_path(build, results['shapes']['training'], counts):
+    with counting_path(build, shapes, counts):
         for step in range(1, TRAIN_STEPS + 1):
             torch.cuda.reset_peak_memory_stats()
             loss = trainer.step_with_batch(data, unet_number=unet_number)
@@ -284,7 +309,7 @@ def phase_training(torch, it, build, results):
     for unet_number, batch in TRAIN_CONFIGS:
         ok &= train_config(torch, it, build, results, counts, unet_number, batch)
         free_cuda()
-    ok &= check_launched(counts, [n for n in KERNEL_INFO if n != 'temporal_attn_fwd_bf16'],
+    ok &= check_launched(counts, [n for n in KERNEL_INFO if n not in VIDEO_KERNELS],
                          'training')
     results['counts']['training'] = counts
     return ok
@@ -292,15 +317,19 @@ def phase_training(torch, it, build, results):
 
 # --- video serving ----------------------------------------------------------------------
 
+def video_unet(torch, it, **kwargs):
+    """The JAX bench's video `Unet3D` (`bench.py:158-174`) at full width."""
+    return it.Unet3D(dim=64, dim_mults=(1, 2, 4), num_resnet_blocks=2, layer_attns=False,
+                     layer_cross_attns=(False, True, True), text_embed_dim=768,
+                     max_text_len=256, dtype=torch.bfloat16, **kwargs)
+
+
 def phase_video(torch, it, build, results):
     """The JAX bench's video configuration (`bench.py`, mode 'video') at full
     width: 16 frames of 64 px, batch 1 (2 with CFG), cond_scale 3."""
-    bf16 = torch.bfloat16
     torch.manual_seed(30)
     t0 = time.perf_counter()
-    unet = it.Unet3D(dim=64, dim_mults=(1, 2, 4), num_resnet_blocks=2, layer_attns=False,
-                     layer_cross_attns=(False, True, True), text_embed_dim=768,
-                     max_text_len=256, dtype=bf16)
+    unet = video_unet(torch, it)
     randomize_final_conv(unet, 31)
     imagen = it.Imagen((unet,), image_sizes=(64,), timesteps=VIDEO_STEPS,
                        cond_drop_prob=0.1).eval()
@@ -343,18 +372,77 @@ def phase_video(torch, it, build, results):
     return ok
 
 
+# --- video training ---------------------------------------------------------------------
+
+def fused_site_calls(unet):
+    """Forward hooks that count the TemporalAttention calls taking the fused
+    route (kernels 12 and 13 once each): the expected launches, read from
+    the built model as it runs."""
+    from imagen_tpu_torch.models.video_blocks import TemporalAttention
+    from imagen_tpu_torch.ops.temporal_layout import temporal_layout_available
+    calls = Counter()
+
+    def hook(module, args):
+        x = args[0]
+        if module.fused_ln and temporal_layout_available(x.shape, x.dtype, x.device.type):
+            calls[tuple(x.shape)] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in unet.modules()
+               if isinstance(m, TemporalAttention)]
+    return calls, handles
+
+
+def phase_video_training(torch, it, build, results):
+    """The video `Unet3D` with the fused temporal norms on, trained for
+    TRAIN_STEPS steps on batch 4 clips of 16 frames at 64 px."""
+    torch.manual_seed(40)
+    t0 = time.perf_counter()
+    unet = video_unet(torch, it, temporal_fused_ln=True)
+    randomize_final_conv(unet, 41)
+    imagen = it.Imagen((unet,), image_sizes=(64,), cond_drop_prob=0.1)
+    g = torch.Generator(device='cuda').manual_seed(140)
+    emb, mask = text_batch(torch, g, VIDEO_TRAIN_BATCH)
+    data = dict(images=torch.rand((VIDEO_TRAIN_BATCH, VIDEO_FRAMES, 64, 64, 3), generator=g,
+                                  device='cuda'),
+                text_embeds=emb, text_masks=mask)
+    label = (f'video train (Unet3D {sum(p.numel() for p in unet.parameters()) / 1e6:.1f} M, '
+             f'batch {VIDEO_TRAIN_BATCH} x {VIDEO_FRAMES} frames, 64px)')
+    counts = Counter()
+    calls, handles = fused_site_calls(unet)
+    try:
+        ok = train_steps(torch, it, build, results['shapes']['video_training'], counts, label,
+                         imagen, 1, data, t0)
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, [n for n in KERNEL_INFO if n not in (
+        'conv2d_same_3x3_bf16', 'fused_feedforward_bf16')], 'video_training')
+    expected = sum(calls.values())
+    sites = {shape: n // TRAIN_STEPS for shape, n in sorted(calls.items())}
+    for name in ('ln_transpose_bf16', 'norm_untranspose_bf16'):
+        exact = counts[name] == expected > 0
+        ok &= exact
+        log(f'video_training: {name} launches {counts[name]}, expected {expected} = fused '
+            f'sites per forward {sites} x {TRAIN_STEPS} steps -> {"ok" if exact else "FAIL"}')
+    results['counts']['video_training'] = counts
+    return ok
+
+
 # --- each kernel against its plain version --------------------------------------------
 
 def kernel_cases(torch, name, dims, g):
-    """(kernel, plain, library or None, served or None, bf16 inputs, fp32
-    inputs, flops, bytes) at one recorded launch shape. kernel and plain
-    return tuples of outputs; `served` is the flash forward as serving calls
-    it, without the LSE that training asks for."""
+    """(kernel, plain, library or None, served or None, unfused or None,
+    bf16 inputs, fp32 inputs, flops, bytes) at one recorded launch shape.
+    kernel and plain return tuples of outputs; `served` is the flash forward
+    as serving calls it, without the LSE that training asks for; `unfused`
+    is the port's unfused route for kernels 12 and 13."""
     import torch.nn.functional as F
     from imagen_tpu_torch.ops import conv2d as c2d
     from imagen_tpu_torch.ops import flash_attention as fa
     from imagen_tpu_torch.ops import fused_norm as fn
+    from imagen_tpu_torch.ops import temporal_layout as tl
     bf16 = torch.bfloat16
+    unfused = None
 
     def rnd(*shape, scale=1.):
         return torch.randn(shape, generator=g, device='cuda') * scale
@@ -446,6 +534,37 @@ def kernel_cases(torch, name, dims, g):
             return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=1)
         flops = 2 * b * H * W * 9 * cin * cout
         nbytes = 2 * (b * H * W * (cin + cout) + 9 * cin * cout + cout)
+    elif name in (tl.LN_T_KERNEL, tl.NORM_UT_KERNEL):
+        b, f, hw, c, eps = dims
+        gain = 1. + rnd(c, scale=0.1)
+        x = rnd(b, f, hw, 1, c).to(bf16)   # (b, f, h, w, c) with h = hw, w = 1
+        numel = x.numel()
+        library = None
+        if name == tl.LN_T_KERNEL:
+            inputs = [x]
+
+            def kernel(x):
+                return (tl._ln_t_forward(x, gain, eps),)
+
+            def plain(x):
+                return (tl.ln_transpose_reference(x, gain, eps),)
+
+            def unfused(x):   # the route without the kernel: fold (a copy), then the norm
+                return fn.layernorm(tl._fold(x), gain, eps)
+            nbytes = 2 * 2 * numel + 4 * c
+        else:
+            inputs = [rnd(b * hw, f, c, scale=2.).to(bf16), x]
+
+            def kernel(out, res):
+                return (tl._norm_ut_forward(out, res, gain, eps),)
+
+            def plain(out, res):
+                return (tl.norm_untranspose_reference(out, res, gain, eps),)
+
+            def unfused(out, res):   # the norm, the unfold, the residual add
+                return tl._unfold(fn.layernorm(out, gain, eps), res.shape) + res
+            nbytes = 3 * 2 * numel + 4 * c
+        flops = 6 * numel
     else:
         rows, k, hid, eps = dims
         g0, g1 = 1. + rnd(k, scale=0.1), 1. + rnd(hid, scale=0.1)
@@ -460,7 +579,8 @@ def kernel_cases(torch, name, dims, g):
         library = None
         flops = 4 * rows * k * hid
         nbytes = 2 * (2 * rows * k + 2 * k * hid) + 4 * (k + hid)
-    return kernel, plain, library, served, inputs, [x.float() for x in inputs], flops, nbytes
+    return (kernel, plain, library, served, unfused, inputs, [x.float() for x in inputs], flops,
+            nbytes)
 
 
 def phase_kernels(torch, results):
@@ -477,7 +597,7 @@ def phase_kernels(torch, results):
                 by_dims[dims][path] += count
         for dims, counts in sorted(by_dims.items()):
             count = sum(counts.values())
-            kernel, plain, library, served, xb, xf, flops, nbytes = kernel_cases(
+            kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
                 torch, name, dims, g)
             with torch.no_grad():
                 truth = plain(*xf)
@@ -490,6 +610,7 @@ def phase_kernels(torch, results):
                 k2 = cuda_time_ms(lambda: kernel(*xb))
                 p2 = cuda_time_ms(lambda: plain(*xb))
                 served_ms = cuda_time_ms(lambda: served(*xb)) if served else None
+                unfused_ms = cuda_time_ms(lambda: unfused(*xb)) if unfused else None
             lib_ms = cuda_time_ms(lambda: library(*xb)) if library else None
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -498,20 +619,24 @@ def phase_kernels(torch, results):
             ok &= good
             worst = max(worst, *errs_k)
             # serving launches the flash forward without the LSE
+            trained = counts['training'] + counts['video_training']
             totals['ms'] += (count * ms if served_ms is None else
-                             (count - counts['training']) * served_ms
-                             + counts['training'] * ms)
+                             (count - trained) * served_ms + trained * ms)
             totals['plain_ms'] += count * plain_ms
             totals['operations'] += count * bound_ops if bound_ops >= bound_bytes else 0.
             totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
             if lib_ms is not None:
                 lib_total = (lib_total or 0.) + count * lib_ms
+            if unfused_ms is not None:
+                totals['unfused_route_ms'] += count * unfused_ms
             fmt = ', '.join(f'{e:.3e}' for e in errs_k)
             fmt_p = ', '.join(f'{e:.3e}' for e in errs_p)
             served_note = '' if served_ms is None else f' ({served_ms:.4f} ms as served)'
+            unfused_note = ('' if unfused_ms is None else
+                            f', the unfused route {unfused_ms:.4f} ms')
             log(f'{name} {dims} x{count} {dict(counts)}: max_abs_err kernel [{fmt}] '
                 f'plain-bf16 [{fmt_p}] -> {"ok" if good else "FAIL"}; {ms:.4f} ms'
-                f'{served_note} vs plain {plain_ms:.4f} ms, '
+                f'{served_note} vs plain {plain_ms:.4f} ms{unfused_note}, '
                 f'library {"n/a" if lib_ms is None else f"{lib_ms:.4f} ms"}, bound '
                 f'{max(bound_ops, bound_bytes):.4f} ms by '
                 f'{"operations" if bound_ops >= bound_bytes else "bytes"} '
@@ -525,20 +650,25 @@ def phase_kernels(torch, results):
             bound_ms=totals['operations'] + totals['bytes'],
             bound_by='operations' if totals['operations'] >= totals['bytes'] else 'bytes',
             library_ms=lib_total))
+        if 'unfused_route_ms' in totals:
+            summary[-1]['unfused_route_ms'] = totals['unfused_route_ms']
     results['kernels'] = summary
     return ok
 
 
-# --- a small U-Net on both paths ------------------------------------------------------
+# --- small nets on both paths ----------------------------------------------------------
 
 @contextmanager
 def plain_path():
-    """Every kernel gate closed: the U-Net runs its plain PyTorch path."""
+    """Every kernel gate closed: the nets run their plain PyTorch path."""
     from imagen_tpu_torch.models import blocks
+    from imagen_tpu_torch.models import video_blocks
     import imagen_tpu_torch.ops.attention as attn
     saved = [(m, n, getattr(m, n)) for m, n in (
         (blocks, 'conv2d_same_available'), (blocks, 'fused_feedforward_available'),
-        (attn, 'flash_attention_available'))]
+        (attn, 'flash_attention_available'), (video_blocks, 'flash_attention_available'),
+        (video_blocks, 'grouped_temporal_available'),
+        (video_blocks, 'temporal_layout_available'))]
     try:
         for m, n, _ in saved:
             setattr(m, n, lambda *a, **k: False)
@@ -548,24 +678,15 @@ def plain_path():
             setattr(m, n, f)
 
 
-def phase_small_unet(torch, it):
-    """A small bf16 U-Net that reaches every 2D kernel (128x128 input, 128
-    channels, attention at 64x64), against the same U-Net on the plain path;
-    outputs and parameter gradients, both measured against the U-Net in fp32."""
+def held_to_fp32(torch, label, ref, fast, x, t, emb, kernels):
+    """`fast` (bf16) on its kernel path and on the plain path, outputs and
+    parameter gradients, both measured against `ref` (the same net in fp32);
+    the kernel path must reach every kernel in `kernels`."""
     from imagen_tpu_torch.ops import _build
-    torch.manual_seed(3)
-    cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
-               layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
-               text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8)
-    ref = it.Unet(**cfg).eval()
-    fast = it.Unet(**cfg, dtype=torch.bfloat16).eval()
     randomize_final_conv(ref, 4)
     fast.load_state_dict(ref.state_dict())
-    g = torch.Generator(device='cuda').manual_seed(5)
-    x = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
-    t = torch.rand((2,), generator=g, device='cuda')
-    emb = torch.randn((2, 16, 64), generator=g, device='cuda')
-    cot = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
+    cot = torch.randn(x.shape, generator=torch.Generator(device='cuda').manual_seed(6),
+                      device='cuda')
 
     def run(unet):
         unet.zero_grad(set_to_none=True)
@@ -576,8 +697,7 @@ def phase_small_unet(torch, it):
     truth, truth_g = run(ref)
     before = dict(_build.LAUNCHES)
     out_k, grads_k = run(fast)
-    reached = all(_build.LAUNCHES.get(n, 0) > before.get(n, 0) for n in KERNEL_INFO
-                  if n != 'temporal_attn_fwd_bf16')  # a 2D U-Net has no temporal attention
+    reached = all(_build.LAUNCHES.get(n, 0) > before.get(n, 0) for n in kernels)
     with plain_path():
         out_p, grads_p = run(fast)
 
@@ -592,11 +712,47 @@ def phase_small_unet(torch, it):
         bool(torch.isfinite(v).all()) for v in grads_k.values())
     good = (reached and finite and err_k <= max(2 * err_p, 1e-3)
             and gerr_k <= max(2 * gerr_p, 1e-3))
-    log(f'small unet (b2 128x128, dim 128) vs fp32: output max_abs_err kernel path {err_k:.3e}, '
+    log(f'{label} vs fp32: output max_abs_err kernel path {err_k:.3e}, '
         f'plain bf16 path {err_p:.3e} (|truth| max {truth.abs().max().item():.3e}); '
         f'gradient relative error kernel path {gerr_k:.3e}, plain bf16 path {gerr_p:.3e}; '
         f'all kernels reached {reached}, finite {finite} -> {"ok" if good else "FAIL"}')
     return good
+
+
+def phase_small_unet(torch, it):
+    """A small bf16 U-Net that reaches every 2D kernel (128x128 input, 128
+    channels, attention at 64x64)."""
+    torch.manual_seed(3)
+    cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
+               layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
+               text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8)
+    g = torch.Generator(device='cuda').manual_seed(5)
+    x = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
+    t = torch.rand((2,), generator=g, device='cuda')
+    emb = torch.randn((2, 16, 64), generator=g, device='cuda')
+    return held_to_fp32(torch, 'small unet (b2 128x128, dim 128)', it.Unet(**cfg).eval(),
+                        it.Unet(**cfg, dtype=torch.bfloat16).eval(), x, t, emb,
+                        [n for n in KERNEL_INFO if n not in VIDEO_KERNELS])
+
+
+def phase_small_unet3d(torch, it):
+    """A small bf16 Unet3D with the fused temporal norms on (8 frames of
+    32 px, channels 64 and 128): its temporal sites reach the temporal
+    kernel, those at c 128 (the middle and the first up level) kernels 12
+    and 13, and `mid_attn` over 8 x 16^2 = 2048 tokens the flash kernels."""
+    torch.manual_seed(7)
+    cfg = dict(dim=64, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=False,
+               layer_cross_attns=(False, True), attn_heads=4, attn_dim_head=32,
+               text_embed_dim=64, cond_dim=64, max_text_len=16, attn_pool_num_latents=8,
+               temporal_fused_ln=True)
+    g = torch.Generator(device='cuda').manual_seed(8)
+    x = torch.randn((2, 8, 32, 32, 3), generator=g, device='cuda')
+    t = torch.rand((2,), generator=g, device='cuda')
+    emb = torch.randn((2, 16, 64), generator=g, device='cuda')
+    return held_to_fp32(torch, 'small Unet3D (b2 8x32x32, dim 64, fused temporal norms)',
+                        it.Unet3D(**cfg).eval(),
+                        it.Unet3D(**cfg, dtype=torch.bfloat16).eval(), x, t, emb,
+                        ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS])
 
 
 def main():
@@ -639,8 +795,11 @@ def main():
         free_cuda()
         ok &= phase_video(torch, it, _build, results)
         free_cuda()
+        ok &= phase_video_training(torch, it, _build, results)
+        free_cuda()
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)
+        ok &= phase_small_unet3d(torch, it)
     except Exception:  # a failed phase ends the run with ok: false
         traceback.print_exc(file=sys.stdout)
         ok = False

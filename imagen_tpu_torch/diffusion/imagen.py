@@ -6,9 +6,13 @@ guidance as one doubled-batch forward, dynamic thresholding, low-res
 noise-aug conditioning, and the stage loop as a plain Python loop over steps;
 for a cascade of video unets (`Unet3D`) every stage samples NFHWC video of
 `video_frames` frames (fewer where `temporal_downsample_factor` says so).
-Training (`forward` -> `p_losses`): random times, the degraded low-res
-condition with its noise augmentation, the paired random crop, the three
-objectives and min-SNR weighting. Every draw comes from a `torch.Generator`
+Prompt frames (`cond_video_frames`, `post_cond_video_frames`) are scaled in
+time by each stage's `temporal_downsample_factor`. Training (`forward` ->
+`p_losses`): random times, the degraded low-res condition with its noise
+augmentation (resized in space and, for video, in time), the paired random
+crop (per frame for video), the three objectives and min-SNR weighting;
+still images train a video cascade as one-frame clips with `ignore_time`.
+Every draw comes from a `torch.Generator`
 (or is passed in: `noise_override` when sampling, `noise` and
 `lowres_aug_noise` in `p_losses`).
 """
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 
 from imagen_tpu_torch.models.unet2d import NullUnet
-from imagen_tpu_torch.models.video_blocks import resize_video_to
+from imagen_tpu_torch.models.video_blocks import resize_video_to, scale_video_time
 from imagen_tpu_torch.ops.diffusion_math import GaussianDiffusionContinuousTimes
 from imagen_tpu_torch.ops.tensor_utils import (
     cast_uint8_images_to_float,
@@ -87,7 +91,14 @@ def unet_forward_with_cond_scale(unet, x, time, *, cond_scale=1., **kwargs):
 
 def _per_sample_random_crop(tensors, crop_size, generator=None):
     """Paired per-sample random crop of NHWC tensors: the same offsets across
-    the tensors, drawn per sample from `generator`."""
+    the tensors, drawn per sample from `generator`. NFHWC video folds its
+    frames into the batch, so each frame of each clip has its own offsets
+    (the JAX package's fold, after lucidrains' crop of rearranged frames)."""
+    if tensors[0].ndim == 5:
+        b, f = tensors[0].shape[:2]
+        cropped = _per_sample_random_crop([t.reshape(b * f, *t.shape[2:]) for t in tensors],
+                                          crop_size, generator)
+        return tuple(t.reshape(b, f, *t.shape[1:]) for t in cropped)
     b, h, w, _ = tensors[0].shape
     device = tensors[0].device
     tops = torch.randint(0, h - crop_size + 1, (b,), generator=generator, device=device)
@@ -111,8 +122,8 @@ class Imagen(nn.Module):
 
     A cascade with a video unet is a video cascade: `sample` needs
     `video_frames`, and stage i samples `video_frames //
-    temporal_downsample_factor[i]` frames (the last factor must be 1).
-    Training a video cascade is not ported yet.
+    temporal_downsample_factor[i]` frames (the last factor must be 1);
+    `forward` trains stage i on clips resized to that many frames.
     """
 
     def __init__(self, unets, *, image_sizes, text_encoder_name='google/t5-v1_1-base',
@@ -201,6 +212,19 @@ class Imagen(nn.Module):
                                    clamp_range=clamp_range)
         return resize_image_to(x, size, clamp_range=clamp_range)
 
+    def _prompt_frames(self, index, cond_video_frames, post_cond_video_frames):
+        """The prompt-frame kwargs of stage `index`, each scaled in time by
+        the stage's temporal downsample factor."""
+        kwargs = {}
+        for name, frames in (('cond_video_frames', cond_video_frames),
+                             ('post_cond_video_frames', post_cond_video_frames)):
+            if exists(frames):
+                if not self.is_video:
+                    raise ValueError(f'{name} needs a video cascade')
+                kwargs[name] = scale_video_time(frames.to(self.device),
+                                                self.temporal_downsample_factor[index])
+        return kwargs
+
     def _calc_all_frame_dims(self, frames):
         """Frames sampled by each stage; None for an image cascade."""
         if frames is None:
@@ -285,12 +309,16 @@ class Imagen(nn.Module):
 
     @torch.no_grad()
     def sample(self, *, texts=None, text_masks=None, text_embeds=None, batch_size=1,
-               video_frames=None, cond_scale=1., start_at_unet_number=1,
-               start_image_or_video=None, stop_at_unet_number=None,
-               noise_override: Optional[Sequence] = None,
+               video_frames=None, cond_video_frames=None, post_cond_video_frames=None,
+               cond_scale=1., start_at_unet_number=1, start_image_or_video=None,
+               stop_at_unet_number=None, noise_override: Optional[Sequence] = None,
                generator: Optional[torch.Generator] = None):
         """Run the cascade; returns the last stage's NHWC images, or NFHWC
         video of a video cascade, in [0, 1].
+
+        `cond_video_frames` / `post_cond_video_frames` (b, n, h, w, c) are
+        prompt frames that every stage's unet sees before / after the frames
+        it samples, scaled in time by the stage's temporal downsample factor.
 
         `noise_override`: per-stage list (len == num_unets, entries may be None)
         of (init_noise, step_noises, lowres_aug_noise) used instead of draws
@@ -342,7 +370,7 @@ class Imagen(nn.Module):
             init_noise, step_noises, lowres_noise = default(
                 noise_override[index], (None, None, None))
 
-            unet_kwargs = {}
+            unet_kwargs = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
             if not self.unconditional:
                 unet_kwargs.update(text_embeds=text_embeds, text_mask=text_masks)
             if unet.lowres_cond:
@@ -378,12 +406,15 @@ class Imagen(nn.Module):
     def p_losses(self, unet, x_start, times, *, noise_scheduler, lowres_cond_img=None,
                  lowres_aug_times=None, text_embeds=None, text_mask=None, noise=None,
                  lowres_aug_noise=None, pred_objective='noise', min_snr_gamma=None,
-                 random_crop_size=None, generator=None):
-        """Denoising loss of one unet on a batch of images in the input range.
+                 random_crop_size=None, generator=None, **unet_kwargs):
+        """Denoising loss of one unet on a batch of images (NHWC) or clips
+        (NFHWC) in the input range.
 
         `noise` and `lowres_aug_noise` (the low-res condition's augmentation
         noise, after any crop) are drawn from `generator` when not given, as
         are the crop offsets and the text drop of classifier-free guidance.
+        `unet_kwargs` (a video unet's `ignore_time`, `cond_video_frames`,
+        `post_cond_video_frames`) pass through to the unet.
         """
         def randn(shape, dtype):
             return torch.randn(shape, generator=generator, device=x_start.device, dtype=dtype)
@@ -413,7 +444,7 @@ class Imagen(nn.Module):
                     text_mask=text_mask, lowres_cond_img=lowres_cond_img_noisy,
                     lowres_noise_times=self.lowres_noise_schedule.get_condition(
                         lowres_aug_times),
-                    cond_drop_prob=self.cond_drop_prob, generator=generator)
+                    cond_drop_prob=self.cond_drop_prob, generator=generator, **unet_kwargs)
 
         if pred_objective == 'noise':
             target = noise
@@ -439,9 +470,17 @@ class Imagen(nn.Module):
         return (losses * loss_weight).mean()
 
     def forward(self, images, *, unet_number=None, texts=None, text_embeds=None,
-                text_masks=None, generator=None):
-        """Training loss of unet `unet_number` on a batch of NHWC images in
-        [0, 1] (or uint8), drawing every random value from `generator`."""
+                text_masks=None, cond_video_frames=None, post_cond_video_frames=None,
+                ignore_time=False, generator=None):
+        """Training loss of unet `unet_number` on a batch of NHWC images, or
+        of NFHWC clips for a video cascade, in [0, 1] (or uint8), drawing
+        every random value from `generator`.
+
+        A video cascade trains stage i on clips resized to its frame count
+        (`video_frames // temporal_downsample_factor[i]`); still images
+        train it as one-frame clips with `ignore_time`, which skips every
+        temporal module. Prompt frames are scaled in time as in `sample`.
+        """
         if self.num_unets > 1 and not exists(unet_number):
             raise ValueError(f'specify unet_number in [1, {self.num_unets}] for a cascade')
         unet_number = default(unet_number, 1)
@@ -449,8 +488,6 @@ class Imagen(nn.Module):
             raise ValueError(f'only unet {self.only_train_unet_number} may be trained')
         if exists(texts):
             raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
-        if self.is_video:
-            raise NotImplementedError('training a video cascade is not ported yet')
         index = unet_number - 1
         unet = self.unets[index]
         if isinstance(unet, NullUnet):
@@ -458,14 +495,24 @@ class Imagen(nn.Module):
 
         device = self.device
         images = cast_uint8_images_to_float(images.to(device))
-        if images.shape[-2] != images.shape[-3] or images.shape[-1] != self.channels:
-            raise ValueError(f'images must be square with {self.channels} channels, '
-                             f'got {tuple(images.shape)}')
+        if self.is_video and images.ndim == 4:   # still images: one-frame clips
+            images, ignore_time = images[:, None], True
+        if images.ndim != (5 if self.is_video else 4) or images.shape[-2] != images.shape[-3] \
+                or images.shape[-1] != self.channels:
+            raise ValueError(f'{"clips" if self.is_video else "images"} must be square with '
+                             f'{self.channels} channels, got {tuple(images.shape)}')
         noise_scheduler = self.noise_schedulers[index]
         target_size = self.image_sizes[index]
         b = images.shape[0]
         if images.shape[-2] < target_size:
             raise ValueError(f'images of {images.shape[-2]} px are smaller than {target_size}')
+
+        # per-stage frame counts; None keeps a clip's frames (images, ignore_time)
+        frame_dims = (self._calc_all_frame_dims(images.shape[1])
+                      if self.is_video and not ignore_time else (None,) * self.num_unets)
+        unet_kwargs = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
+        if self.is_video:
+            unet_kwargs['ignore_time'] = ignore_time
 
         times = noise_scheduler.sample_random_times(b, generator, device)
 
@@ -484,10 +531,12 @@ class Imagen(nn.Module):
         # the degraded low-res condition and its augmentation times
         lowres_cond_img = lowres_aug_times = None
         if index > 0:
-            lowres_cond_img = resize_image_to(images, self.image_sizes[index - 1],
-                                              clamp_range=self.input_image_range)
-            lowres_cond_img = resize_image_to(lowres_cond_img, target_size,
-                                              clamp_range=self.input_image_range)
+            lowres_cond_img = self.resize_to(images, self.image_sizes[index - 1],
+                                             target_frames=frame_dims[index - 1],
+                                             clamp_range=self.input_image_range)
+            lowres_cond_img = self.resize_to(lowres_cond_img, target_size,
+                                             target_frames=frame_dims[index],
+                                             clamp_range=self.input_image_range)
             if self.per_sample_random_aug_noise_level:
                 lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
                     b, generator, device)
@@ -495,10 +544,11 @@ class Imagen(nn.Module):
                 lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
                     1, generator, device).expand(b)
 
-        images = resize_image_to(images, target_size)
+        images = self.resize_to(images, target_size, target_frames=frame_dims[index])
         return self.p_losses(
             unet, images, times, noise_scheduler=noise_scheduler, text_embeds=text_embeds,
             text_mask=text_masks, lowres_cond_img=lowres_cond_img,
             lowres_aug_times=lowres_aug_times, pred_objective=self.pred_objectives[index],
             min_snr_gamma=self.min_snr_gamma[index],
-            random_crop_size=self.random_crop_sizes[index], generator=generator)
+            random_crop_size=self.random_crop_sizes[index], generator=generator,
+            **unet_kwargs)

@@ -31,6 +31,7 @@ from imagen_tpu_torch.ops.fused_norm import (
     fused_feedforward_available,
     layernorm,
 )
+from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
 from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
@@ -106,14 +107,22 @@ class SameConv3x3(Conv2d):
 # --- norms ------------------------------------------------------------------------------
 
 class LayerNorm(nn.Module):
-    """Bias-free LayerNorm (gain 'g'); eps 1e-5 in fp32, 1e-3 in half."""
+    """Bias-free LayerNorm (gain 'g'); eps 1e-5 in fp32, 1e-3 in half.
+
+    With `time_fold` it takes video (b, f, h, w, c) and returns the normalised
+    ((b h w), f, c) tokens of the temporal attention, through kernel 12
+    (ops/temporal_layout.py): the same math followed by the fold."""
 
     def __init__(self, dim, stable=False):
         super().__init__()
         self.stable = stable
         self.g = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):
+    def forward(self, x, time_fold=False):
+        if time_fold:
+            if x.ndim != 5 or self.stable:
+                raise ValueError('time_fold takes (b, f, h, w, c) input and stable=False')
+            return fused_ln_transpose(x, self.g, ln_eps(x.dtype))
         if self.stable:
             x = x / x.amax(dim=-1, keepdim=True).detach()
         return layernorm(x, self.g, ln_eps(x.dtype))

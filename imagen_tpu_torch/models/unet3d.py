@@ -15,8 +15,12 @@ the parameter names are its `state_dict` keys:
 Ported: temporal strides, `ignore_time` (train or run on still images),
 `lowres_cond`, `memory_efficient`, conditioning on preceding frames
 (`cond_video_frames`, prepended) and succeeding frames
-(`post_cond_video_frames`, appended, as the JAX package does), and
-`cast_model_parameters`. Not ported, and raising when asked for:
+(`post_cond_video_frames`, appended, as the JAX package does),
+`cast_model_parameters`, and `temporal_fused_ln`, the JAX package's
+`IMAGEN_TPU_TEMPORAL_FUSED_LN=1` as a constructor keyword (off by default):
+the temporal attention sites with c >= 128 then run their LayerNorm and
+out-norm fused with the fold and unfold (kernels 12 and 13,
+`ops/temporal_layout.py`). Not ported, and raising when asked for:
 self-conditioning, cond images, cross-embed downsample, linear attention,
 remat and dropout.
 """
@@ -88,6 +92,7 @@ class Unet3D(ConditionedUnet):
         attend_at_middle=True,
         time_rel_pos_bias_depth=2,
         time_causal_attn=True,
+        temporal_fused_ln=False,
         layer_cross_attns=True,
         use_linear_attn=False,
         use_linear_cross_attn=False,
@@ -160,7 +165,8 @@ class Unet3D(ConditionedUnet):
             attn_kwargs = dict(heads=attn_heads, dim_head=attn_dim_head)
             temporal_kwargs = dict(causal=time_causal_attn, dtype=dtype)
             temporal_attn_kwargs = dict(rel_pos_bias_mlp_depth=time_rel_pos_bias_depth,
-                                        **attn_kwargs, **temporal_kwargs)
+                                        fused_ln=temporal_fused_ln, **attn_kwargs,
+                                        **temporal_kwargs)
             resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads,
                                  dtype=dtype)
 

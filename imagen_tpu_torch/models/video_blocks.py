@@ -13,10 +13,13 @@ width, channels); counterpart of `imagen_tpu/models/video_blocks.py`.
 - Where the JAX package departs from lucidrains the port follows it: the
   causal temporal conv starts as a true identity (delta at the last tap), and
   `null_attn_bias` exists only where a relative position bias uses it.
-- The JAX package's TPU-only switches (`IMAGEN_TPU_TEMPORAL_FUSED_LN`,
-  `IMAGEN_TPU_TEMPORAL_EINSUM`, `IMAGEN_TPU_TEMPORAL_ROWS`) are not carried:
-  the temporal attention always folds to ((b h w), f, c) and projects with
-  plain Linears.
+- The JAX package's `IMAGEN_TPU_TEMPORAL_FUSED_LN` switch is carried as
+  the constructor keyword `fused_ln` of `TemporalAttention` (`Unet3D`'s
+  `temporal_fused_ln`), off by default as there: the temporal LayerNorm
+  then folds to ((b h w), f, c) in kernel 12 and the out-norm unfolds and
+  adds the residual in kernel 13 (ops/temporal_layout.py). Its TPU-only
+  switches `IMAGEN_TPU_TEMPORAL_EINSUM` and `IMAGEN_TPU_TEMPORAL_ROWS` are
+  not carried: the projections are plain Linears.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from imagen_tpu_torch.ops.flash_attention import (
     grouped_temporal_available,
 )
 from imagen_tpu_torch.ops.fused_norm import layernorm
+from imagen_tpu_torch.ops.temporal_layout import fused_norm_untranspose, temporal_layout_available
 from imagen_tpu_torch.ops.tensor_utils import l2norm
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
@@ -199,6 +203,11 @@ class VideoAttention(nn.Module):
     flash rows kernel (`mid_attn` over (f x y) tokens); per-pixel attention
     (no context, no mask) goes to the temporal kernel when its gate admits
     the shape; everything else runs the plain einsum path.
+
+    With `fused_ln` it takes the temporal case in the native (b, f, h, w, c)
+    layout: the norm folds to ((b h w), f, c) as it normalises (kernel 12),
+    and the out-norm unfolds back and adds `x` as the residual (kernel 13),
+    so the caller must not add it again.
     """
 
     def __init__(self, dim, dim_head=64, heads=8, causal=False, context_dim=None,
@@ -225,10 +234,16 @@ class VideoAttention(nn.Module):
         if init_zero:
             nn.init.zeros_(self.to_out[1].g)
 
-    def forward(self, x, context=None, mask=None):
+    def forward(self, x, context=None, mask=None, fused_ln=False):
+        x_native = None
+        if fused_ln:
+            if exists(context) or exists(mask):
+                raise ValueError('fused_ln is the per-pixel temporal case only')
+            x_native, x = x, self.norm(x, time_fold=True)
+        else:
+            x = self.norm(x)
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
-        x = self.norm(x)
         q = self.to_q(x)
         k, v = self.to_kv(x).chunk(2, dim=-1)
         k = torch.cat((self.null_kv[0].to(k.dtype).expand(b, 1, -1), k), dim=-2)
@@ -281,6 +296,9 @@ class VideoAttention(nn.Module):
             attn = torch.softmax(sim.float(), dim=-1).to(sim.dtype)
             out = torch.einsum('bhij,bjd->bhid', attn, v)
             out = out.transpose(1, 2).reshape(b, n, h * dh)
+        if exists(x_native):
+            out = self.to_out[0](out)
+            return fused_norm_untranspose(out, x_native, self.to_out[1].g, ln_eps(out.dtype))
         return self.to_out(out)
 
 
@@ -307,13 +325,27 @@ class Residual(nn.Module):
         return self.fn(x) + x
 
 
-def TemporalAttention(dim, dim_head=64, heads=8, causal=True, rel_pos_bias_mlp_depth=2,
-                      dtype=F32):
+class TemporalAttention(Residual):
     """Residual causal attention over frames, per pixel, with a relative
-    position bias; zero-initialised output gain."""
-    return Residual(_TimeCentric(VideoAttention(
-        dim, dim_head=dim_head, heads=heads, causal=causal, init_zero=True,
-        rel_pos_bias=True, rel_pos_bias_mlp_depth=rel_pos_bias_mlp_depth, dtype=dtype)))
+    position bias; zero-initialised output gain.
+
+    With `fused_ln`, a site whose shape `temporal_layout_available` admits
+    takes kernels 12 and 13 (see `VideoAttention`), which hold the fold, the
+    unfold and the residual; other sites, and every site without it, fold
+    and unfold around the attention here. The parameters are the same on
+    both routes."""
+
+    def __init__(self, dim, dim_head=64, heads=8, causal=True, rel_pos_bias_mlp_depth=2,
+                 fused_ln=False, dtype=F32):
+        super().__init__(_TimeCentric(VideoAttention(
+            dim, dim_head=dim_head, heads=heads, causal=causal, init_zero=True,
+            rel_pos_bias=True, rel_pos_bias_mlp_depth=rel_pos_bias_mlp_depth, dtype=dtype)))
+        self.fused_ln = fused_ln
+
+    def forward(self, x):
+        if self.fused_ln and temporal_layout_available(x.shape, x.dtype, x.device.type):
+            return self.fn.fn(x, fused_ln=True)   # the residual is added in kernel 13
+        return super().forward(x)
 
 
 class TemporalPeg(nn.Module):

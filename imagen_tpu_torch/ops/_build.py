@@ -47,6 +47,10 @@ SIGNATURES = {
     'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, q_scale, bias2, out, P, frames, heads, nk, d, scale2, stream
     'temporal_attn_fwd_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # x (b, f, hw, c), g, y ((b hw), f, c), b, f, hw, c, eps, stream
+    'ln_transpose_bf16': (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # out ((b hw), f, c), res (b, f, hw, c), g, y (b, f, hw, c), b, f, hw, c, eps, stream
+    'norm_untranspose_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

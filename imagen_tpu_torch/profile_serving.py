@@ -26,7 +26,8 @@ STEPS = (16, 8)  # the steps of chip_smoke.py, cut from (1000, 1000) for time
 VIDEO_STEPS, VIDEO_FRAMES = 16, 16  # chip_smoke.py's video phase
 
 CATEGORIES = (
-    ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn')),
+    ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn',
+                      'ln_relayout')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),

@@ -11,6 +11,8 @@
 - Gradient accumulation: a batch larger than `max_batch_size` runs as
   chunks whose losses are weighted by their share of the batch, so the
   gradient is the full batch's; ragged batches end in a smaller chunk.
+  Batches are images or, for a video cascade, clips with their prompt
+  frames, split along the batch axis only.
 - Every random draw (times, noise, crops, the text drop) comes from the
   trainer's `torch.Generator`, seeded by `seed`, on the imagen's device.
 - Checkpoints are the JAX trainer's bundle (`model`, `version`, `steps`,
@@ -56,7 +58,7 @@ def _decays(p):
 
 
 def _batch_size(batch):
-    return next(v for v in batch.values() if exists(v)).shape[0]
+    return next(v for v in batch.values() if isinstance(v, torch.Tensor)).shape[0]
 
 
 def split_batch_for_accum(batch, max_batch_size):
@@ -254,22 +256,29 @@ class ImagenTrainer:
         return unet_number - 1
 
     def _backward(self, index, batch, max_batch_size, scale=1.):
-        """Accumulate scale * d(loss)/d(params) into `.grad`; returns the loss."""
+        """Accumulate scale * d(loss)/d(params) into `.grad`; returns the loss.
+        The batch's tensors are split along their first axis; its other
+        entries (a flag such as `ignore_time`) go to every chunk."""
         self.unets[index].train()
+        tensors = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+        options = {k: v for k, v in batch.items() if k not in tensors}
         loss = 0.
-        for chunk, weight in _chunks(batch, max_batch_size):
+        for chunk, weight in _chunks(tensors, max_batch_size):
             chunk = dict(chunk)
             images = chunk.pop('images')
             chunk_loss = self.imagen(images, unet_number=index + 1, generator=self.generator,
-                                     **chunk)
+                                     **chunk, **options)
             (chunk_loss * (weight * scale)).backward()
             loss = loss + chunk_loss.detach() * weight
         return loss
 
     def step_with_batch(self, batch, *, unet_number=None, max_batch_size=None, **extra):
         """One optimiser step of unet `unet_number` on `batch` (a dict with
-        'images' and, for a text-conditioned imagen, 'text_embeds' and
-        optionally 'text_masks'); returns the loss as a float."""
+        'images' (b, h, w, c), or clips (b, f, h, w, c) for a video cascade,
+        and, for a text-conditioned imagen, 'text_embeds' and optionally
+        'text_masks'; a video cascade also takes 'cond_video_frames',
+        'post_cond_video_frames' and 'ignore_time'); returns the loss as a
+        float."""
         if self._ema_swapped:
             raise RuntimeError('cannot take train steps inside use_ema_unets()')
         index = self._check_trainable(unet_number)
@@ -336,7 +345,8 @@ class ImagenTrainer:
 
     def sample(self, *args, use_non_ema=False, **kwargs):
         """`Imagen.sample` through the EMA unets (the online ones with
-        `use_non_ema`), drawing from the trainer's generator by default."""
+        `use_non_ema`), drawing from the trainer's generator by default;
+        `video_frames` and the prompt frames pass through."""
         kwargs.setdefault('generator', self.generator)
         if use_non_ema or not self.use_ema:
             return self.imagen.sample(*args, **kwargs)

@@ -20,6 +20,7 @@ from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.ops import conv2d as c2d
 from imagen_tpu_torch.ops import flash_attention as fa
 from imagen_tpu_torch.ops import fused_norm as fn
+from imagen_tpu_torch.ops import temporal_layout as tl
 
 BF16 = torch.bfloat16
 
@@ -114,7 +115,8 @@ def _flash_bwd_inputs(cuda, rows, nk, d, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (512, 77, 32), (200, 200, 40)])
+@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (512, 77, 32), (200, 200, 40),
+                                      (32768, 4097, 64)])   # the last: Unet3D's mid_attn
 def test_flash_backward_kernel_matches_plain(cuda, rows, nk, d):
     q, k, v, do, lse, delta = _flash_bwd_inputs(cuda, rows, nk, d, seed=6)
     before = _build.LAUNCHES[fa.BWD_KERNEL]
@@ -282,3 +284,65 @@ def test_temporal_wrapper_raises_outside_its_limits(cuda):
     kv = torch.zeros(2, 21, 32, device=cuda, dtype=BF16)
     with pytest.raises(ValueError):
         fa.flash_grouped_cosine(big, kv, kv, qs, ks, torch.zeros(8, 20, 21, device=cuda), 8., 8)
+
+
+# --- the fused temporal LayerNorm fold and out-norm unfold (kernels 12, 13) ---------------
+
+# the video training sites at batch 4 (16^2 and 32^2), then a ragged lane
+# group (c 136) and a row of 4 vectors per lane (c 1024)
+LAYOUT_SHAPES = [(4, 16, 32, 32, 128), (4, 16, 16, 16, 256), (1, 3, 5, 7, 136),
+                 (2, 2, 4, 4, 1024)]
+
+
+def _layout_inputs(cuda, shape, seed):
+    r = rng(seed)
+    b, f, h, w, c = shape
+    x = t(randn(r, *shape)).to(cuda).to(BF16)
+    out = t(randn(r, b * h * w, f, c, scale=2.)).to(cuda).to(BF16)
+    return x, out, t(1. + randn(r, c, scale=0.1)).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', LAYOUT_SHAPES)
+def test_temporal_layout_kernels_match_plain(cuda, shape):
+    x, out, g = _layout_inputs(cuda, shape, seed=16)
+    _check(lambda x: tl.fused_ln_transpose(x, g, 1e-3),
+           lambda x: tl.ln_transpose_reference(x, g, 1e-3), (x,), (x.float(),), tl.LN_T_KERNEL)
+    _check(lambda o, x: tl.fused_norm_untranspose(o, x, g, 1e-3),
+           lambda o, x: tl.norm_untranspose_reference(o, x, g, 1e-3), (out, x),
+           (out.float(), x.float()), tl.NORM_UT_KERNEL)
+
+
+@pytest.mark.cuda
+def test_temporal_layout_function_gradients_match_plain(cuda):
+    """The Functions' backward is the unfused chain (fold, then LayerNorm in
+    the input's dtype; for kernel 13 the unfold and the residual), as in the
+    JAX package; its gradients are held to that chain's fp32 gradients."""
+    x, out, g = _layout_inputs(cuda, (4, 16, 16, 16, 256), seed=17)
+
+    def fold_chain(x, g):
+        return fn.layernorm(tl._fold(x), g, 1e-3)
+
+    def unfold_chain(o, x, g):
+        return tl._unfold(fn.layernorm(o, g, 1e-3), x.shape) + x
+
+    _check_grads(lambda x, g: tl.fused_ln_transpose(x, g, 1e-3), fold_chain, [x, g],
+                 tl.LN_T_KERNEL)
+    _check_grads(lambda o, x, g: tl.fused_norm_untranspose(o, x, g, 1e-3), unfold_chain,
+                 [out, x, g], tl.NORM_UT_KERNEL)
+
+
+@pytest.mark.cuda
+def test_temporal_layout_wrappers_raise_outside_the_gate(cuda):
+    x, out, g = _layout_inputs(cuda, (2, 4, 4, 4, 128), seed=18)
+    with pytest.raises(TypeError):
+        tl.fused_ln_transpose(x.float(), g, 1e-3)
+    with pytest.raises(ValueError):   # c % 8 != 0
+        tl.fused_ln_transpose(x[..., :100], g[:100], 1e-3)
+    with pytest.raises(ValueError):   # more than one warp's row
+        wide = torch.zeros(1, 2, 2, 2, 4096, device=cuda, dtype=BF16)
+        tl.fused_ln_transpose(wide, torch.ones(4096, device=cuda), 1e-3)
+    with pytest.raises(ValueError):   # out does not fold res
+        tl.fused_norm_untranspose(out[:-1], x, g, 1e-3)
+    with pytest.raises(ValueError):
+        tl.fused_ln_transpose(x[0], g, 1e-3)   # 4-D

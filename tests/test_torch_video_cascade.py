@@ -96,8 +96,8 @@ def test_two_stage_video_cascade_matches_jax():
     assert max_abs(out, ref) <= 1e-2
     with pytest.raises(ValueError):  # 3 frames do not divide by the factor 2
         timagen.sample(text_embeds=t(emb), video_frames=3)
-    with pytest.raises(NotImplementedError):
-        timagen(torch.zeros(b, 4, 16, 16, 3), unet_number=1, text_embeds=t(emb))
+    with pytest.raises(ValueError):  # nor in training
+        timagen(torch.zeros(b, 3, 16, 16, 3), unet_number=1, text_embeds=t(emb))
 
 
 def test_video_server_pads_a_small_request(one_stage):
