@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives imagen_tpu_torch's three paths at full width, with bf16 compute over
-fp32 parameters and random weights from a seed:
+Drives imagen_tpu_torch's paths at full width, with bf16 compute over fp32
+parameters and random weights from a seed:
 - serving: BaseUnet64 -> SRUnet256, an `ImagenServer` that warms up and
   answers three requests;
 - training: `ImagenTrainer.step_with_batch` for 3 steps of each of the two
@@ -15,37 +15,56 @@ fp32 parameters and random weights from a seed:
 - video training: the same `Unet3D` with its fused temporal norms on
   (`temporal_fused_ln=True`, so kernels 12 and 13 lie on the path),
   `ImagenTrainer.step_with_batch` for 3 steps on batch 4 clips of 16 frames
-  at 64 px, with Adam, clipping and EMA.
+  at 64 px, with Adam, clipping and EMA;
+- EDM serving: `ElucidatedImagen` over BaseUnet64 -> SRUnet256 built with
+  `fused_film=True` (kernel 8 at every 2-D Block), the churn + Heun sampler
+  at 16 + 8 steps (31 + 15 forwards), an `ImagenServer` that warms up and
+  answers three requests; kernel 8's launches are checked against forward
+  hooks that count the fused norm calls; the same hooks record the shapes
+  of the LayerNorm and attention-projection sites, where kernels 9 and 11
+  (wired nowhere, as in the JAX package) would run; then three requests
+  each with kernel 8 on and off on the same weights, in turns.
 The launch counts are set to 0 just before each path and read just after.
 Then it holds each hand-written kernel, at every shape the paths launched
-it at, against its plain PyTorch version, and a small bf16 U-Net and a
-small bf16 Unet3D that reach every kernel against the same nets on the
-plain path, outputs and gradients, both measured against fp32.
+it at (kernels 9 and 11 at every recorded site shape), against its plain
+PyTorch version, and a small bf16 U-Net and a small bf16 Unet3D that reach
+every kernel of the paths against the same nets on the plain path, outputs
+and gradients, both measured against fp32.
 
 Prints, in order: the card (nvidia-smi name and power limit) and CUDA
 version; the kernel build time; per request latency, shape, finiteness and
 range; per training step loss, time and peak memory; launch counts per path;
 per video request latency, shape, finiteness, range and peak memory; per
-video training step loss, time and peak memory; per-kernel errors,
-CUDA-event times and bounds at each shape (with the unfused route's time
-for kernels 12 and 13); the small nets' errors; then the card again, one
-JSON line of kernel results and, last, the result line
-{"ok": ..., "device": {...}}.
+video training step loss, time and peak memory; per EDM request latency,
+shape, finiteness, range and peak memory, kernel 8's sites per forward, the
+sites of kernels 9 and 11, the on/off latencies and output difference;
+per-kernel errors, CUDA-event times and bounds at each shape (with the
+unfused route's time for kernels 8, 11, 12 and 13); the small nets'
+errors; then the card again, one JSON line of kernel results and, last,
+the result line {"ok": ..., "device": {...}}.
 
 In the kernel line, `launches` is the sum over the paths (split in
 `launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
 times at each launched shape times that shape's launches in the paths,
-summed. `bound_ms` is the least time the H100 could take for that work, the
+summed (for kernels 9 and 11, `on_path` false, times that shape's site
+count, `edm_sites`, since they launch nowhere on a path). `bound_ms` is the
+least time the H100 could take for that work, the
 larger of its operations at the dense bf16 peak and its bytes (each input
 read once, each output written once) at the HBM rate; `bound_by` says which of
 the two bounds most of it. `library_ms` times one PyTorch call that computes
 the same function (`F.scaled_dot_product_attention`, its backward,
-`F.conv2d`; for the temporal kernel SDPA on the pre-normalised q and k, K and
-V expanded over the heads, with the bias table as `attn_mask`), null where
-there is none (the feedforward, and kernels 12 and 13: no one call fuses a
-LayerNorm with a relayout; their `unfused_route_ms` times the port's
-unfused route instead). `max_abs_err` is the kernel's worst
-error against the fp32 truth over those shapes and outputs.
+`F.conv2d`, `F.layer_norm` for kernel 9 without the stable division; for
+the temporal kernel SDPA on the pre-normalised q and k, K and V expanded
+over the heads, with the bias table as `attn_mask`), null where there is
+none (the feedforward; kernels 8 and 11, for which no one call fuses the
+norm with the FiLM and SiLU or with the product; kernels 12 and 13: no one
+call fuses a LayerNorm with a relayout). For kernels 8, 11, 12 and 13
+`unfused_route_ms` times the port's unfused module chain instead (for 11
+that chain is its plain version). For kernels 8, 9 and 11, whose calls
+take microseconds, `device_ms` sums the device time per call that
+torch.profiler reads at each shape, weighted the same way. `max_abs_err` is
+the kernel's worst error against the fp32 truth over those shapes and
+outputs.
 
 Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
 package beside this file; imports no JAX.
@@ -63,6 +82,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TIMESTEPS = (16, 8)          # serving steps, cut for the run's time; widths are not cut
+EDM_STEPS = (16, 8)          # EDM steps, cut from edm_paper's (64, 32) for the run's time
 VIDEO_STEPS = 16             # video steps, cut from the JAX bench's 32 for time
 VIDEO_FRAMES = 16
 VIDEO_TEMPORAL_SITES = 8     # TemporalAttention sites per Unet3D forward
@@ -94,9 +114,28 @@ KERNEL_INFO = {
     'norm_untranspose_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_layout.cu',
         replaces='imagen_tpu/ops/temporal_layout.py:184'),
+    # `device_kernel`: the CUDA function's name, for device times from the profiler
+    'fused_film_norm_bf16': dict(
+        source='imagen_tpu_torch/csrc/fused_film_norm.cu',
+        replaces='imagen_tpu/ops/fused_norm.py:63', device_kernel='film_norm_kernel'),
+    'fused_layernorm_bf16': dict(
+        source='imagen_tpu_torch/csrc/fused_layernorm.cu',
+        replaces='imagen_tpu/ops/fused_norm.py:155', device_kernel='layernorm_rows_kernel'),
+    'fused_ln_matmul_bf16': dict(
+        source='imagen_tpu_torch/csrc/fused_ln_matmul.cu',
+        replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel='ln_matmul_kernel'),
+    'fused_matmul_ln_bf16': dict(
+        source='imagen_tpu_torch/csrc/fused_ln_matmul.cu',
+        replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel='matmul_ln_kernel'),
 }
+IMAGE_KERNELS = ('flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', 'conv2d_same_3x3_bf16',
+                 'fused_feedforward_bf16')
 VIDEO_KERNELS = ('temporal_attn_fwd_bf16', 'ln_transpose_bf16', 'norm_untranspose_bf16')
-PATHS = ('serving', 'training', 'video', 'video_training')
+FILM_KERNEL = 'fused_film_norm_bf16'
+# kernels 9 and 11: wired nowhere (as in the JAX package), held at the EDM
+# path's LayerNorm and attention-projection sites, which hooks record
+UNWIRED = ('fused_layernorm_bf16', 'fused_ln_matmul_bf16', 'fused_matmul_ln_bf16')
+PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving')
 
 
 def log(msg):
@@ -114,6 +153,21 @@ def cuda_time_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, kernel_name, iters=10):
+    """Device time per call of the CUDA function `kernel_name` that `fn`
+    launches, from torch.profiler: CUDA events over calls of a few
+    microseconds read the host's launch time, not the device's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel_name in e.key) / 1e3 / iters
 
 
 def free_cuda():
@@ -309,8 +363,7 @@ def phase_training(torch, it, build, results):
     for unet_number, batch in TRAIN_CONFIGS:
         ok &= train_config(torch, it, build, results, counts, unet_number, batch)
         free_cuda()
-    ok &= check_launched(counts, [n for n in KERNEL_INFO if n not in VIDEO_KERNELS],
-                         'training')
+    ok &= check_launched(counts, IMAGE_KERNELS, 'training')
     results['counts']['training'] = counts
     return ok
 
@@ -415,8 +468,8 @@ def phase_video_training(torch, it, build, results):
     finally:
         for h in handles:
             h.remove()
-    ok &= check_launched(counts, [n for n in KERNEL_INFO if n not in (
-        'conv2d_same_3x3_bf16', 'fused_feedforward_bf16')], 'video_training')
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS],
+                         'video_training')
     expected = sum(calls.values())
     sites = {shape: n // TRAIN_STEPS for shape, n in sorted(calls.items())}
     for name in ('ln_transpose_bf16', 'norm_untranspose_bf16'):
@@ -425,6 +478,158 @@ def phase_video_training(torch, it, build, results):
         log(f'video_training: {name} launches {counts[name]}, expected {expected} = fused '
             f'sites per forward {sites} x {TRAIN_STEPS} steps -> {"ok" if exact else "FAIL"}')
     results['counts']['video_training'] = counts
+    return ok
+
+
+# --- EDM serving -----------------------------------------------------------------------
+
+def film_norms(unet, fused):
+    """Turn kernel 8 on or off in every ChanRMSNorm of `unet` (the weights stay)."""
+    from imagen_tpu_torch.models.blocks import ChanRMSNorm
+    for m in unet.modules():
+        if isinstance(m, ChanRMSNorm):
+            m.fused = fused
+
+
+def site_hooks(imagen):
+    """Forward pre-hooks, while the requests run, that count the calls taking
+    kernel 8 per unet (the expected launches), and record the shapes of the
+    LayerNorm sites (kernel 9: rows, C, stable, eps) and of the attention
+    pre-norm -> to_q (+ to_kv) and to_out -> out-norm sites (kernel 11:
+    rows, k, n, eps) that the gates admit, as the kernels' launches would
+    record them. Returns (film calls by unet, sites by kernel, refused
+    sites by kernel, handles)."""
+    from imagen_tpu_torch.models import blocks
+    from imagen_tpu_torch.ops import fused_norm as fn
+    film_calls, sites, refused = Counter(), defaultdict(Counter), Counter()
+
+    def film_hook(index):
+        def hook(module, args, kwargs):
+            x = args[0]
+            if module.fused and fn.fused_film_available(x.shape, x.dtype, x.device.type,
+                                                        kwargs.get('fuse_silu', False)):
+                film_calls[index] += 1
+        return hook
+
+    def record(name, dims, admitted):
+        if admitted:
+            sites[name][dims] += 1
+        else:
+            refused[name] += 1
+
+    def ln_hook(module, args, kwargs):
+        x = args[0]
+        c = x.shape[-1]
+        rows = x.numel() // c
+        record(fn.LN_KERNEL, (rows, c, int(module.stable), blocks.ln_eps(x.dtype)),
+               fn.fused_layernorm_available(rows, c, x.dtype))
+
+    def attn_hook(module, args, kwargs):
+        x = args[0]
+        k = x.shape[-1]
+        rows = x.numel() // k
+        n = module.to_q.out_features
+        if isinstance(module, blocks.Attention):   # to_kv reads the same normalised x
+            n += module.to_kv.out_features
+        eps = blocks.ln_eps(x.dtype)
+        record(fn.LNMM_KERNEL, (rows, k, n, eps), fn.fused_lnmm_available(rows, k, n, x.dtype))
+        inner = module.to_out[0].in_features
+        record(fn.MMLN_KERNEL, (rows, inner, k, eps),
+               fn.fused_lnmm_available(rows, inner, k, x.dtype))
+
+    handles = []
+    for index, unet in enumerate(imagen.unets):
+        for m in unet.modules():
+            if isinstance(m, blocks.ChanRMSNorm):
+                handles.append(m.register_forward_pre_hook(film_hook(index), with_kwargs=True))
+            elif isinstance(m, blocks.LayerNorm):
+                handles.append(m.register_forward_pre_hook(ln_hook, with_kwargs=True))
+            elif isinstance(m, (blocks.Attention, blocks.CrossAttention)):
+                handles.append(m.register_forward_pre_hook(attn_hook, with_kwargs=True))
+    return film_calls, sites, refused, handles
+
+
+def edm_request(torch, server, emb, mask, label):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = server.generate(text_embeds=emb, text_masks=mask,
+                             generator=torch.Generator(device='cuda').manual_seed(99))
+    lat = time.perf_counter() - t0
+    finite = bool(torch.isfinite(torch.from_numpy(images)).all())
+    in_range = bool(images.min() >= 0. and images.max() <= 1.)
+    good = images.shape == (emb.shape[0], 256, 256, 3) and finite and in_range
+    log(f'{label}: n={emb.shape[0]} latency {lat:.3f} s shape {images.shape} finite {finite} '
+        f'in [0,1] {in_range} peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} '
+        f'GiB -> {"ok" if good else "FAIL"}')
+    return good, images, lat
+
+
+def phase_edm_serving(torch, it, build, results):
+    """`ElucidatedImagen` over BaseUnet64 -> SRUnet256 at paper widths with
+    `fused_film=True` (kernel 8 at every 2-D Block), the churn + Heun
+    sampler at EDM_STEPS (2N - 1 forwards per stage), S_churn 80; a server
+    at batch 4, cond_scale 3, three requests; then the same weights with
+    kernel 8 on and off in turns."""
+    bf16 = torch.bfloat16
+    torch.manual_seed(50)
+    t0 = time.perf_counter()
+    common = dict(dtype=bf16, text_embed_dim=768, max_text_len=256, fused_film=True)
+    base, sr = it.BaseUnet64(**common), it.SRUnet256(**common, lowres_cond=True)
+    randomize_final_conv(base, 51)
+    randomize_final_conv(sr, 52)
+    imagen = it.ElucidatedImagen((base, sr), image_sizes=(64, 256), num_sample_steps=EDM_STEPS,
+                                 cond_drop_prob=0.1).eval()
+    torch.cuda.synchronize()
+    log(f'edm_serving: ElucidatedImagen (BaseUnet64 -> SRUnet256, fused_film) built in '
+        f'{time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    server = it.ImagenServer(imagen, batch_size=4, cond_scale=3., seed=0)
+    log(f'edm_serving: warmup {time.perf_counter() - t0:.2f} s (steps {EDM_STEPS}, '
+        f'S_churn {imagen.hparams[0].S_churn}, serving batch 4, cond_scale 3)')
+
+    g = torch.Generator(device='cuda').manual_seed(5678)
+    requests = [text_batch(torch, g, n) for n in REQUEST_SIZES]
+    counts = Counter()
+    ok = True
+    film_calls, sites, refused, handles = site_hooks(imagen)
+    try:
+        with counting_path(build, results['shapes']['edm_serving'], counts):
+            for i, (emb, mask) in enumerate(requests):
+                ok &= edm_request(torch, server, emb, mask, f'edm request {i}')[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, [FILM_KERNEL, 'flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
+                                  'fused_feedforward_bf16'], 'edm_serving')
+    forwards = [2 * n - 1 for n in EDM_STEPS]
+    per_forward = {i: film_calls[i] / (forwards[i] * len(requests)) for i in range(2)}
+    expected = sum(film_calls.values())
+    exact = counts[FILM_KERNEL] == expected > 0 and all(
+        film_calls[i] % (forwards[i] * len(requests)) == 0 for i in range(2))
+    ok &= exact
+    log(f'edm_serving: {FILM_KERNEL} launches {counts[FILM_KERNEL]}, expected {expected} = '
+        f'fused sites per forward {per_forward} (BaseUnet64, SRUnet256) x forwards {forwards} '
+        f'(2N - 1) x {len(requests)} requests -> {"ok" if exact else "FAIL"}')
+    for name in UNWIRED:
+        log(f'edm_serving: {name} sites (no launch: wired nowhere) '
+            f'{sum(sites[name].values())} at {len(sites[name])} shapes; gate refused '
+            f'{refused[name]}')
+    results['counts']['edm_serving'] = counts
+    results['sites'] = {name: sites[name] for name in UNWIRED}
+
+    # kernel 8 on and off on the same weights, in turns
+    emb, mask = requests[0]
+    outputs, lats = {}, defaultdict(list)
+    for fused in (True, False, False, True, True, False):
+        for unet in imagen.unets:
+            film_norms(unet, fused)
+        good, outputs[fused], lat = edm_request(torch, server, emb, mask,
+                                                f'edm A/B fused_film={fused}')
+        ok &= good
+        lats[fused].append(lat)
+    log(f'edm_serving A/B: fused_film on {[round(x, 3) for x in lats[True]]} s, off '
+        f'{[round(x, 3) for x in lats[False]]} s per request of {emb.shape[0]}; max |on - off| '
+        f'of the images {float(abs(outputs[True] - outputs[False]).max()):.3e}')
     return ok
 
 
@@ -441,6 +646,7 @@ def kernel_cases(torch, name, dims, g):
     from imagen_tpu_torch.ops import flash_attention as fa
     from imagen_tpu_torch.ops import fused_norm as fn
     from imagen_tpu_torch.ops import temporal_layout as tl
+    from imagen_tpu_torch.ops.tensor_utils import l2norm
     bf16 = torch.bfloat16
     unfused = None
 
@@ -565,6 +771,67 @@ def kernel_cases(torch, name, dims, g):
                 return tl._unfold(fn.layernorm(out, gain, eps), res.shape) + res
             nbytes = 3 * 2 * numel + 4 * c
         flops = 6 * numel
+    elif name == fn.FILM_KERNEL:
+        b, hw, c, stride = dims
+        gamma = 1. + rnd(c, scale=0.1)
+        # scale and shift as the ResnetBlock hands them over: strided halves of one
+        # (b, 2C) time-MLP output; none for a ResnetBlock's first Block
+        scale = shift = None
+        if stride:
+            scale, shift = rnd(b, 2 * c, scale=0.5).to(bf16)[:, None, None, :].chunk(2, dim=-1)
+        inputs = [rnd(b, hw, 1, c).to(bf16)]
+        library = None
+
+        def kernel(x):
+            return (fn.fused_film_norm(x, gamma, scale, shift),)
+
+        def plain(x):
+            return (fn.film_norm_reference(x, gamma, scale, shift),)
+
+        def unfused(x):   # ChanRMSNorm's unfused chain in x's dtype
+            out = l2norm(x) * (c ** 0.5) * gamma.to(x.dtype)
+            if scale is not None:
+                out = out * (scale + 1) + shift
+            return F.silu(out)
+        flops = 10 * b * hw * c
+        nbytes = 2 * 2 * b * hw * c + 4 * c + (2 * 2 * b * c if stride else 0)
+    elif name == fn.LN_KERNEL:
+        rows, c, stable, eps = dims
+        g_ln = 1. + rnd(c, scale=0.1)
+        inputs = [rnd(rows, c).to(bf16)]
+
+        def kernel(x):
+            return (fn.fused_layernorm(x, g_ln, bool(stable), eps),)
+
+        def plain(x):
+            return (fn.layernorm_reference(x, g_ln, bool(stable), eps),)
+
+        def library(x):
+            return F.layer_norm(x, (c,), g_ln.to(x.dtype), eps=eps)
+        library = None if stable else library
+        flops = 8 * rows * c
+        nbytes = 2 * 2 * rows * c + 4 * c
+    elif name in (fn.LNMM_KERNEL, fn.MMLN_KERNEL):
+        rows, k, n, eps = dims
+        ln_first = name == fn.LNMM_KERNEL
+        g_ln = 1. + rnd(k if ln_first else n, scale=0.1)
+        inputs = [rnd(rows, k).to(bf16), rnd(n, k, scale=k ** -0.5).to(bf16)]
+        library = None
+        if ln_first:
+            def kernel(x, w):
+                return (fn.fused_ln_matmul(x, g_ln, w, eps),)
+
+            def plain(x, w):
+                return (fn.ln_matmul_reference(x, g_ln, w, eps),)
+        else:
+            def kernel(x, w):
+                return (fn.fused_matmul_ln(x, w, g_ln, eps),)
+
+            def plain(x, w):
+                return (fn.matmul_ln_reference(x, w, g_ln, eps),)
+        unfused = plain   # the module chain: the LayerNorm module, then the Linear (or back)
+        flops = 2 * rows * k * n
+        nbytes = 2 * (rows * k + n * k + rows * n) + 4 * (k if ln_first else n)
     else:
         rows, k, hid, eps = dims
         g0, g1 = 1. + rnd(k, scale=0.1), 1. + rnd(hid, scale=0.1)
@@ -595,6 +862,8 @@ def phase_kernels(torch, results):
         for path, shapes in results['shapes'].items():
             for dims, count in shapes[name].items():
                 by_dims[dims][path] += count
+        for dims, count in results['sites'].get(name, {}).items():
+            by_dims[dims]['edm_serving sites'] += count
         for dims, counts in sorted(by_dims.items()):
             count = sum(counts.values())
             kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
@@ -611,6 +880,8 @@ def phase_kernels(torch, results):
                 p2 = cuda_time_ms(lambda: plain(*xb))
                 served_ms = cuda_time_ms(lambda: served(*xb)) if served else None
                 unfused_ms = cuda_time_ms(lambda: unfused(*xb)) if unfused else None
+                dev_ms = (device_time_ms(lambda: kernel(*xb), info['device_kernel'])
+                          if 'device_kernel' in info else None)
             lib_ms = cuda_time_ms(lambda: library(*xb)) if library else None
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -629,11 +900,15 @@ def phase_kernels(torch, results):
                 lib_total = (lib_total or 0.) + count * lib_ms
             if unfused_ms is not None:
                 totals['unfused_route_ms'] += count * unfused_ms
+            if dev_ms is not None:
+                totals['device_ms'] += count * dev_ms
             fmt = ', '.join(f'{e:.3e}' for e in errs_k)
             fmt_p = ', '.join(f'{e:.3e}' for e in errs_p)
             served_note = '' if served_ms is None else f' ({served_ms:.4f} ms as served)'
             unfused_note = ('' if unfused_ms is None else
                             f', the unfused route {unfused_ms:.4f} ms')
+            if dev_ms is not None:
+                served_note += f' (device {dev_ms:.4f} ms)'
             log(f'{name} {dims} x{count} {dict(counts)}: max_abs_err kernel [{fmt}] '
                 f'plain-bf16 [{fmt_p}] -> {"ok" if good else "FAIL"}; {ms:.4f} ms'
                 f'{served_note} vs plain {plain_ms:.4f} ms{unfused_note}, '
@@ -645,13 +920,17 @@ def phase_kernels(torch, results):
         launches = {path: c.get(name, 0) for path, c in results['counts'].items()}
         summary.append(dict(
             name=name, route='cuda', source=info['source'], replaces=info['replaces'],
-            launches=sum(launches.values()), launches_by_path=launches, max_abs_err=worst,
+            launches=sum(launches.values()), launches_by_path=launches,
+            on_path=name not in UNWIRED, max_abs_err=worst,
             ms=totals['ms'], plain_ms=totals['plain_ms'],
             bound_ms=totals['operations'] + totals['bytes'],
             bound_by='operations' if totals['operations'] >= totals['bytes'] else 'bytes',
             library_ms=lib_total))
-        if 'unfused_route_ms' in totals:
-            summary[-1]['unfused_route_ms'] = totals['unfused_route_ms']
+        for key in ('unfused_route_ms', 'device_ms'):
+            if key in totals:
+                summary[-1][key] = totals[key]
+        if name in UNWIRED:   # times and bounds weighted by these site counts
+            summary[-1]['edm_sites'] = sum(results['sites'].get(name, {}).values())
     results['kernels'] = summary
     return ok
 
@@ -666,6 +945,7 @@ def plain_path():
     import imagen_tpu_torch.ops.attention as attn
     saved = [(m, n, getattr(m, n)) for m, n in (
         (blocks, 'conv2d_same_available'), (blocks, 'fused_feedforward_available'),
+        (blocks, 'fused_film_available'),
         (attn, 'flash_attention_available'), (video_blocks, 'flash_attention_available'),
         (video_blocks, 'grouped_temporal_available'),
         (video_blocks, 'temporal_layout_available'))]
@@ -720,19 +1000,21 @@ def held_to_fp32(torch, label, ref, fast, x, t, emb, kernels):
 
 
 def phase_small_unet(torch, it):
-    """A small bf16 U-Net that reaches every 2D kernel (128x128 input, 128
-    channels, attention at 64x64)."""
+    """A small bf16 U-Net with `fused_film=True` that reaches every 2D kernel
+    of the paths (128x128 input, 128 channels, attention at 64x64), kernel 8
+    at every Block (c 128, 256, 384)."""
     torch.manual_seed(3)
     cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
                layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
-               text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8)
+               text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
+               fused_film=True)
     g = torch.Generator(device='cuda').manual_seed(5)
     x = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
     t = torch.rand((2,), generator=g, device='cuda')
     emb = torch.randn((2, 16, 64), generator=g, device='cuda')
     return held_to_fp32(torch, 'small unet (b2 128x128, dim 128)', it.Unet(**cfg).eval(),
                         it.Unet(**cfg, dtype=torch.bfloat16).eval(), x, t, emb,
-                        [n for n in KERNEL_INFO if n not in VIDEO_KERNELS])
+                        [*IMAGE_KERNELS, FILM_KERNEL])
 
 
 def phase_small_unet3d(torch, it):
@@ -781,7 +1063,7 @@ def main():
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     ok = True
-    results = {'kernels': [], 'counts': {},
+    results = {'kernels': [], 'counts': {}, 'sites': {},
                'shapes': {path: defaultdict(Counter) for path in PATHS}}
     try:
         import imagen_tpu_torch as it
@@ -796,6 +1078,8 @@ def main():
         ok &= phase_video(torch, it, _build, results)
         free_cuda()
         ok &= phase_video_training(torch, it, _build, results)
+        free_cuda()
+        ok &= phase_edm_serving(torch, it, _build, results)
         free_cuda()
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)

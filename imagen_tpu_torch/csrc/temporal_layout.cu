@@ -36,36 +36,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_rows.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_VECS = 256;  // c <= 2048
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-
-// Sum over the GROUP lanes of a row; every lane of the warp takes part.
-template <int GROUP>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = GROUP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o, GROUP);
-  return v;
-}
 
 // UNFOLD false (kernel 12): src x in (b, f, p) row order, dst y in
 // ((b p), f) order. UNFOLD true (kernel 13): src out in ((b p), f) order,

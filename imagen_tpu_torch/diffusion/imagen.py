@@ -328,8 +328,29 @@ class Imagen(nn.Module):
         """
         if exists(texts):
             raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
-        device = self.device
+        if self.is_video and not exists(video_frames):
+            raise ValueError('video_frames must be passed for a video imagen')
+        return self._sample_cascade(
+            text_embeds=text_embeds, text_masks=text_masks, batch_size=batch_size,
+            frames=video_frames if self.is_video else None,
+            cond_video_frames=cond_video_frames, post_cond_video_frames=post_cond_video_frames,
+            cond_scale=cond_scale, start_at_unet_number=start_at_unet_number,
+            start_image_or_video=start_image_or_video, stop_at_unet_number=stop_at_unet_number,
+            noise_override=noise_override,
+            lowres_sample_noise_level=self.lowres_sample_noise_level, generator=generator)
 
+    def _sample_cascade(self, *, text_embeds, text_masks, batch_size, frames, cond_video_frames,
+                        post_cond_video_frames, cond_scale, start_at_unet_number,
+                        start_image_or_video, stop_at_unet_number, noise_override,
+                        lowres_sample_noise_level, generator, return_all_unet_outputs=False,
+                        **stage_options):
+        """The stage loop of `sample`, which the EDM sampler shares: checks the
+        text, then for each stage builds the unet's conditioning (text, prompt
+        frames, the noised low-res image of the stage before) and calls
+        `self._sample_stage`, with `noise_override[index]` as (init, steps,
+        lowres) and `stage_options` passed through. Returns the last stage's
+        output, or every stage's with `return_all_unet_outputs`."""
+        device = self.device
         if not self.unconditional:
             if not exists(text_embeds):
                 raise ValueError('text embeddings must be passed to a conditional imagen')
@@ -343,10 +364,7 @@ class Imagen(nn.Module):
         elif exists(text_embeds):
             raise ValueError('unconditional imagen cannot take text embeddings')
 
-        if self.is_video and not exists(video_frames):
-            raise ValueError('video_frames must be passed for a video imagen')
-        all_frame_dims = self._calc_all_frame_dims(video_frames if self.is_video else None)
-
+        all_frame_dims = self._calc_all_frame_dims(frames)
         num_unets = self.num_unets
         cond_scale = cast_tuple(cond_scale, num_unets)
         noise_override = default(noise_override, (None,) * num_unets)
@@ -361,6 +379,7 @@ class Imagen(nn.Module):
                                  self.image_sizes[start_at_unet_number - 2],
                                  target_frames=all_frame_dims[start_at_unet_number - 2])
 
+        outputs = []
         for unet_number in range(start_at_unet_number, num_unets + 1):
             index = unet_number - 1
             unet = self.unets[index]
@@ -375,10 +394,14 @@ class Imagen(nn.Module):
                 unet_kwargs.update(text_embeds=text_embeds, text_mask=text_masks)
             if unet.lowres_cond:
                 lowres_noise_times = self.lowres_noise_schedule.get_times(
-                    batch_size, self.lowres_sample_noise_level, device=device)
+                    batch_size, lowres_sample_noise_level, device=device)
                 lowres_cond_img = self.normalize_img(self.resize_to(
                     img, image_size, target_frames=all_frame_dims[index]))
                 if exists(lowres_noise):
+                    if lowres_noise.shape != lowres_cond_img.shape:
+                        raise ValueError(f'low-res noise of stage {unet_number} is '
+                                         f'{tuple(lowres_noise.shape)}, expected '
+                                         f'{tuple(lowres_cond_img.shape)}')
                     lowres_noise = lowres_noise.to(device)
                 else:
                     lowres_noise = torch.randn(lowres_cond_img.shape, generator=generator,
@@ -394,12 +417,13 @@ class Imagen(nn.Module):
                 index, batch_size=batch_size, frames=all_frame_dims[index],
                 cond_scale=cond_scale[index],
                 unet_kwargs=unet_kwargs, init_noise=init_noise, step_noises=step_noises,
-                generator=generator)
+                generator=generator, **stage_options)
+            outputs.append(img)
 
             if exists(stop_at_unet_number) and stop_at_unet_number == unet_number:
                 break
 
-        return img
+        return outputs if return_all_unet_outputs else img
 
     # --- training loss ---------------------------------------------------------------------
 

@@ -29,6 +29,8 @@ from imagen_tpu_torch.ops.conv2d import conv2d_same, conv2d_same_available
 from imagen_tpu_torch.ops.fused_norm import (
     fused_feedforward,
     fused_feedforward_available,
+    fused_film_available,
+    fused_film_norm,
     layernorm,
 )
 from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
@@ -130,14 +132,23 @@ class LayerNorm(nn.Module):
 
 class ChanRMSNorm(nn.Module):
     """Channel RMSNorm on NHWC's trailing axis, with the FiLM and SiLU that
-    follow it in Block applied in the same call."""
+    follow it in Block applied in the same call.
 
-    def __init__(self, dim):
+    With `fused`, a call with the SiLU whose shape `fused_film_available`
+    admits runs the whole norm -> FiLM -> SiLU chain as kernel 8
+    (ops/fused_norm.py), in fp32 with one rounding at the end: the JAX
+    `IMAGEN_TPU_FUSED_FILM=1` route. The parameter is the same either way."""
+
+    def __init__(self, dim, fused=False):
         super().__init__()
+        self.fused = fused
         self.gamma = nn.Parameter(torch.ones(dim, 1, 1))
 
     def forward(self, x, scale_shift=None, fuse_silu=False):
         dim = x.shape[-1]
+        if self.fused and fused_film_available(x.shape, x.dtype, x.device.type, fuse_silu):
+            scale, shift = scale_shift if exists(scale_shift) else (None, None)
+            return fused_film_norm(x, self.gamma, scale, shift)
         out = l2norm(x, dim=-1) * (dim ** 0.5) * self.gamma.view(-1).to(x.dtype)
         if exists(scale_shift):
             scale, shift = scale_shift
@@ -349,11 +360,12 @@ class GlobalContext(nn.Module):
 # --- resnet -----------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """ChanRMSNorm -> (FiLM scale/shift) -> SiLU -> 3x3 conv."""
+    """ChanRMSNorm -> (FiLM scale/shift) -> SiLU -> 3x3 conv; `fused_film`
+    lets the norm take kernel 8."""
 
-    def __init__(self, dim, dim_out, norm=True, dtype=F32):
+    def __init__(self, dim, dim_out, norm=True, dtype=F32, fused_film=False):
         super().__init__()
-        self.norm = ChanRMSNorm(dim) if norm else None
+        self.norm = ChanRMSNorm(dim, fused=fused_film) if norm else None
         self.project = SameConv3x3(dim, dim_out, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
@@ -372,7 +384,7 @@ class ResnetBlock(nn.Module):
     GlobalContext gate."""
 
     def __init__(self, dim, dim_out, cond_dim=None, time_cond_dim=None, linear_attn=False,
-                 use_gca=False, attn_dim_head=64, attn_heads=8, dtype=F32):
+                 use_gca=False, attn_dim_head=64, attn_heads=8, dtype=F32, fused_film=False):
         super().__init__()
         self.time_mlp = nn.Sequential(
             nn.SiLU(), Linear(time_cond_dim, dim_out * 2, dtype=dtype),
@@ -380,8 +392,8 @@ class ResnetBlock(nn.Module):
         self.cross_attn = CrossAttention(
             dim_out, context_dim=cond_dim, dim_head=attn_dim_head, heads=attn_heads,
             linear=linear_attn, dtype=dtype) if exists(cond_dim) else None
-        self.block1 = Block(dim, dim_out, dtype=dtype)
-        self.block2 = Block(dim_out, dim_out, dtype=dtype)
+        self.block1 = Block(dim, dim_out, dtype=dtype, fused_film=fused_film)
+        self.block2 = Block(dim_out, dim_out, dtype=dtype, fused_film=fused_film)
         self.gca = GlobalContext(dim_out, dim_out, dtype=dtype) if use_gca else None
         self.res_conv = Conv1x1(dim, dim_out, dtype=dtype) if dim != dim_out else None
 
@@ -523,12 +535,14 @@ class CrossEmbedLayer(nn.Module):
 class UpsampleCombiner(nn.Module):
     """Optionally resize + Block every upsample-stage fmap and concat them at the end."""
 
-    def __init__(self, dim, enabled=False, dim_ins=tuple(), dim_outs=tuple(), dtype=F32):
+    def __init__(self, dim, enabled=False, dim_ins=tuple(), dim_outs=tuple(), dtype=F32,
+                 fused_film=False):
         super().__init__()
         dim_outs = cast_tuple(dim_outs, len(dim_ins))
         self.enabled = enabled
         self.fmap_convs = nn.ModuleList([
-            Block(dim_in, dim_out, dtype=dtype) for dim_in, dim_out in zip(dim_ins, dim_outs)
+            Block(dim_in, dim_out, dtype=dtype, fused_film=fused_film)
+            for dim_in, dim_out in zip(dim_ins, dim_outs)
         ]) if enabled else nn.ModuleList()
         self.dim_out = dim + (sum(dim_outs) if enabled and len(dim_outs) > 0 else 0)
 

@@ -180,7 +180,11 @@ class ConditionedUnet(nn.Module):
 
 
 class Unet(ConditionedUnet):
-    """The 2D denoiser. Keyword names mirror the JAX `Unet` attributes."""
+    """The 2D denoiser. Keyword names mirror the JAX `Unet` attributes.
+
+    `fused_film` is the JAX `IMAGEN_TPU_FUSED_FILM=1` carried as a keyword:
+    every 2-D `Block` whose shape the gate admits runs its norm -> FiLM ->
+    SiLU prologue as kernel 8. Off by default, as the JAX switch is."""
 
     def __init__(
         self,
@@ -230,6 +234,7 @@ class Unet(ConditionedUnet):
         resize_mode='nearest',
         combine_upsample_fmaps=False,
         pixel_shuffle_upsample=True,
+        fused_film=False,
         dtype=F32,
         device=None,
     ):
@@ -269,7 +274,8 @@ class Unet(ConditionedUnet):
             dims = [init_dim, *(dim * m for m in dim_mults)]
             in_out = list(zip(dims[:-1], dims[1:]))
             attn_kwargs = dict(heads=attn_heads, dim_head=attn_dim_head)
-            resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads, dtype=dtype)
+            resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads, dtype=dtype,
+                                 fused_film=fused_film)
 
             # input channels: image + lowres conditioning image
             init_channels = channels * (1 + int(lowres_cond))
@@ -329,12 +335,14 @@ class Unet(ConditionedUnet):
             # middle: plain ResnetBlocks, so their cross-attention keeps the defaults
             mid_dim = dims[-1]
             self.mid_block1 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
-                                          time_cond_dim=time_cond_dim, dtype=dtype)
+                                          time_cond_dim=time_cond_dim, dtype=dtype,
+                                          fused_film=fused_film)
             self.mid_attn = TransformerBlock(
                 mid_dim, depth=layer_mid_attns_depth, dtype=dtype,
                 **attn_kwargs) if attend_at_middle else None
             self.mid_block2 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
-                                          time_cond_dim=time_cond_dim, dtype=dtype)
+                                          time_cond_dim=time_cond_dim, dtype=dtype,
+                                          fused_film=fused_film)
 
             # up path: [init block, blocks, transformer, upsample]
             upsample_klass = PixelShuffleUpsample if pixel_shuffle_upsample else Upsample
@@ -363,7 +371,7 @@ class Unet(ConditionedUnet):
 
             self.upsample_combiner = UpsampleCombiner(
                 dim, enabled=combine_upsample_fmaps, dim_ins=tuple(upsample_fmap_dims),
-                dim_outs=dim, dtype=dtype)
+                dim_outs=dim, dtype=dtype, fused_film=fused_film)
 
             final_conv_dim = self.upsample_combiner.dim_out
             if init_conv_to_final_conv_residual:

@@ -35,6 +35,7 @@ LAUNCHES: Counter = Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each entry point; every one returns a cudaError_t.
 SIGNATURES = {
     # q, k, v, q_scale (nullable), out, lse (nullable), b, rows, nk, d, scale2, stream
@@ -51,6 +52,15 @@ SIGNATURES = {
     'ln_transpose_bf16': (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # out ((b hw), f, c), res (b, f, hw, c), g, y (b, f, hw, c), b, f, hw, c, eps, stream
     'norm_untranspose_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # x (b, hw, c), gamma (c,), scale, shift (nullable; rows film_stride apart), y,
+    # b, hw, c, film_stride (0 without scale/shift), stream
+    'fused_film_norm_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # x (rows, c), g (c,), y (rows, c), rows, c, stable, eps, stream
+    'fused_layernorm_bf16': (_P, _P, _P, _I, _I, _I, _F, _P),
+    # x (rows, k), g (k,), w (n, k), y (rows, n), rows, k, n, eps, stream
+    'fused_ln_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x (rows, k), w (n, k), g (n,), y (rows, n), rows, k, n, eps, stream
+    'fused_matmul_ln_bf16': (_P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -31,8 +31,8 @@ from __future__ import annotations
 import torch
 
 from imagen_tpu_torch.ops import _build
-from imagen_tpu_torch.ops.fused_norm import layernorm
-from imagen_tpu_torch.ops.tensor_utils import wants_grad
+from imagen_tpu_torch.ops.fused_norm import layernorm, recomputed_grads
+from imagen_tpu_torch.ops.tensor_utils import aligned_contiguous, wants_grad
 
 LN_T_KERNEL = 'ln_transpose_bf16'
 NORM_UT_KERNEL = 'norm_untranspose_bf16'
@@ -86,12 +86,6 @@ def norm_untranspose_reference(out, res, g, eps):
     return (_unfold(_normalized(out, g, eps), res.shape) + res.float()).to(res.dtype)
 
 
-def _aligned(t):
-    """Contiguous, and on a 16-byte boundary for the kernels' vector loads."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check(x, g, name):
     if not (x.is_cuda and g.device == x.device):
         raise ValueError(f'{name}: tensors must share one CUDA device')
@@ -110,7 +104,7 @@ def _ln_t_forward(x, g, eps):
         raise ValueError(f'fused_ln_transpose takes (b, f, h, w, c), got {tuple(x.shape)}')
     _check(x, g, 'fused_ln_transpose')
     b, f, h, w, c = x.shape
-    x = _aligned(x)
+    x = aligned_contiguous(x)
     gf = g.float().contiguous()
     y = torch.empty((b * h * w, f, c), dtype=x.dtype, device=x.device)
     _build.launch(LN_T_KERNEL, x.data_ptr(), gf.data_ptr(), y.data_ptr(), b, f, h * w, c,
@@ -130,23 +124,12 @@ def _norm_ut_forward(out, res, g, eps):
             or out.device != res.device:
         raise ValueError(f'fused_norm_untranspose: out {tuple(out.shape)} {out.dtype} does '
                          f'not fold res {tuple(res.shape)} {res.dtype}')
-    out, res = _aligned(out), _aligned(res)
+    out, res = aligned_contiguous(out), aligned_contiguous(res)
     gf = g.float().contiguous()
     y = torch.empty_like(res)
     _build.launch(NORM_UT_KERNEL, out.data_ptr(), res.data_ptr(), gf.data_ptr(), y.data_ptr(),
                   b, f, h * w, c, float(eps))
     return y
-
-
-def _grads(ctx, chain, g):
-    """Gradients of the unfused `chain` of the saved inputs, recomputed."""
-    with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        out = chain(*inputs)
-    wanted = [t for t in inputs if t.requires_grad]
-    grads = iter(torch.autograd.grad(out, wanted, g))
-    return (*(next(grads) if t.requires_grad else None for t in inputs), None)
 
 
 class _LnTranspose(torch.autograd.Function):
@@ -158,7 +141,8 @@ class _LnTranspose(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        return _grads(ctx, lambda x, g: layernorm(_fold(x), g, ctx.eps), gy)
+        return (*recomputed_grads(ctx, lambda x, g: layernorm(_fold(x), g, ctx.eps), gy),
+                None)
 
 
 class _NormUntranspose(torch.autograd.Function):
@@ -172,7 +156,7 @@ class _NormUntranspose(torch.autograd.Function):
     def backward(ctx, gy):
         def chain(out, res, g):
             return _unfold(layernorm(out, g, ctx.eps), res.shape) + res
-        return _grads(ctx, chain, gy)
+        return (*recomputed_grads(ctx, chain, gy), None)
 
 
 def fused_ln_transpose(x, g, eps):

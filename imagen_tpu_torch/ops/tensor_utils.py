@@ -17,6 +17,12 @@ def wants_grad(*tensors):
         t is not None and t.requires_grad for t in tensors)
 
 
+def aligned_contiguous(t):
+    """Contiguous, and on a 16-byte boundary for the CUDA kernels' vector loads."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def log(t, eps: float = 1e-12):
     """Stable log."""
     return torch.log(t.clamp(min=eps))

@@ -1,13 +1,15 @@
 """Where one request of the PyTorch port's serving path spends device time.
 
     python -m imagen_tpu_torch.profile_serving            # 64->256 images
+    python -m imagen_tpu_torch.profile_serving --edm      # the same cascade, EDM
     python -m imagen_tpu_torch.profile_serving --video    # 16-frame video
 
 Builds, on one NVIDIA GPU with bf16 compute and random weights from seed 0,
 either paper-preset BaseUnet64 + SRUnet256 with an `ImagenServer` at batch 4
-(a request of 4 prompts), or the `Unet3D` of `chip_smoke.py`'s video phase
-(dim 64, mults 1-2-4, 16 frames at 64 px) with a server at batch 1 (a request
-of 1 prompt). Warms the server, then times one request unprofiled, then one
+(a request of 4 prompts; with `--edm` an `ElucidatedImagen` whose unets
+have `fused_film=True`, at `chip_smoke.py`'s EDM steps), or the `Unet3D` of
+`chip_smoke.py`'s video phase (dim 64, mults 1-2-4, 16 frames at 64 px)
+with a server at batch 1 (a request of 1 prompt). Warms the server, then times one request unprofiled, then one
 under `torch.profiler` (device activity only). Prints both wall times, the summed device time of
 the kernels (and so the device idle share), device time by category (the
 port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies)
@@ -23,11 +25,12 @@ import torch
 import imagen_tpu_torch as it
 
 STEPS = (16, 8)  # the steps of chip_smoke.py, cut from (1000, 1000) for time
+EDM_STEPS = (16, 8)  # chip_smoke.py's EDM steps, cut from edm_paper's (64, 32)
 VIDEO_STEPS, VIDEO_FRAMES = 16, 16  # chip_smoke.py's video phase
 
 CATEGORIES = (
     ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn',
-                      'ln_relayout')),
+                      'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul', 'matmul_ln')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),
@@ -56,15 +59,21 @@ def randomize_final_conv(*unets):
             unet.final_conv.weight.normal_(0., 0.02)
 
 
-def image_server():
-    base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
-    sr = it.SRUnet256(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
-                      lowres_cond=True)
+def image_server(edm=False):
+    common = dict(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256, fused_film=edm)
+    base = it.BaseUnet64(**common)
+    sr = it.SRUnet256(**common, lowres_cond=True)
     randomize_final_conv(base, sr)
-    imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=STEPS,
-                       cond_drop_prob=0.1).eval()
+    if edm:
+        imagen = it.ElucidatedImagen((base, sr), image_sizes=(64, 256),
+                                     num_sample_steps=EDM_STEPS, cond_drop_prob=0.1).eval()
+        label = f'EDM, fused_film, steps {EDM_STEPS} (2N - 1 forwards each)'
+    else:
+        imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=STEPS,
+                           cond_drop_prob=0.1).eval()
+        label = f'steps {STEPS}'
     return it.ImagenServer(imagen, batch_size=4, cond_scale=3., seed=0), \
-        f'steps {STEPS}, batch 4 (8 with CFG)'
+        f'{label}, batch 4 (8 with CFG)'
 
 
 def video_server():
@@ -82,14 +91,17 @@ def video_server():
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--video', action='store_true',
-                        help='profile the 16-frame text-to-video request')
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument('--video', action='store_true',
+                      help='profile the 16-frame text-to-video request')
+    mode.add_argument('--edm', action='store_true',
+                      help='profile the EDM request of the 64->256 cascade with fused_film')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
 
     torch.manual_seed(0)
-    server, label = video_server() if args.video else image_server()
+    server, label = video_server() if args.video else image_server(edm=args.edm)
     g = torch.Generator(device='cuda').manual_seed(1234)
     emb = torch.randn((server.batch_size, 256, 768), generator=g, device='cuda')
 

@@ -346,3 +346,171 @@ def test_temporal_layout_wrappers_raise_outside_the_gate(cuda):
         tl.fused_norm_untranspose(out[:-1], x, g, 1e-3)
     with pytest.raises(ValueError):
         tl.fused_ln_transpose(x[0], g, 1e-3)   # 4-D
+
+
+# --- ChanRMSNorm·FiLM·SiLU, row LayerNorm, LN<->matmul (kernels 8, 9, 11) ------------------
+
+def _film_inputs(cuda, shape, seed):
+    """bf16 x, fp32 gamma, and scale/shift as the ResnetBlock hands them over:
+    the two strided (b, 1, 1, C) halves of one (b, 2C) time-MLP output."""
+    r = rng(seed)
+    b, c = shape[0], shape[-1]
+    x = t(randn(r, *shape)).to(cuda).to(BF16)
+    gamma = t(1. + randn(r, c, scale=0.1)).to(cuda)
+    film = t(randn(r, b, 2 * c, scale=0.5)).to(cuda).to(BF16)
+    scale, shift = film[:, None, None, :].chunk(2, dim=-1)
+    return x, gamma, scale, shift
+
+
+# EDM path sites: BaseUnet64 64^2 c 512, its deepest up level (8^2, c 3584),
+# SRUnet256's 256^2 c 128 at batch 8; then ragged row counts at c 384 and 2560
+FILM_SHAPES = [(8, 64, 64, 512), (8, 8, 8, 3584), (8, 256, 256, 128), (3, 5, 7, 384),
+               (1, 3, 3, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', FILM_SHAPES)
+@pytest.mark.parametrize('film', [True, False], ids=['film', 'no_film'])
+def test_film_norm_kernel_matches_plain(cuda, shape, film):
+    x, gamma, scale, shift = _film_inputs(cuda, shape, seed=20)
+    if not film:
+        scale = shift = None
+
+    def run(x):
+        return fn.fused_film_norm(x, gamma, scale, shift)
+
+    def plain(x):
+        return fn.film_norm_reference(x, gamma, scale, shift)
+
+    _check(run, plain, (x,), (x.float(),), fn.FILM_KERNEL)
+
+
+@pytest.mark.cuda
+def test_film_norm_function_gradients_match_plain(cuda):
+    x, gamma, scale, shift = _film_inputs(cuda, (4, 16, 16, 512), seed=21)
+    _check_grads(fn.fused_film_norm, fn.film_norm_reference,
+                 [x, gamma, scale.contiguous(), shift.contiguous()], fn.FILM_KERNEL)
+
+
+# the EDM path's LayerNorm sites (BaseUnet64's 32^2 pre-norm at batch 8, its
+# 8^2 c 2048 norms), a ragged row count, and c 4096 (the kernel's widest)
+LN_SHAPES = [(8192, 1024), (512, 2048), (37, 384), (64, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,c', LN_SHAPES)
+@pytest.mark.parametrize('stable', [False, True], ids=['plain', 'stable'])
+def test_layernorm_kernel_matches_plain(cuda, rows, c, stable):
+    r = rng(22)
+    x = t(randn(r, rows, c) + 0.5).to(cuda).to(BF16)
+    g = t(1. + randn(r, c, scale=0.1)).to(cuda)
+    _check(lambda x: fn.fused_layernorm(x, g, stable, 1e-3),
+           lambda x: fn.layernorm_reference(x, g, stable, 1e-3), (x,), (x.float(),),
+           fn.LN_KERNEL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('stable', [False, True], ids=['plain', 'stable'])
+def test_layernorm_function_gradients_match_plain(cuda, stable):
+    r = rng(23)
+    inputs = [t(randn(r, 2048, 512) + 0.5).to(cuda).to(BF16),
+              t(1. + randn(r, 512, scale=0.1)).to(cuda)]
+    _check_grads(lambda x, g: fn.fused_layernorm(x, g, stable, 1e-3),
+                 lambda x, g: fn.layernorm_reference(x, g, stable, 1e-3), inputs, fn.LN_KERNEL)
+
+
+# (rows, k, n): the attention pre-norm into to_q + to_kv at 32^2 and 8^2
+# (BaseUnet64, batch 8), the out-projection into the out-norm at 32^2 and
+# 8^2, and ragged row counts
+LNMM_SHAPES = [(8192, 1024, 640), (512, 2048, 640), (300, 512, 512), (77, 256, 384)]
+MMLN_SHAPES = [(8192, 512, 1024), (512, 512, 2048), (300, 512, 384), (77, 1024, 128)]
+
+
+def _rowblock_inputs(cuda, rows, k, n, seed):
+    r = rng(seed)
+    x = t(randn(r, rows, k)).to(cuda).to(BF16)
+    w = t(randn(r, n, k, scale=k ** -0.5)).to(cuda).to(BF16)
+    return x, w, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,k,n', LNMM_SHAPES)
+def test_ln_matmul_kernel_matches_plain(cuda, rows, k, n):
+    x, w, r = _rowblock_inputs(cuda, rows, k, n, seed=24)
+    g = t(1. + randn(r, k, scale=0.1)).to(cuda)
+    _check(lambda x, w: fn.fused_ln_matmul(x, g, w, 1e-3),
+           lambda x, w: fn.ln_matmul_reference(x, g, w, 1e-3), (x, w), (x.float(), w.float()),
+           fn.LNMM_KERNEL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,k,n', MMLN_SHAPES)
+def test_matmul_ln_kernel_matches_plain(cuda, rows, k, n):
+    x, w, r = _rowblock_inputs(cuda, rows, k, n, seed=25)
+    g = t(1. + randn(r, n, scale=0.1)).to(cuda)
+    _check(lambda x, w: fn.fused_matmul_ln(x, w, g, 1e-3),
+           lambda x, w: fn.matmul_ln_reference(x, w, g, 1e-3), (x, w), (x.float(), w.float()),
+           fn.MMLN_KERNEL)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_function_gradients_match_plain(cuda):
+    x, w, r = _rowblock_inputs(cuda, 1024, 512, 640, seed=26)
+    gk, gn = (t(1. + randn(r, m, scale=0.1)).to(cuda) for m in (512, 640))
+    _check_grads(lambda x, g, w: fn.fused_ln_matmul(x, g, w, 1e-3),
+                 lambda x, g, w: fn.ln_matmul_reference(x, g, w, 1e-3), [x, gk, w],
+                 fn.LNMM_KERNEL)
+    y, w2, _ = _rowblock_inputs(cuda, 1024, 512, 640, seed=27)
+    _check_grads(lambda x, w, g: fn.fused_matmul_ln(x, w, g, 1e-3),
+                 lambda x, w, g: fn.matmul_ln_reference(x, w, g, 1e-3), [y, w2, gn],
+                 fn.MMLN_KERNEL)
+
+
+@pytest.mark.cuda
+def test_fused_norm_wrappers_raise_outside_their_limits(cuda):
+    x, gamma, scale, shift = _film_inputs(cuda, (2, 4, 4, 256), seed=28)
+    with pytest.raises(TypeError):
+        fn.fused_film_norm(x.float(), gamma, None, None)
+    with pytest.raises(TypeError):
+        fn.fused_film_norm(x, gamma, scale.float(), shift.float())
+    with pytest.raises(ValueError):   # C past one warp's row
+        wide = torch.zeros(1, 2, 2, 8192, device=cuda, dtype=BF16)
+        fn.fused_film_norm(wide, torch.ones(8192, device=cuda))
+    with pytest.raises(ValueError):
+        fn.fused_film_norm(x, gamma, scale, None)
+    with pytest.raises(TypeError):
+        fn.fused_layernorm(x.float(), gamma, False, 1e-3)
+    w = torch.zeros(640, 512, device=cuda, dtype=BF16)
+    with pytest.raises(ValueError):   # k does not match
+        fn.fused_ln_matmul(torch.zeros(16, 256, device=cuda, dtype=BF16),
+                           torch.ones(256, device=cuda), w, 1e-3)
+    with pytest.raises(ValueError):   # k + n past shared memory
+        fn.fused_matmul_ln(torch.zeros(16, 4096, device=cuda, dtype=BF16),
+                           torch.zeros(4096, 4096, device=cuda, dtype=BF16),
+                           torch.ones(4096, device=cuda), 1e-3)
+
+
+@pytest.mark.cuda
+def test_edm_sample_through_the_film_kernel(cuda):
+    """A small bf16 two-stage EDM cascade with `fused_film=True` (c 128 and
+    256) samples finite images in [0, 1], and every Block went through
+    kernel 8."""
+    torch.manual_seed(0)
+    cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
+               layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
+               text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
+               fused_film=True, dtype=BF16, device=cuda)
+    unets = (it.Unet(**cfg), it.Unet(**cfg, lowres_cond=True, memory_efficient=True))
+    for unet in unets:
+        with torch.no_grad():
+            unet.final_conv.weight.normal_(0., 0.02)
+    imagen = it.ElucidatedImagen(unets, image_sizes=(32, 64), text_embed_dim=64,
+                                 num_sample_steps=(4, 3), device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    emb = torch.randn((2, 16, 64), generator=g, device=cuda)
+    before = _build.LAUNCHES[fn.FILM_KERNEL]
+    images = imagen.sample(text_embeds=emb, cond_scale=3., generator=g)
+    torch.cuda.synchronize()
+    assert images.shape == (2, 64, 64, 3)
+    assert bool(torch.isfinite(images).all()) and images.min() >= 0. and images.max() <= 1.
+    assert _build.LAUNCHES[fn.FILM_KERNEL] > before
