@@ -23,10 +23,24 @@ parameters and random weights from a seed:
   hooks that count the fused norm calls; the same hooks record the shapes
   of the LayerNorm and attention-projection sites, where kernels 9 and 11
   (wired nowhere, as in the JAX package) would run; then three requests
-  each with kernel 8 on and off on the same weights, in turns.
+  each with kernel 8 on and off on the same weights, in turns;
+- SR-1024 serving: the JAX bench's `sr1024_paper` (BASELINE config 4),
+  `NullUnet` + `SRUnet1024` at 256 -> 1024 built with `fused_stem=True`
+  (kernel 14 at the stem), `Imagen.sample` from `start_at_unet_number=2`
+  with a seeded 256 px start image, batch 1 (2 with CFG), cond_scale 3,
+  SR_STEPS steps; one warm-up, then three requests (kernels 14, 6, the
+  flash forward at `mid_attn` and the feedforward in the Perceiver lie on
+  the path); kernel 14's launches
+  are checked against forward hooks on `CrossEmbedLayer`, kernel 6's
+  against hooks on the `SameConv3x3` sites its gate admits; a hook records
+  the final conv's input, where kernel 7 (wired nowhere, as in the JAX
+  package) would run; the device FLOPs of one forward from
+  `torch.utils.flop_counter`; then two request pairs with kernel 14 on and
+  off on the same weights, in turns.
 The launch counts are set to 0 just before each path and read just after.
 Then it holds each hand-written kernel, at every shape the paths launched
-it at (kernels 9 and 11 at every recorded site shape), against its plain
+it at (kernels 9, 11 and 7 at every recorded site shape; kernel 7 also at
+the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits), against its plain
 PyTorch version, and a small bf16 U-Net and a small bf16 Unet3D that reach
 every kernel of the paths against the same nets on the plain path, outputs
 and gradients, both measured against fp32.
@@ -38,16 +52,19 @@ per video request latency, shape, finiteness, range and peak memory; per
 video training step loss, time and peak memory; per EDM request latency,
 shape, finiteness, range and peak memory, kernel 8's sites per forward, the
 sites of kernels 9 and 11, the on/off latencies and output difference;
+per SR-1024 request latency, shape, finiteness, range and peak memory, the
+forward's FLOPs, kernel 14's and kernel 6's launches against their hook
+counts, kernel 7's site, the on/off latencies and output difference;
 per-kernel errors, CUDA-event times and bounds at each shape (with the
-unfused route's time for kernels 8, 11, 12 and 13); the small nets'
+unfused route's time for kernels 8, 11, 12, 13 and 14); the small nets'
 errors; then the card again, one JSON line of kernel results and, last,
 the result line {"ok": ..., "device": {...}}.
 
 In the kernel line, `launches` is the sum over the paths (split in
 `launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
 times at each launched shape times that shape's launches in the paths,
-summed (for kernels 9 and 11, `on_path` false, times that shape's site
-count, `edm_sites`, since they launch nowhere on a path). `bound_ms` is the
+summed (for kernels 9, 11 and 7, `on_path` false, times that shape's site
+count, `sites`, since they launch nowhere on a path). `bound_ms` is the
 least time the H100 could take for that work, the
 larger of its operations at the dense bf16 peak and its bytes (each input
 read once, each output written once) at the HBM rate; `bound_by` says which of
@@ -55,14 +72,16 @@ the two bounds most of it. `library_ms` times one PyTorch call that computes
 the same function (`F.scaled_dot_product_attention`, its backward,
 `F.conv2d`, `F.layer_norm` for kernel 9 without the stable division; for
 the temporal kernel SDPA on the pre-normalised q and k, K and V expanded
-over the heads, with the bias table as `attn_mask`), null where there is
-none (the feedforward; kernels 8 and 11, for which no one call fuses the
-norm with the FiLM and SiLU or with the product; kernels 12 and 13: no one
-call fuses a LayerNorm with a relayout). For kernels 8, 11, 12 and 13
-`unfused_route_ms` times the port's unfused module chain instead (for 11
-that chain is its plain version). For kernels 8, 9 and 11, whose calls
-take microseconds, `device_ms` sums the device time per call that
-torch.profiler reads at each shape, weighted the same way. `max_abs_err` is
+over the heads, with the bias table as `attn_mask`; for kernel 7
+`F.conv2d` on the NHWC view, whose result is the channel-first output),
+null where there is none (the feedforward; kernels 8 and 11, for which no
+one call fuses the norm with the FiLM and SiLU or with the product;
+kernels 12 and 13: no one call fuses a LayerNorm with a relayout; kernel
+14: no one call runs convs of three kernel sizes). For kernels 8, 11, 12,
+13 and 14 `unfused_route_ms` times the port's unfused module chain instead
+(for 11 that chain is its plain version; for 14 three cuDNN convs and the
+`cat`). For kernels 7, 8, 9, 11 and 14 `device_ms` sums the device time
+per call that torch.profiler reads at each shape, weighted the same way. `max_abs_err` is
 the kernel's worst error against the fp32 truth over those shapes and
 outputs.
 
@@ -90,6 +109,7 @@ REQUEST_SIZES = (4, 2, 3)
 TRAIN_STEPS = 3
 TRAIN_CONFIGS = ((1, 8), (2, 4))   # (unet number, batch), as the JAX bench trains them
 VIDEO_TRAIN_BATCH = 4
+SR_STEPS = 8                 # SR-1024 steps, cut from the JAX bench's 32 (sr1024_paper) for time
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes per second
 KERNEL_INFO = {
@@ -127,15 +147,26 @@ KERNEL_INFO = {
     'fused_matmul_ln_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_ln_matmul.cu',
         replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel='matmul_ln_kernel'),
+    'cross_embed_stem_bf16': dict(
+        source='imagen_tpu_torch/csrc/cross_embed_stem.cu',
+        replaces='imagen_tpu/ops/stem_conv.py:201', device_kernel='cross_embed_scale_kernel'),
+    'conv2d_same_cf_bf16': dict(
+        source='imagen_tpu_torch/csrc/conv2d_same_cf.cu',
+        replaces='imagen_tpu/ops/conv2d.py:403', device_kernel='conv2d_same_cf_kernel'),
 }
 IMAGE_KERNELS = ('flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', 'conv2d_same_3x3_bf16',
                  'fused_feedforward_bf16')
 VIDEO_KERNELS = ('temporal_attn_fwd_bf16', 'ln_transpose_bf16', 'norm_untranspose_bf16')
 FILM_KERNEL = 'fused_film_norm_bf16'
+STEM_KERNEL = 'cross_embed_stem_bf16'
+CF_KERNEL = 'conv2d_same_cf_bf16'
 # kernels 9 and 11: wired nowhere (as in the JAX package), held at the EDM
-# path's LayerNorm and attention-projection sites, which hooks record
-UNWIRED = ('fused_layernorm_bf16', 'fused_ln_matmul_bf16', 'fused_matmul_ln_bf16')
-PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving')
+# path's LayerNorm and attention-projection sites, which hooks record;
+# kernel 7 likewise at the SR-1024 path's final conv
+NORM_UNWIRED = ('fused_layernorm_bf16', 'fused_ln_matmul_bf16', 'fused_matmul_ln_bf16')
+UNWIRED = (*NORM_UNWIRED, CF_KERNEL)
+CF_JAX_GATE_SHAPE = (2, 1024, 1024, 128, 3, 3)   # the nearest final conv the JAX gate admits
+PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving')
 
 
 def log(msg):
@@ -610,12 +641,12 @@ def phase_edm_serving(torch, it, build, results):
     log(f'edm_serving: {FILM_KERNEL} launches {counts[FILM_KERNEL]}, expected {expected} = '
         f'fused sites per forward {per_forward} (BaseUnet64, SRUnet256) x forwards {forwards} '
         f'(2N - 1) x {len(requests)} requests -> {"ok" if exact else "FAIL"}')
-    for name in UNWIRED:
+    for name in NORM_UNWIRED:
         log(f'edm_serving: {name} sites (no launch: wired nowhere) '
             f'{sum(sites[name].values())} at {len(sites[name])} shapes; gate refused '
             f'{refused[name]}')
     results['counts']['edm_serving'] = counts
-    results['sites'] = {name: sites[name] for name in UNWIRED}
+    results['sites']['edm_serving'] = {name: sites[name] for name in NORM_UNWIRED}
 
     # kernel 8 on and off on the same weights, in turns
     emb, mask = requests[0]
@@ -633,6 +664,149 @@ def phase_edm_serving(torch, it, build, results):
     return ok
 
 
+# --- SR-1024 serving --------------------------------------------------------------------
+
+def sr1024_hooks(unet):
+    """Forward pre-hooks, while the requests run, that count the calls taking
+    kernel 14 (a `CrossEmbedLayer` with `fused_stem` whose gate admits the
+    input) and kernel 6 (a `SameConv3x3` whose gate admits it): the
+    expected launches, read from the built net. A hook also records the
+    final conv's input as kernel 7's arguments (b, H, W, cin, cout, k).
+    Returns (calls, final-conv sites, handles)."""
+    from imagen_tpu_torch.models import blocks
+    from imagen_tpu_torch.ops.conv2d import conv2d_same_available
+    from imagen_tpu_torch.ops.stem_conv import stem_available
+    calls, final_sites = Counter(), Counter()
+
+    def stem_hook(module, args):
+        x = args[0]
+        if module.fused_stem and stem_available(tuple(x.shape), module.kernel_sizes,
+                                                module.convs[0].compute_dtype, x.device.type):
+            calls[STEM_KERNEL] += 1
+
+    def conv_hook(module, args):
+        x = args[0]
+        w_shape = (3, 3, module.in_channels, module.out_channels)
+        if conv2d_same_available(tuple(x.shape), w_shape, module.compute_dtype, x.device.type):
+            calls['conv2d_same_3x3_bf16'] += 1
+
+    def final_hook(module, args):
+        final_sites[(*args[0].shape, module.out_channels, module.kernel_size[0])] += 1
+
+    handles = [unet.final_conv.register_forward_pre_hook(final_hook)]
+    for m in unet.modules():
+        if isinstance(m, blocks.CrossEmbedLayer):
+            handles.append(m.register_forward_pre_hook(stem_hook))
+        elif isinstance(m, blocks.SameConv3x3):
+            handles.append(m.register_forward_pre_hook(conv_hook))
+    return calls, final_sites, handles
+
+
+def sr1024_request(torch, imagen, emb, mask, start, label):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
+                           start_at_unet_number=2, start_image_or_video=start,
+                           generator=torch.Generator(device='cuda').manual_seed(77))
+    torch.cuda.synchronize()
+    lat = time.perf_counter() - t0
+    finite = bool(torch.isfinite(images).all())
+    in_range = bool(images.min() >= 0. and images.max() <= 1.)
+    good = tuple(images.shape) == (1, 1024, 1024, 3) and finite and in_range
+    log(f'{label}: latency {lat:.3f} s shape {tuple(images.shape)} finite {finite} in [0,1] '
+        f'{in_range} peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+        f'-> {"ok" if good else "FAIL"}')
+    return good, images, lat
+
+
+def set_fused_stem(unet, on):
+    """Turn kernel 14 on or off in every CrossEmbedLayer of `unet` (the weights stay)."""
+    from imagen_tpu_torch.models.blocks import CrossEmbedLayer
+    for m in unet.modules():
+        if isinstance(m, CrossEmbedLayer):
+            m.fused_stem = on
+
+
+def phase_sr1024_serving(torch, it, build, results):
+    """The JAX bench's `sr1024_paper` (`bench.py:124-127`, `:442-445`):
+    `NullUnet` + `SRUnet1024` at paper widths with `fused_stem=True`,
+    sampled from `start_at_unet_number=2` on a seeded 256 px image, batch 1
+    (2 with CFG), cond_scale 3, SR_STEPS steps; then the same weights with
+    kernel 14 on and off in turns."""
+    from torch.utils.flop_counter import FlopCounterMode
+    bf16 = torch.bfloat16
+    torch.manual_seed(60)
+    t0 = time.perf_counter()
+    # lowres_cond as the cascade casts the second stage, built once
+    sr = it.SRUnet1024(dtype=bf16, text_embed_dim=768, max_text_len=256, lowres_cond=True,
+                       fused_stem=True)
+    randomize_final_conv(sr, 61)
+    imagen = it.Imagen((it.NullUnet(), sr), image_sizes=(256, 1024),
+                       timesteps=(2 * SR_STEPS, SR_STEPS), cond_drop_prob=0.1).eval()
+    unet = imagen.unets[1]
+    torch.cuda.synchronize()
+    log(f'sr1024_serving: NullUnet + SRUnet1024 {sum(p.numel() for p in unet.parameters()) / 1e9:.3f}'
+        f' B params (fused_stem), built in {time.perf_counter() - t0:.1f} s; steps {SR_STEPS}, '
+        f'batch 1 (2 with CFG), cond_scale 3')
+
+    g = torch.Generator(device='cuda').manual_seed(6060)
+    emb, mask = text_batch(torch, g, 1)
+    start = torch.rand((1, 256, 256, 3), generator=g, device='cuda')
+    ok = sr1024_request(torch, imagen, emb, mask, start, 'sr1024 warm-up')[0]
+
+    counts = Counter()
+    calls, final_sites, handles = sr1024_hooks(unet)
+    try:
+        with counting_path(build, results['shapes']['sr1024_serving'], counts):
+            for i in range(3):
+                ok &= sr1024_request(torch, imagen, emb, mask, start, f'sr1024 request {i}')[0]
+    finally:
+        for h in handles:
+            h.remove()
+    # the flash forward at mid_attn (64^2 tokens) and the feedforward in the Perceiver
+    ok &= check_launched(counts, [STEM_KERNEL, 'conv2d_same_3x3_bf16', 'flash_rows_fwd_bf16',
+                                  'fused_feedforward_bf16'], 'sr1024_serving')
+    for name in (STEM_KERNEL, 'conv2d_same_3x3_bf16'):
+        exact = counts[name] == calls[name] > 0
+        ok &= exact
+        log(f'sr1024_serving: {name} launches {counts[name]}, hook count {calls[name]} '
+            f'({calls[name] / (3 * SR_STEPS):g} a forward x {SR_STEPS} steps x 3 requests) '
+            f'-> {"ok" if exact else "FAIL"}')
+    log(f'sr1024_serving: {CF_KERNEL} site (no launch: wired nowhere, as in JAX) '
+        f'{dict(final_sites)}; also held at the JAX-gate shape {CF_JAX_GATE_SHAPE}')
+    results['counts']['sr1024_serving'] = counts
+    results['sites']['sr1024_serving'] = {CF_KERNEL: final_sites}
+    results['sites']['jax_gate_shape'] = {CF_KERNEL: Counter({CF_JAX_GATE_SHAPE: 0})}
+
+    # the device FLOPs of one CFG-doubled forward, on the plain route (the
+    # counter sees aten ops, not the kernels' launches; the function is the same)
+    x = torch.randn((2, 1024, 1024, 3), generator=g, device='cuda')
+    tt = torch.rand((2,), generator=g, device='cuda')
+    with torch.no_grad(), plain_path(), FlopCounterMode(display=False) as flop_counter:
+        unet(x, tt, text_embeds=emb.repeat(2, 1, 1), text_mask=mask.repeat(2, 1),
+             lowres_cond_img=x, lowres_noise_times=tt)
+    flops = flop_counter.get_total_flops()
+    log(f'sr1024_serving: {flops / 1e12:.3f} TFLOP per CFG-doubled forward '
+        f'(torch.utils.flop_counter), {flops * SR_STEPS / 1e12:.1f} TFLOP a request')
+    del x
+    free_cuda()
+
+    # kernel 14 on and off on the same weights, in turns
+    outputs, lats = {}, defaultdict(list)
+    for on in (True, False, False, True):
+        set_fused_stem(unet, on)
+        good, outputs[on], lat = sr1024_request(torch, imagen, emb, mask, start,
+                                                f'sr1024 A/B fused_stem={on}')
+        ok &= good
+        lats[on].append(lat)
+    set_fused_stem(unet, True)
+    log(f'sr1024_serving A/B: fused_stem on {[round(v, 3) for v in lats[True]]} s, off '
+        f'{[round(v, 3) for v in lats[False]]} s; max |on - off| of the images '
+        f'{float((outputs[True] - outputs[False]).abs().max()):.3e}; '
+        f'achieved {flops * SR_STEPS / min(lats[True]) / 1e12:.1f} TFLOP/s at the fastest on')
+    return ok
+
+
 # --- each kernel against its plain version --------------------------------------------
 
 def kernel_cases(torch, name, dims, g):
@@ -645,6 +819,7 @@ def kernel_cases(torch, name, dims, g):
     from imagen_tpu_torch.ops import conv2d as c2d
     from imagen_tpu_torch.ops import flash_attention as fa
     from imagen_tpu_torch.ops import fused_norm as fn
+    from imagen_tpu_torch.ops import stem_conv as stem
     from imagen_tpu_torch.ops import temporal_layout as tl
     from imagen_tpu_torch.ops.tensor_utils import l2norm
     bf16 = torch.bfloat16
@@ -740,6 +915,44 @@ def kernel_cases(torch, name, dims, g):
             return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=1)
         flops = 2 * b * H * W * 9 * cin * cout
         nbytes = 2 * (b * H * W * (cin + cout) + 9 * cin * cout + cout)
+    elif name == stem.KERNEL:
+        b, H, W, c, n, *kd = dims
+        ks, ds = kd[:n], kd[stem.MAX_SCALES:stem.MAX_SCALES + n]
+        ws = [rnd(k, k, c, d, scale=(k * k * c) ** -0.5).to(bf16) for k, d in zip(ks, ds)]
+        inputs = [rnd(b, H, W, c).to(bf16), rnd(sum(ds), scale=0.1).to(bf16), *ws]
+        w_oihw = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
+        library = None
+
+        def kernel(x, bias, *ws):
+            return (stem.cross_embed_stem(x, list(ws), bias),)
+
+        def plain(x, bias, *ws):
+            return (stem.cross_embed_stem_reference(x, list(ws), bias),)
+
+        def unfused(x, bias, *_):   # CrossEmbedLayer without the kernel: a conv per scale, cat
+            xc = x.permute(0, 3, 1, 2)
+            return torch.cat([F.conv2d(xc, w, bb, padding=w.shape[-1] // 2)
+                              for w, bb in zip(w_oihw, bias.split(ds))], 1).permute(0, 2, 3, 1)
+        flops = 2 * b * H * W * c * sum(k * k * d for k, d in zip(ks, ds))
+        nbytes = 2 * (b * H * W * (c + sum(ds)) + sum(k * k * c * d for k, d in zip(ks, ds))
+                      + sum(ds))
+    elif name == c2d.CF_KERNEL:
+        b, H, W, cin, cout, k = dims
+        inputs = [rnd(b, H, W, cin).to(bf16),
+                  rnd(k, k, cin, cout, scale=(k * k * cin) ** -0.5).to(bf16),
+                  rnd(cout, scale=0.1).to(bf16)]
+        w_oihw = inputs[1].permute(3, 2, 0, 1).contiguous()
+
+        def kernel(x, w, bias):
+            return (c2d.conv2d_same_cf(x, w, bias),)
+
+        def plain(x, w, bias):
+            return (c2d.conv2d_same_cf_reference(x, w, bias),)
+
+        def library(x, w, bias):   # the NHWC view's conv is the channel-first output
+            return F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=k // 2)
+        flops = 2 * b * H * W * k * k * cin * cout
+        nbytes = 2 * (b * H * W * (cin + cout) + k * k * cin * cout + cout)
     elif name in (tl.LN_T_KERNEL, tl.NORM_UT_KERNEL):
         b, f, hw, c, eps = dims
         gain = 1. + rnd(c, scale=0.1)
@@ -862,8 +1075,9 @@ def phase_kernels(torch, results):
         for path, shapes in results['shapes'].items():
             for dims, count in shapes[name].items():
                 by_dims[dims][path] += count
-        for dims, count in results['sites'].get(name, {}).items():
-            by_dims[dims]['edm_serving sites'] += count
+        for path, sites in results['sites'].items():
+            for dims, count in sites.get(name, {}).items():
+                by_dims[dims][f'{path} sites'] += count
         for dims, counts in sorted(by_dims.items()):
             count = sum(counts.values())
             kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
@@ -930,7 +1144,8 @@ def phase_kernels(torch, results):
             if key in totals:
                 summary[-1][key] = totals[key]
         if name in UNWIRED:   # times and bounds weighted by these site counts
-            summary[-1]['edm_sites'] = sum(results['sites'].get(name, {}).values())
+            summary[-1]['sites'] = {path: sum(sites[name].values())
+                                    for path, sites in results['sites'].items() if name in sites}
     results['kernels'] = summary
     return ok
 
@@ -945,7 +1160,7 @@ def plain_path():
     import imagen_tpu_torch.ops.attention as attn
     saved = [(m, n, getattr(m, n)) for m, n in (
         (blocks, 'conv2d_same_available'), (blocks, 'fused_feedforward_available'),
-        (blocks, 'fused_film_available'),
+        (blocks, 'fused_film_available'), (blocks, 'stem_available'),
         (attn, 'flash_attention_available'), (video_blocks, 'flash_attention_available'),
         (video_blocks, 'grouped_temporal_available'),
         (video_blocks, 'temporal_layout_available'))]
@@ -1000,21 +1215,22 @@ def held_to_fp32(torch, label, ref, fast, x, t, emb, kernels):
 
 
 def phase_small_unet(torch, it):
-    """A small bf16 U-Net with `fused_film=True` that reaches every 2D kernel
-    of the paths (128x128 input, 128 channels, attention at 64x64), kernel 8
-    at every Block (c 128, 256, 384)."""
+    """A small bf16 U-Net with `fused_film=True` and `fused_stem=True` that
+    reaches every 2D kernel of the paths (128x128 input, 128 channels,
+    attention at 64x64), kernel 8 at every Block (c 128, 256, 384) and
+    kernel 14 at the stem."""
     torch.manual_seed(3)
     cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
                layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
                text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
-               fused_film=True)
+               fused_film=True, fused_stem=True)
     g = torch.Generator(device='cuda').manual_seed(5)
     x = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
     t = torch.rand((2,), generator=g, device='cuda')
     emb = torch.randn((2, 16, 64), generator=g, device='cuda')
     return held_to_fp32(torch, 'small unet (b2 128x128, dim 128)', it.Unet(**cfg).eval(),
                         it.Unet(**cfg, dtype=torch.bfloat16).eval(), x, t, emb,
-                        [*IMAGE_KERNELS, FILM_KERNEL])
+                        [*IMAGE_KERNELS, FILM_KERNEL, STEM_KERNEL])
 
 
 def phase_small_unet3d(torch, it):
@@ -1080,6 +1296,8 @@ def main():
         ok &= phase_video_training(torch, it, _build, results)
         free_cuda()
         ok &= phase_edm_serving(torch, it, _build, results)
+        free_cuda()
+        ok &= phase_sr1024_serving(torch, it, _build, results)
         free_cuda()
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)

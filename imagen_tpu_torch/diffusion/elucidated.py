@@ -16,7 +16,7 @@ EDM sampler; the DDPM training loss is not EDM's, and `forward` raises.
 
 Not ported yet (they raise NotImplementedError): EDM training, inpainting
 and RePaint, `init_images` and `skip_steps`, `cond_images`, video, `texts=`
-(T5), `offload_inactive_unets`, `return_pil_images`.
+(T5), `return_pil_images`.
 """
 from __future__ import annotations
 
@@ -93,9 +93,12 @@ class ElucidatedImagen(Imagen):
             time = edm_math.c_noise(sigma.to(device))
             sigma_data = float(sigma_data)
         else:
-            # float32 on the host, as the JAX package's float32 sigma
-            padded, sigma_data = np.float32(sigma), np.float32(sigma_data)
-            time = torch.full((batch,), float(edm_math.c_noise(padded)), device=device)
+            # float32 on the host, as the JAX package's float32 sigma (float64
+            # for a float64 one)
+            f = edm_math.host_float(sigma)
+            padded, sigma_data = f(sigma), f(sigma_data)
+            time = torch.full((batch,), float(edm_math.c_noise(padded)), device=device,
+                              dtype=torch.float64 if f is np.float64 else torch.float32)
 
         def coef(c):
             return c if isinstance(c, torch.Tensor) else float(c)
@@ -136,13 +139,14 @@ class ElucidatedImagen(Imagen):
         gammas = edm_math.gammas_for_schedule(sigmas, steps, hp.S_churn, hp.S_tmin, hp.S_tmax)
         kwargs = dict(sigma_data=hp.sigma_data, clamp=True, cond_scale=cond_scale,
                       dynamic_threshold=self.dynamic_thresholding[index], **unet_kwargs)
-        s_noise = np.float32(hp.S_noise)
+        f = sigmas.dtype.type
+        s_noise = f(hp.S_noise)
 
         images = float(sigmas[0]) * (init_noise.to(device) if exists(init_noise) else randn())
         for i in range(steps):
             sigma, sigma_next = sigmas[i], sigmas[i + 1]
             sigma_hat = sigma + gammas[i] * sigma
-            churn = np.sqrt(np.maximum(sigma_hat ** 2 - sigma ** 2, np.float32(0.)))
+            churn = np.sqrt(np.maximum(sigma_hat ** 2 - sigma ** 2, f(0.)))
             images_hat = images
             if churn > 0:   # the stochastic churn: sigma_hat > sigma only where gamma > 0
                 eps = step_noises[i, 0].to(device) if exists(step_noises) else randn()
@@ -157,7 +161,7 @@ class ElucidatedImagen(Imagen):
                 model_output_next = self.preconditioned_network_forward(
                     unet, images_next, sigma_next, **kwargs)
                 denoised_prime = (images_next - model_output_next) / float(sigma_next)
-                images = images_hat + float(np.float32(0.5) * (sigma_next - sigma_hat)) * (
+                images = images_hat + float(f(0.5) * (sigma_next - sigma_hat)) * (
                     denoised_over_sigma + denoised_prime)
             else:
                 images = images_next
@@ -202,7 +206,8 @@ class ElucidatedImagen(Imagen):
         noise (b, s, s, c), or a dict with the JAX keys 'init' (b, s, s, c),
         'eps' (num_sample_steps, 1, b, s, s, c), the churn draws before
         S_noise, and 'lowres' (b, s, s, c), the low-res noise augmentation's
-        draw for stages after the first.
+        draw for stages after the first. `offload_inactive_unets` as in
+        `Imagen.sample`.
         """
         unported = dict(texts=texts, cond_images=cond_images, video_frames=video_frames,
                         cond_video_frames=cond_video_frames,
@@ -211,8 +216,8 @@ class ElucidatedImagen(Imagen):
                         inpaint_masks=inpaint_masks, init_images=init_images,
                         skip_steps=skip_steps)
         named = [k for k, v in unported.items() if exists(v)]
-        named += [k for k, v in (('return_pil_images', return_pil_images),
-                                 ('offload_inactive_unets', offload_inactive_unets)) if v]
+        if return_pil_images:
+            named.append('return_pil_images')
         if named:
             raise NotImplementedError(f'not ported to the EDM sampler yet: {", ".join(named)}')
         num_unets = self.num_unets
@@ -228,4 +233,5 @@ class ElucidatedImagen(Imagen):
             lowres_sample_noise_level=default(lowres_sample_noise_level,
                                               self.lowres_sample_noise_level),
             generator=generator, return_all_unet_outputs=return_all_unet_outputs,
+            offload_inactive_unets=offload_inactive_unets,
             sigma_min=cast_tuple(sigma_min, num_unets), sigma_max=cast_tuple(sigma_max, num_unets))

@@ -18,6 +18,7 @@ Every draw comes from a `torch.Generator`
 """
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from typing import Optional, Sequence
 
 import torch
@@ -49,6 +50,27 @@ T5_ENCODED_DIMS = {
     'google/t5-v1_1-xl': 2048,
     'google/t5-v1_1-xxl': 4096,
 }
+
+@contextmanager
+def on_device(module, device):
+    """`module` on `device` inside the block. A module parked elsewhere (say
+    on the host) is copied to `device` for the block; after it, the module
+    holds its parked tensors again, so the device copy is dropped. A module
+    already on `device` is used as it is."""
+    if next(module.parameters()).device == device:
+        yield module
+        return
+    parked = [(m, kind, name, t, t.data) for m in module.modules()
+              for kind in ('_parameters', '_buffers')
+              for name, t in getattr(m, kind).items() if t is not None]
+    module.to(device)
+    try:
+        yield module
+    finally:
+        for m, kind, name, t, data in parked:
+            t.data = data
+            getattr(m, kind)[name] = t
+
 
 def _l1_loss(pred, target):
     return (pred - target).abs()
@@ -198,11 +220,13 @@ class Imagen(nn.Module):
         self.normalize_img = normalize_neg_one_to_one if auto_normalize_img else (lambda t: t)
         self.unnormalize_img = unnormalize_zero_to_one if auto_normalize_img else (lambda t: t)
         self.input_image_range = (0. if auto_normalize_img else -1., 1.)
+        # where sampling runs; unets parked elsewhere (`offload_inactive_unets`) do not move it
+        self.register_buffer('_device_anchor', torch.zeros(0), persistent=False)
         self.to(resolve_device(device))
 
     @property
     def device(self):
-        return next(self.parameters()).device
+        return self._device_anchor.device
 
     def resize_to(self, x, size, target_frames=None, clamp_range=None):
         """Nearest resize of an NHWC image batch, or of NFHWC video (spatially
@@ -312,9 +336,14 @@ class Imagen(nn.Module):
                video_frames=None, cond_video_frames=None, post_cond_video_frames=None,
                cond_scale=1., start_at_unet_number=1, start_image_or_video=None,
                stop_at_unet_number=None, noise_override: Optional[Sequence] = None,
-               generator: Optional[torch.Generator] = None):
+               offload_inactive_unets=False, generator: Optional[torch.Generator] = None):
         """Run the cascade; returns the last stage's NHWC images, or NFHWC
         video of a video cascade, in [0, 1].
+
+        `offload_inactive_unets`: a unet parked off `self.device` (e.g.
+        `imagen.unets[i].to('cpu')`) is copied to the device for its stage
+        only and the copy dropped when the stage ends, so only the active
+        stage's parameters sit on the card (JAX `offload_inactive_unets`).
 
         `cond_video_frames` / `post_cond_video_frames` (b, n, h, w, c) are
         prompt frames that every stage's unet sees before / after the frames
@@ -336,14 +365,14 @@ class Imagen(nn.Module):
             cond_video_frames=cond_video_frames, post_cond_video_frames=post_cond_video_frames,
             cond_scale=cond_scale, start_at_unet_number=start_at_unet_number,
             start_image_or_video=start_image_or_video, stop_at_unet_number=stop_at_unet_number,
-            noise_override=noise_override,
+            noise_override=noise_override, offload_inactive_unets=offload_inactive_unets,
             lowres_sample_noise_level=self.lowres_sample_noise_level, generator=generator)
 
     def _sample_cascade(self, *, text_embeds, text_masks, batch_size, frames, cond_video_frames,
                         post_cond_video_frames, cond_scale, start_at_unet_number,
                         start_image_or_video, stop_at_unet_number, noise_override,
                         lowres_sample_noise_level, generator, return_all_unet_outputs=False,
-                        **stage_options):
+                        offload_inactive_unets=False, **stage_options):
         """The stage loop of `sample`, which the EDM sampler shares: checks the
         text, then for each stage builds the unet's conditioning (text, prompt
         frames, the noised low-res image of the stage before) and calls
@@ -413,11 +442,12 @@ class Imagen(nn.Module):
                     lowres_noise_times=self.lowres_noise_schedule.get_condition(
                         lowres_noise_times))
 
-            img = self._sample_stage(
-                index, batch_size=batch_size, frames=all_frame_dims[index],
-                cond_scale=cond_scale[index],
-                unet_kwargs=unet_kwargs, init_noise=init_noise, step_noises=step_noises,
-                generator=generator, **stage_options)
+            with on_device(unet, device) if offload_inactive_unets else nullcontext():
+                img = self._sample_stage(
+                    index, batch_size=batch_size, frames=all_frame_dims[index],
+                    cond_scale=cond_scale[index],
+                    unet_kwargs=unet_kwargs, init_noise=init_noise, step_noises=step_noises,
+                    generator=generator, **stage_options)
             outputs.append(img)
 
             if exists(stop_at_unet_number) and stop_at_unet_number == unet_number:

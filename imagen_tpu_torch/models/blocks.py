@@ -13,8 +13,9 @@
   in fp32.
 - PixelShuffleUpsample, Downsample and CrossEmbedLayer compute in their plain
   forms (1x1 conv + pixel shuffle, space-to-depth + Linear, per-scale convs +
-  concat); the JAX package's transposed-conv, strided-conv and phase-tiled
-  forms were TPU layout workarounds.
+  concat, or kernel 14 for the stem with `fused_stem`); the JAX package's
+  transposed-conv, strided-conv and phase-tiled forms were TPU layout
+  workarounds.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from imagen_tpu_torch.ops.fused_norm import (
     fused_film_norm,
     layernorm,
 )
+from imagen_tpu_torch.ops.stem_conv import cross_embed_stem, stem_available
 from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
 from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
@@ -512,12 +514,19 @@ class Parallel(nn.Module):
 
 
 class CrossEmbedLayer(nn.Module):
-    """Multi-kernel-size conv, channels split per scale, concatenated."""
+    """Multi-kernel-size conv, channels split per scale, concatenated.
 
-    def __init__(self, dim_in, kernel_sizes, dim_out=None, stride=2, dtype=F32):
+    With `fused_stem`, a stride-1 call whose shape `stem_available` admits
+    runs every scale, the concatenation and the bias as kernel 14
+    (ops/stem_conv.py). The parameters are the same either way."""
+
+    def __init__(self, dim_in, kernel_sizes, dim_out=None, stride=2, dtype=F32,
+                 fused_stem=False):
         super().__init__()
         if not all((k % 2) == (stride % 2) for k in kernel_sizes):
             raise ValueError('kernel sizes must share the stride parity')
+        if fused_stem and stride != 1:
+            raise ValueError('fused_stem takes the stride-1 stem')
         dim_out = default(dim_out, dim_in)
         kernel_sizes = sorted(kernel_sizes)
         num_scales = len(kernel_sizes)
@@ -527,8 +536,16 @@ class CrossEmbedLayer(nn.Module):
             Conv2d(dim_in, dim_scale, kernel, stride=stride,
                    padding=(kernel - stride) // 2, dtype=dtype)
             for kernel, dim_scale in zip(kernel_sizes, dim_scales)])
+        self.kernel_sizes = kernel_sizes
+        self.fused_stem = fused_stem
 
     def forward(self, x):
+        dt = self.convs[0].compute_dtype
+        if self.fused_stem and stem_available(tuple(x.shape), self.kernel_sizes, dt,
+                                              x.device.type):
+            ws = [conv.weight.to(dt).permute(2, 3, 1, 0) for conv in self.convs]
+            bias = torch.cat([conv.bias for conv in self.convs])
+            return cross_embed_stem(x.to(dt), ws, bias)
         return torch.cat([conv(x) for conv in self.convs], dim=-1)
 
 

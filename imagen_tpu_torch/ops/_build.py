@@ -61,6 +61,12 @@ SIGNATURES = {
     'fused_ln_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # x (rows, k), w (n, k), g (n,), y (rows, n), rows, k, n, eps, stream
     'fused_matmul_ln_bf16': (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x (b, H, W, c), packed w, bias (sum d), out (b, H, W, sum d), b, H, W, c,
+    # nscales, k0..k3, d0..d3, stream
+    'cross_embed_stem_bf16': (_P, _P, _P, _P, *(_I,) * 13, _P),
+    # x (b, H, W, cin), packed w, bias (nullable), out (b, cout, H, W), b, H, W, cin,
+    # cout, k, stream
+    'conv2d_same_cf_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

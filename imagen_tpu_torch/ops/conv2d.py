@@ -1,20 +1,27 @@
-"""Stride-1 SAME 3x3 convolution, NHWC: kernel 2 of the port.
+"""Stride-1 SAME convolutions, NHWC input: kernels 6 and 7 of the TPU table.
 
-Counterpart of `conv2d_same` in `imagen_tpu/ops/conv2d.py`. The CUDA kernel
-is `csrc/conv2d_same.cu`; its header says what bounds it on the H100 and how
-its design answers that.
+Counterparts of `conv2d_same` and `conv2d_same_cf` in
+`imagen_tpu/ops/conv2d.py`. The CUDA kernels are `csrc/conv2d_same.cu` and
+`csrc/conv2d_same_cf.cu`; their headers say what bounds each on the H100 and
+how its design answers that.
 
-    x (b, H, W, cin), w (3, 3, cin, cout), bias (cout,) or None -> (b, H, W, cout)
+    conv2d_same:    x (b, H, W, cin), w (3, 3, cin, cout), bias (cout,) or None
+                    -> (b, H, W, cout)
+    conv2d_same_cf: x (b, H, W, cin), w (k, k, cin, cout <= 8), bias (cout,) or None
+                    -> (b, cout, H, W), channel-first
 
-On a CPU tensor `conv2d_same` runs `conv2d_same_reference`, the plain
-PyTorch version (the XLA reference `_xla_reference` of the JAX package). On
-a CUDA tensor it launches the kernel or raises.
+On a CPU tensor each runs its plain PyTorch version (the XLA references
+`_xla_reference` and `_xla_reference_cf` of the JAX package). On a CUDA
+tensor it launches its kernel or raises. No module calls `conv2d_same_cf`,
+as no module of the JAX package does: its gate admits no preset's final
+conv, whose cin is 131 in the SR unets.
 
-When a gradient is wanted the call is an autograd Function whose backward is
-the JAX package's: the linear transposes of the conv in its two factors
+When a gradient is wanted `conv2d_same` is an autograd Function whose
+backward is the JAX package's: the linear transposes of the conv in its two factors
 (`imagen_tpu/ops/conv2d.py` `_bwd`, computed by XLA there, by cuDNN's
 `convolution_backward` here), with no forward recompute, and the bias
-gradient as the sum of the output gradient over (b, H, W).
+gradient as the sum of the output gradient over (b, H, W). `conv2d_same_cf`'s
+backward is the VJP of its plain version (`_bwd_cf`).
 """
 from __future__ import annotations
 
@@ -22,9 +29,12 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
+from imagen_tpu_torch.ops.fused_norm import recomputed_grads
 from imagen_tpu_torch.ops.tensor_utils import wants_grad
 
 KERNEL = 'conv2d_same_3x3_bf16'
+CF_KERNEL = 'conv2d_same_cf_bf16'
+CF_MAX_COUT = 8
 
 
 def conv2d_same_available(x_shape, w_shape, dtype=torch.bfloat16, device_type='cuda'):
@@ -114,3 +124,83 @@ def conv2d_same(x, w, bias):
     if wants_grad(x, w, bias):
         return _Conv2dSame.apply(x, w, bias)
     return _conv_forward(x, w, bias)
+
+
+# --- kernel 7: tiny cout, channel-first output --------------------------------------------
+
+def conv2d_same_cf_available(x_shape, w_shape, dtype=torch.bfloat16, device_type='cuda'):
+    """The shape gate of `conv2d_same_cf_available` in the JAX package: odd
+    square kernels, cin % 128 == 0, W % 128 == 0, H % 8 == 0, cout <= 8,
+    H * W >= 256^2. Its backend, environment and VMEM (`_pick_blocks_cf`)
+    conditions are dropped (the kernel streams cin); on CUDA it takes bf16."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return False
+    _, H, W, cin = x_shape
+    kh, kw, wcin, cout = w_shape
+    if kh != kw or kh % 2 == 0 or wcin != cin:
+        return False
+    if cin % 128 != 0 or W % 128 != 0 or H % 8 != 0:
+        return False
+    if cout > CF_MAX_COUT or H * W < 256 * 256:
+        return False
+    return device_type == 'cpu' or dtype == torch.bfloat16
+
+
+def conv2d_same_cf_reference(x, w, bias):
+    """Plain version (`_xla_reference_cf`): the NHWC conv, channels moved first."""
+    return conv2d_same_reference(x, w, bias).permute(0, 3, 1, 2)
+
+
+def _packed_cf_weights(w):
+    """(k, k, cin, cout) as (ceil(cin / 16), k * k, 8, 16) bf16: per 16-channel
+    chunk and tap, each output's 16 channels, zero past cin and cout."""
+    k, _, cin, cout = w.shape
+    cinp = -(-cin // 16) * 16
+    wp = F.pad(w.to(torch.bfloat16), (0, CF_MAX_COUT - cout, 0, cinp - cin))
+    wp = wp.reshape(k * k, cinp // 16, 16, CF_MAX_COUT).permute(1, 0, 3, 2)
+    return wp.contiguous()
+
+
+def _cf_forward(x, w, bias):
+    if x.device.type == 'cpu':
+        return conv2d_same_cf_reference(x, w, bias)
+    if not x.is_cuda or w.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError('conv2d_same_cf: tensors must share one CUDA device')
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f'conv2d_same_cf kernel takes bf16, got {x.dtype}')
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f'conv2d_same_cf takes 4-D x and w, got {tuple(x.shape)}, '
+                         f'{tuple(w.shape)}')
+    b, H, W, cin = x.shape
+    k, kw, wcin, cout = w.shape
+    if kw != k or k % 2 == 0 or wcin != cin or not 1 <= cout <= CF_MAX_COUT:
+        raise ValueError(f'conv2d_same_cf kernel takes an odd square (k, k, cin, cout <= 8) '
+                         f'weight; got {tuple(w.shape)} for input {tuple(x.shape)}')
+    x = x.contiguous()
+    wp = _packed_cf_weights(w)
+    if bias is not None:
+        bias = bias.to(torch.bfloat16).contiguous()
+    out = torch.empty((b, cout, H, W), dtype=x.dtype, device=x.device)
+    _build.launch(CF_KERNEL, x.data_ptr(), wp.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  b, H, W, cin, cout, k)
+    return out
+
+
+class _Conv2dSameCf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w, bias)
+        return _cf_forward(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recomputed_grads(ctx, conv2d_same_cf_reference, g)
+
+
+def conv2d_same_cf(x, w, bias):
+    """x NHWC (b, H, W, cin), w (k, k, cin, cout <= 8), bias (cout,) or None
+    -> (b, cout, H, W)."""
+    if wants_grad(x, w, bias):
+        return _Conv2dSameCf.apply(x, w, bias)
+    return _cf_forward(x, w, bias)

@@ -45,11 +45,18 @@ def c_in(sigma_data, sigma):
     return 1 * (sigma ** 2 + sigma_data ** 2) ** -0.5
 
 
+def host_float(x):
+    """The numpy type of host-side sigma arithmetic: float64 for a float64
+    sigma or schedule, else float32, as the JAX package's float32 sigmas."""
+    return np.float64 if getattr(x, 'dtype', None) == np.float64 else np.float32
+
+
 def c_noise(sigma):
     """log(sigma) / 4, the log clamped at 1e-12 as the JAX package's."""
     if isinstance(sigma, torch.Tensor):
         return log(sigma) * 0.25
-    return np.log(np.maximum(np.float32(sigma), np.float32(1e-12))) * np.float32(0.25)
+    f = host_float(sigma)
+    return np.log(np.maximum(f(sigma), f(1e-12))) * f(0.25)
 
 
 def sample_schedule(num_sample_steps, rho, sigma_min, sigma_max):
@@ -65,10 +72,10 @@ def sample_schedule(num_sample_steps, rho, sigma_min, sigma_max):
 
 def gammas_for_schedule(sigmas, num_sample_steps, S_churn, S_tmin, S_tmax):
     """Per-step churn factor: min(S_churn / N, sqrt(2) - 1) where S_tmin <=
-    sigma <= S_tmax, else 0 (float32)."""
+    sigma <= S_tmax, else 0, in the schedule's dtype."""
     gamma = min(S_churn / num_sample_steps, 2 ** 0.5 - 1)
     in_range = (sigmas >= S_tmin) & (sigmas <= S_tmax)
-    return np.where(in_range, np.float32(gamma), np.float32(0.)).astype(np.float32)
+    return np.where(in_range, gamma, 0.).astype(sigmas.dtype)
 
 
 def loss_weight(sigma_data, sigma):

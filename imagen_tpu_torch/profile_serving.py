@@ -3,13 +3,18 @@
     python -m imagen_tpu_torch.profile_serving            # 64->256 images
     python -m imagen_tpu_torch.profile_serving --edm      # the same cascade, EDM
     python -m imagen_tpu_torch.profile_serving --video    # 16-frame video
+    python -m imagen_tpu_torch.profile_serving --sr1024   # 256->1024, SRUnet1024
 
 Builds, on one NVIDIA GPU with bf16 compute and random weights from seed 0,
 either paper-preset BaseUnet64 + SRUnet256 with an `ImagenServer` at batch 4
 (a request of 4 prompts; with `--edm` an `ElucidatedImagen` whose unets
 have `fused_film=True`, at `chip_smoke.py`'s EDM steps), or the `Unet3D` of
 `chip_smoke.py`'s video phase (dim 64, mults 1-2-4, 16 frames at 64 px)
-with a server at batch 1 (a request of 1 prompt). Warms the server, then times one request unprofiled, then one
+with a server at batch 1 (a request of 1 prompt), or (`--sr1024`)
+`chip_smoke.py`'s SR-1024 tail, `NullUnet` + `SRUnet1024` with
+`fused_stem=True`, whose request is `Imagen.sample` from
+`start_at_unet_number=2` on a 256 px image, batch 1 (the server takes no
+start image). Warms up, then times one request unprofiled, then one
 under `torch.profiler` (device activity only). Prints both wall times, the summed device time of
 the kernels (and so the device idle share), device time by category (the
 port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies)
@@ -27,10 +32,12 @@ import imagen_tpu_torch as it
 STEPS = (16, 8)  # the steps of chip_smoke.py, cut from (1000, 1000) for time
 EDM_STEPS = (16, 8)  # chip_smoke.py's EDM steps, cut from edm_paper's (64, 32)
 VIDEO_STEPS, VIDEO_FRAMES = 16, 16  # chip_smoke.py's video phase
+SR_STEPS = 8  # chip_smoke.py's SR-1024 steps, cut from the JAX bench's 32
 
 CATEGORIES = (
     ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn',
-                      'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul', 'matmul_ln')),
+                      'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul', 'matmul_ln',
+                      'cross_embed_scale', 'conv2d_same_cf')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),
@@ -89,6 +96,30 @@ def video_server():
                     'batch 1 (2 with CFG)')
 
 
+def sr1024_request():
+    """`chip_smoke.py`'s SR-1024 request: one prompt, a 256 px start image."""
+    sr = it.SRUnet1024(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
+                       lowres_cond=True, fused_stem=True)
+    randomize_final_conv(sr)
+    imagen = it.Imagen((it.NullUnet(), sr), image_sizes=(256, 1024),
+                       timesteps=(2 * SR_STEPS, SR_STEPS), cond_drop_prob=0.1).eval()
+    g = torch.Generator(device='cuda').manual_seed(1234)
+    emb = torch.randn((1, 256, 768), generator=g, device='cuda')
+    start = torch.rand((1, 256, 256, 3), generator=g, device='cuda')
+
+    def request():
+        imagen.sample(text_embeds=emb, cond_scale=3., start_at_unet_number=2,
+                      start_image_or_video=start)
+    request()   # warm-up
+    return request, f'SR-1024 tail, fused_stem, steps {SR_STEPS}, batch 1 (2 with CFG)'
+
+
+def server_request(server, label):
+    g = torch.Generator(device='cuda').manual_seed(1234)
+    emb = torch.randn((server.batch_size, 256, 768), generator=g, device='cuda')
+    return (lambda: server.generate(text_embeds=emb)), label
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     mode = parser.add_mutually_exclusive_group()
@@ -96,21 +127,27 @@ def main():
                       help='profile the 16-frame text-to-video request')
     mode.add_argument('--edm', action='store_true',
                       help='profile the EDM request of the 64->256 cascade with fused_film')
+    mode.add_argument('--sr1024', action='store_true',
+                      help='profile the SR-1024 request (NullUnet + SRUnet1024, fused_stem)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
 
     torch.manual_seed(0)
-    server, label = video_server() if args.video else image_server(edm=args.edm)
-    g = torch.Generator(device='cuda').manual_seed(1234)
-    emb = torch.randn((server.batch_size, 256, 768), generator=g, device='cuda')
+    if args.sr1024:
+        request, label = sr1024_request()
+    else:
+        request, label = server_request(*(video_server() if args.video
+                                          else image_server(edm=args.edm)))
 
     t0 = time.perf_counter()
-    server.generate(text_embeds=emb)
+    request()
+    torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.generate(text_embeds=emb)
+        request()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = [e for e in prof.key_averages() if device_us(e) > 0]

@@ -20,6 +20,7 @@ from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.ops import conv2d as c2d
 from imagen_tpu_torch.ops import flash_attention as fa
 from imagen_tpu_torch.ops import fused_norm as fn
+from imagen_tpu_torch.ops import stem_conv as stem
 from imagen_tpu_torch.ops import temporal_layout as tl
 
 BF16 = torch.bfloat16
@@ -514,3 +515,118 @@ def test_edm_sample_through_the_film_kernel(cuda):
     assert images.shape == (2, 64, 64, 3)
     assert bool(torch.isfinite(images).all()) and images.min() >= 0. and images.max() <= 1.
     assert _build.LAUNCHES[fn.FILM_KERNEL] > before
+
+
+# --- kernel 14 (CrossEmbed stem) and kernel 7 (tiny-cout conv, channel-first out) --------
+
+STEM_CASES = [((2, 1024, 1024, 6), (3, 7, 15), (64, 32, 32)),   # the SR-1024 stem
+              ((2, 36, 100, 3), (3, 7, 15), (20, 10, 10)),      # ragged tiles and chunks
+              ((1, 20, 12, 8), (1, 5), (7, 9))]
+
+
+def _stem_inputs(cuda, shape, ks, ds, seed=20):
+    r = rng(seed)
+    c = shape[-1]
+    x = t(randn(r, *shape)).to(cuda).to(BF16)
+    ws = [t(randn(r, k, k, c, d, scale=(k * k * c) ** -0.5)).to(cuda).to(BF16)
+          for k, d in zip(ks, ds)]
+    return [x, t(randn(r, sum(ds), scale=0.1)).to(cuda).to(BF16), *ws]
+
+
+def _stem_run(x, bias, *ws):
+    return stem.cross_embed_stem(x, list(ws), bias)
+
+
+def _stem_plain(x, bias, *ws):
+    return stem.cross_embed_stem_reference(x, list(ws), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,ks,ds', STEM_CASES)
+def test_stem_kernel_matches_plain(cuda, shape, ks, ds):
+    inputs = _stem_inputs(cuda, shape, ks, ds)
+    _check(_stem_run, _stem_plain, inputs, [x.float() for x in inputs], stem.KERNEL)
+
+
+CF_CASES = [((2, 1024, 1024, 131), 3, 3), ((2, 1024, 1024, 128), 3, 3),
+            ((1, 37, 100, 131), 5, 3), ((1, 20, 30, 40), 8, 5)]
+
+
+def _cf_inputs(cuda, shape, cout, k, seed=21):
+    r = rng(seed)
+    cin = shape[-1]
+    return [t(randn(r, *shape)).to(cuda).to(BF16),
+            t(randn(r, k, k, cin, cout, scale=(k * k * cin) ** -0.5)).to(cuda).to(BF16),
+            t(randn(r, cout, scale=0.1)).to(cuda).to(BF16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout,k', CF_CASES)
+def test_cf_conv_kernel_matches_plain(cuda, shape, cout, k):
+    inputs = _cf_inputs(cuda, shape, cout, k)
+    _check(c2d.conv2d_same_cf, c2d.conv2d_same_cf_reference, inputs,
+           [x.float() for x in inputs], c2d.CF_KERNEL)
+    x, w, _ = inputs   # no bias
+    _check(lambda x, w: c2d.conv2d_same_cf(x, w, None),
+           lambda x, w: c2d.conv2d_same_cf_reference(x, w, None), (x, w),
+           (x.float(), w.float()), c2d.CF_KERNEL)
+
+
+@pytest.mark.cuda
+def test_stem_and_cf_function_gradients_match_plain(cuda):
+    _check_grads(_stem_run, _stem_plain, _stem_inputs(cuda, (2, 64, 64, 6), (3, 7, 15),
+                                                      (16, 8, 8)), stem.KERNEL)
+    _check_grads(c2d.conv2d_same_cf, c2d.conv2d_same_cf_reference,
+                 _cf_inputs(cuda, (2, 64, 128, 131), 3, 3), c2d.CF_KERNEL)
+
+
+@pytest.mark.cuda
+def test_stem_and_cf_wrappers_raise_on_wrong_dtype_or_device(cuda):
+    x, bias, *ws = _stem_inputs(cuda, (1, 16, 16, 6), (3, 7, 15), (8, 4, 4))
+    with pytest.raises(TypeError):
+        stem.cross_embed_stem(x.float(), ws, bias)
+    with pytest.raises(ValueError):
+        stem.cross_embed_stem(x, [w.cpu() for w in ws], bias)
+    with pytest.raises(ValueError):   # a kernel past the shared-memory limit
+        stem.cross_embed_stem(x, [ws[0], t(randn(rng(1), 17, 17, 6, 4)).to(cuda).to(BF16)],
+                              bias[:12])
+    x, w, b = _cf_inputs(cuda, (1, 16, 16, 32), 3, 3)
+    with pytest.raises(TypeError):
+        c2d.conv2d_same_cf(x.float(), w, b)
+    with pytest.raises(ValueError):
+        c2d.conv2d_same_cf(x, w.cpu(), b)
+    with pytest.raises(ValueError):   # cout past 8
+        c2d.conv2d_same_cf(x, torch.zeros((3, 3, 32, 9), device=cuda, dtype=BF16), None)
+
+
+@pytest.mark.cuda
+def test_offloaded_sr_cascade_samples_through_the_stem_kernel(cuda):
+    """A small bf16 NullUnet -> SR cascade with `fused_stem=True`, the SR unet
+    parked on the host: sampled from `start_at_unet_number=2` with
+    `offload_inactive_unets`, it gives the sample of the unet on the card,
+    through kernel 14, and the unet is back on the host after."""
+    torch.manual_seed(0)
+    cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=False,
+               layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
+               text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
+               memory_efficient=True, fused_stem=True, dtype=BF16, device=cuda)
+    imagen = it.Imagen((it.NullUnet(device=cuda), it.Unet(**cfg, lowres_cond=True)),
+                       image_sizes=(32, 64), text_embed_dim=64, timesteps=(4, 3),
+                       device=cuda).eval()
+    with torch.no_grad():
+        imagen.unets[1].final_conv.weight.normal_(0., 0.02)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    emb = torch.randn((2, 16, 64), generator=g, device=cuda)
+    start = torch.rand((2, 32, 32, 3), generator=g, device=cuda)
+    kw = dict(text_embeds=emb, cond_scale=3., start_at_unet_number=2, start_image_or_video=start)
+    before = _build.LAUNCHES[stem.KERNEL]
+    on_card = imagen.sample(**kw, generator=torch.Generator(device=cuda).manual_seed(2))
+    assert _build.LAUNCHES[stem.KERNEL] - before == 3   # one per step
+    imagen.unets[1].to('cpu')
+    assert imagen.device.type == 'cuda'
+    offloaded = imagen.sample(**kw, offload_inactive_unets=True,
+                              generator=torch.Generator(device=cuda).manual_seed(2))
+    torch.cuda.synchronize()
+    assert all(p.device.type == 'cpu' for p in imagen.unets[1].parameters())
+    assert on_card.shape == (2, 64, 64, 3) and bool(torch.isfinite(on_card).all())
+    assert torch.equal(on_card, offloaded)

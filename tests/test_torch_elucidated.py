@@ -6,7 +6,8 @@ SR configs, 3 + 2 steps, S_churn 80, cond_scale 3, dynamic thresholding,
 low-res noise augmentation) sampled by JAX with `noise_override` {'init',
 'eps'} and by the port with the same draws plus the low-res augmentation
 draw recomputed as JAX makes it, each stage to 1e-2 from the same input;
-the same with per-call sigma_min/sigma_max and `stop_at_unet_number`; a one-stage dim-128 cascade
+the same with per-call sigma_min/sigma_max and `stop_at_unet_number`; the
+whole cascade end to end in float64 on both sides to 1e-6; a one-stage dim-128 cascade
 with `fused_film=True` against JAX under `IMAGEN_TPU_FUSED_FILM=1`; the
 server around the EDM class; and what is not ported raising.
 """
@@ -19,11 +20,13 @@ import torch
 from torch_port_bridge import BASE_CFG, SR_CFG, jparams, load_into, max_abs, randn, \
     random_params, rng, t
 
+import imagen_tpu.ops.attention as jattn
 import imagen_tpu.ops.edm_math as jem
 from imagen_tpu.diffusion.elucidated import ElucidatedImagen as JElucidated
 from imagen_tpu.models.unet2d import Unet as JUnet
 
 import imagen_tpu_torch as it
+from imagen_tpu_torch.ops import attention as tattn
 from imagen_tpu_torch.ops import edm_math as em
 
 SIZES, STEPS = (16, 32), (3, 2)
@@ -129,10 +132,10 @@ def _port_override(noise, lowres=None):
 def test_cascade_samples_match_jax(cascades):
     """Each stage from the same input: stage 1 of the whole cascade, and stage
     2 started from JAX's stage-1 image. The two packages' fp32 roundings
-    leave stage 1 about 1.6e-3 apart (the port's own fp32 and fp64 samples
-    are as far apart), and the random SR stage at cond_scale 3 amplifies an
-    input difference about 30-fold, so the cascade's end is not held to
-    1e-2 through stage 1's rounding."""
+    leave stage 1 about 1.5e-3 apart, and the random SR stage at cond_scale
+    3 amplifies that to 5e-2 at the cascade's end, so the end is not held to
+    1e-2 through stage 1's rounding; the float64 test below shows that gap
+    is rounding alone."""
     jimagen, params, timagen = cascades
     emb, mask = _text(52)
     noise = _noise(53)
@@ -147,6 +150,67 @@ def test_cascade_samples_match_jax(cascades):
                         start_image_or_video=t(np.asarray(ref[0])))
     assert up.shape == (2, SIZES[1], SIZES[1], 3)
     assert max_abs(up, ref[1]) <= 1e-2
+
+
+def _softmax_in_input_dtype(monkeypatch):
+    """Both packages take the attention softmax in fp32 whatever the input
+    dtype; for a float64 run it keeps float64 on both sides."""
+    def jax_softmax(sim, mask=None, null_tokens=0):
+        if mask is not None:
+            mask = jnp.pad(mask, ((0, 0), (null_tokens, 0)), constant_values=True)
+            sim = jnp.where(mask[:, None, None, :], sim, -jnp.finfo(sim.dtype).max)
+        return jax.nn.softmax(sim, axis=-1)
+
+    def torch_softmax(sim, mask=None, null_tokens=0):
+        if mask is not None:
+            mask = torch.nn.functional.pad(mask, (null_tokens, 0), value=True)
+            sim = sim.masked_fill(~mask[:, None, None, :], -torch.finfo(sim.dtype).max)
+        return torch.softmax(sim, dim=-1)
+
+    monkeypatch.setattr(jattn, '_masked_softmax_fp32', jax_softmax)
+    monkeypatch.setattr(tattn, '_masked_softmax_fp32', torch_softmax)
+
+
+def test_cascade_end_to_end_in_float64_matches_jax(cascades, monkeypatch):
+    """The whole cascade, stage 2 from each package's own stage 1, in float64
+    on both sides (float64 weights, compute, noise and softmax; the same
+    float32 sigma schedule, as float64, on both sides). The packages then
+    agree to 1e-11, where in fp32 the samples end 5e-2 apart: the gap of the
+    fp32 run is rounding that the random SR stage amplifies, not a different
+    op."""
+    _, params, _ = cascades
+    _softmax_in_input_dtype(monkeypatch)
+    schedule = em.sample_schedule
+    monkeypatch.setattr(em, 'sample_schedule',
+                        lambda *a: schedule(*a).astype(np.float64))
+    emb, mask = _text(52)
+    noise = _noise(53)
+    kw = dict(image_sizes=SIZES, text_embed_dim=16, num_sample_steps=STEPS, cond_drop_prob=0.1)
+    key = jax.random.PRNGKey(0)
+    with jax.enable_x64(True):
+        junets = (JUnet(**BASE_CFG, dtype=jnp.float64), JUnet(**SR_CFG, dtype=jnp.float64))
+        jimagen = JElucidated(unets=junets, **kw)
+        jimagen.sample_schedule = lambda *a: jnp.asarray(em.sample_schedule(*a))
+        f64 = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+        ref = jimagen.sample(
+            tuple({'params': jax.tree_util.tree_map(f64, p)} for p in params), key,
+            text_embeds=f64(emb), text_masks=jnp.asarray(mask), cond_scale=3.,
+            use_tqdm=False, noise_override=[{k: f64(v) for k, v in n.items()} for n in noise],
+            return_all_unet_outputs=True)
+        lowres = np.asarray(jax.random.normal(jax.random.fold_in(key, 1000 + 1),
+                                              (2, SIZES[1], SIZES[1], 3)))
+    assert lowres.dtype == np.float64
+    tunets = [load_into(it.Unet(**cfg, dtype=torch.float64, device='cpu'), p).double()
+              for cfg, p in zip((BASE_CFG, SR_CFG), params)]
+    timagen = it.ElucidatedImagen(tunets, **kw, device='cpu')
+    override = [{k: torch.from_numpy(v.astype(np.float64)) for k, v in n.items()} for n in noise]
+    override[1]['lowres'] = torch.from_numpy(lowres.copy())
+    low, up = timagen.sample(text_embeds=torch.from_numpy(emb.astype(np.float64)),
+                             text_masks=t(mask), cond_scale=3., noise_override=override,
+                             return_all_unet_outputs=True)
+    assert up.dtype == torch.float64 and up.shape == (2, SIZES[1], SIZES[1], 3)
+    assert max_abs(low, ref[0]) <= 1e-6
+    assert max_abs(up, ref[1]) <= 1e-6
 
 
 def test_sigma_overrides_and_stop_match_jax(cascades):
@@ -220,7 +284,7 @@ def test_what_is_not_ported_raises(cascades):
     for kw in (dict(texts=['a prompt']), dict(init_images=torch.zeros(2, 16, 16, 3)),
                dict(skip_steps=1), dict(inpaint_images=torch.zeros(2, 16, 16, 3),
                                         inpaint_masks=torch.ones(2, 16, 16, dtype=torch.bool)),
-               dict(return_pil_images=True), dict(offload_inactive_unets=True),
+               dict(return_pil_images=True),
                dict(noise_override=[{'repaint': torch.zeros(1)}, None])):
         with pytest.raises(NotImplementedError):
             timagen.sample(text_embeds=emb, **kw)
