@@ -23,10 +23,10 @@ parameters and random weights from a seed:
   hooks that count the fused norm calls; the same hooks record the shapes
   of the LayerNorm and attention-projection sites, where kernels 9 and 11
   (wired nowhere, as in the JAX package) would run; then three requests
-  each with kernel 8 on and off on the same weights, in turns;
+  each with kernel 8 on and off on the same weights, in turns, and two
+  each with kernel 14 on and off (its gate closed);
 - SR-1024 serving: the JAX bench's `sr1024_paper` (BASELINE config 4),
-  `NullUnet` + `SRUnet1024` at 256 -> 1024 built with `fused_stem=True`
-  (kernel 14 at the stem), `Imagen.sample` from `start_at_unet_number=2`
+  `NullUnet` + `SRUnet1024` at 256 -> 1024, `Imagen.sample` from `start_at_unet_number=2`
   with a seeded 256 px start image, batch 1 (2 with CFG), cond_scale 3,
   SR_STEPS steps; one warm-up, then three requests (kernels 14, 6, the
   flash forward at `mid_attn` and the feedforward in the Perceiver lie on
@@ -36,11 +36,14 @@ parameters and random weights from a seed:
   the final conv's input, where kernel 7 (wired nowhere, as in the JAX
   package) would run; the device FLOPs of one forward from
   `torch.utils.flop_counter`; then two request pairs with kernel 14 on and
-  off on the same weights, in turns.
+  off (its gate closed) on the same weights, in turns.
+Every path's cross-embed stem runs kernel 14: its gate admits the stem of
+every U-Net above.
 The launch counts are set to 0 just before each path and read just after.
 Then it holds each hand-written kernel, at every shape the paths launched
 it at (kernels 9, 11 and 7 at every recorded site shape; kernel 7 also at
-the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits), against its plain
+the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, logged and
+weighted by nothing), against its plain
 PyTorch version, and a small bf16 U-Net and a small bf16 Unet3D that reach
 every kernel of the paths against the same nets on the plain path, outputs
 and gradients, both measured against fp32.
@@ -64,7 +67,8 @@ In the kernel line, `launches` is the sum over the paths (split in
 `launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
 times at each launched shape times that shape's launches in the paths,
 summed (for kernels 9, 11 and 7, `on_path` false, times that shape's site
-count, `sites`, since they launch nowhere on a path). `bound_ms` is the
+count, `sites`, keyed by the path that recorded them, since they launch
+nowhere on a path). `bound_ms` is the
 least time the H100 could take for that work, the
 larger of its operations at the dense bf16 peak and its bytes (each input
 read once, each output written once) at the HBM rate; `bound_by` says which of
@@ -154,18 +158,20 @@ KERNEL_INFO = {
         source='imagen_tpu_torch/csrc/conv2d_same_cf.cu',
         replaces='imagen_tpu/ops/conv2d.py:403', device_kernel='conv2d_same_cf_kernel'),
 }
+STEM_KERNEL = 'cross_embed_stem_bf16'   # every path's stem: its gate admits them all
 IMAGE_KERNELS = ('flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', 'conv2d_same_3x3_bf16',
-                 'fused_feedforward_bf16')
+                 'fused_feedforward_bf16', STEM_KERNEL)
 VIDEO_KERNELS = ('temporal_attn_fwd_bf16', 'ln_transpose_bf16', 'norm_untranspose_bf16')
 FILM_KERNEL = 'fused_film_norm_bf16'
-STEM_KERNEL = 'cross_embed_stem_bf16'
 CF_KERNEL = 'conv2d_same_cf_bf16'
 # kernels 9 and 11: wired nowhere (as in the JAX package), held at the EDM
 # path's LayerNorm and attention-projection sites, which hooks record;
 # kernel 7 likewise at the SR-1024 path's final conv
 NORM_UNWIRED = ('fused_layernorm_bf16', 'fused_ln_matmul_bf16', 'fused_matmul_ln_bf16')
 UNWIRED = (*NORM_UNWIRED, CF_KERNEL)
-CF_JAX_GATE_SHAPE = (2, 1024, 1024, 128, 3, 3)   # the nearest final conv the JAX gate admits
+# measured and logged beside the launched and recorded shapes, weighted by
+# nothing: the nearest final conv that the JAX gate admits
+LOG_ONLY_SHAPES = {CF_KERNEL: ((2, 1024, 1024, 128, 3, 3),)}
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving')
 
 
@@ -297,7 +303,7 @@ def phase_serving(torch, it, build, results):
             log(f'request {i}: n={emb.shape[0]} latency {lat:.3f} s shape {images.shape} '
                 f'finite {finite} in [0,1] {in_range} -> {"ok" if good else "FAIL"}')
     ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
-                                  'fused_feedforward_bf16'], 'serving')
+                                  'fused_feedforward_bf16', STEM_KERNEL], 'serving')
     log(f'serving: peak memory allocated during the requests: '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     results['counts']['serving'] = counts
@@ -445,7 +451,8 @@ def phase_video(torch, it, build, results):
                 f'in [0,1] {in_range} peak allocated '
                 f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
                 f'-> {"ok" if good else "FAIL"}')
-    ok &= check_launched(counts, ['temporal_attn_fwd_bf16', 'flash_rows_fwd_bf16'], 'video')
+    ok &= check_launched(counts, ['temporal_attn_fwd_bf16', 'flash_rows_fwd_bf16', STEM_KERNEL],
+                         'video')
     expected = VIDEO_TEMPORAL_SITES * VIDEO_STEPS * len(requests)
     per_step = counts['temporal_attn_fwd_bf16'] == expected
     ok &= per_step
@@ -499,8 +506,8 @@ def phase_video_training(torch, it, build, results):
     finally:
         for h in handles:
             h.remove()
-    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS],
-                         'video_training')
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS,
+                                  STEM_KERNEL], 'video_training')
     expected = sum(calls.values())
     sites = {shape: n // TRAIN_STEPS for shape, n in sorted(calls.items())}
     for name in ('ln_transpose_bf16', 'norm_untranspose_bf16'):
@@ -631,7 +638,7 @@ def phase_edm_serving(torch, it, build, results):
         for h in handles:
             h.remove()
     ok &= check_launched(counts, [FILM_KERNEL, 'flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
-                                  'fused_feedforward_bf16'], 'edm_serving')
+                                  'fused_feedforward_bf16', STEM_KERNEL], 'edm_serving')
     forwards = [2 * n - 1 for n in EDM_STEPS]
     per_forward = {i: film_calls[i] / (forwards[i] * len(requests)) for i in range(2)}
     expected = sum(film_calls.values())
@@ -661,6 +668,18 @@ def phase_edm_serving(torch, it, build, results):
     log(f'edm_serving A/B: fused_film on {[round(x, 3) for x in lats[True]]} s, off '
         f'{[round(x, 3) for x in lats[False]]} s per request of {emb.shape[0]}; max |on - off| '
         f'of the images {float(abs(outputs[True] - outputs[False]).max()):.3e}')
+
+    # kernel 14 on and off (its gate closed) on the same weights, in turns, kernel 8 on
+    outputs, lats = {}, defaultdict(list)
+    for on in (True, False, False, True):
+        with open_or_closed(on, 'stem_available'):
+            good, outputs[on], lat = edm_request(torch, server, emb, mask,
+                                                 f'edm A/B stem kernel={on}')
+        ok &= good
+        lats[on].append(lat)
+    log(f'edm_serving A/B: stem kernel on {[round(x, 3) for x in lats[True]]} s, off '
+        f'{[round(x, 3) for x in lats[False]]} s per request of {emb.shape[0]}; max |on - off| '
+        f'of the images {float(abs(outputs[True] - outputs[False]).max()):.3e}')
     return ok
 
 
@@ -668,8 +687,8 @@ def phase_edm_serving(torch, it, build, results):
 
 def sr1024_hooks(unet):
     """Forward pre-hooks, while the requests run, that count the calls taking
-    kernel 14 (a `CrossEmbedLayer` with `fused_stem` whose gate admits the
-    input) and kernel 6 (a `SameConv3x3` whose gate admits it): the
+    kernel 14 (a stride-1 `CrossEmbedLayer` whose gate admits the input)
+    and kernel 6 (a `SameConv3x3` whose gate admits it): the
     expected launches, read from the built net. A hook also records the
     final conv's input as kernel 7's arguments (b, H, W, cin, cout, k).
     Returns (calls, final-conv sites, handles)."""
@@ -680,8 +699,8 @@ def sr1024_hooks(unet):
 
     def stem_hook(module, args):
         x = args[0]
-        if module.fused_stem and stem_available(tuple(x.shape), module.kernel_sizes,
-                                                module.convs[0].compute_dtype, x.device.type):
+        if module.stride == 1 and stem_available(tuple(x.shape), module.kernel_sizes,
+                                                 module.convs[0].compute_dtype, x.device.type):
             calls[STEM_KERNEL] += 1
 
     def conv_hook(module, args):
@@ -719,34 +738,25 @@ def sr1024_request(torch, imagen, emb, mask, start, label):
     return good, images, lat
 
 
-def set_fused_stem(unet, on):
-    """Turn kernel 14 on or off in every CrossEmbedLayer of `unet` (the weights stay)."""
-    from imagen_tpu_torch.models.blocks import CrossEmbedLayer
-    for m in unet.modules():
-        if isinstance(m, CrossEmbedLayer):
-            m.fused_stem = on
-
-
 def phase_sr1024_serving(torch, it, build, results):
     """The JAX bench's `sr1024_paper` (`bench.py:124-127`, `:442-445`):
-    `NullUnet` + `SRUnet1024` at paper widths with `fused_stem=True`,
+    `NullUnet` + `SRUnet1024` at paper widths, its stem on kernel 14,
     sampled from `start_at_unet_number=2` on a seeded 256 px image, batch 1
     (2 with CFG), cond_scale 3, SR_STEPS steps; then the same weights with
-    kernel 14 on and off in turns."""
+    kernel 14 on and off (its gate closed) in turns."""
     from torch.utils.flop_counter import FlopCounterMode
     bf16 = torch.bfloat16
     torch.manual_seed(60)
     t0 = time.perf_counter()
     # lowres_cond as the cascade casts the second stage, built once
-    sr = it.SRUnet1024(dtype=bf16, text_embed_dim=768, max_text_len=256, lowres_cond=True,
-                       fused_stem=True)
+    sr = it.SRUnet1024(dtype=bf16, text_embed_dim=768, max_text_len=256, lowres_cond=True)
     randomize_final_conv(sr, 61)
     imagen = it.Imagen((it.NullUnet(), sr), image_sizes=(256, 1024),
                        timesteps=(2 * SR_STEPS, SR_STEPS), cond_drop_prob=0.1).eval()
     unet = imagen.unets[1]
     torch.cuda.synchronize()
     log(f'sr1024_serving: NullUnet + SRUnet1024 {sum(p.numel() for p in unet.parameters()) / 1e9:.3f}'
-        f' B params (fused_stem), built in {time.perf_counter() - t0:.1f} s; steps {SR_STEPS}, '
+        f' B params, built in {time.perf_counter() - t0:.1f} s; steps {SR_STEPS}, '
         f'batch 1 (2 with CFG), cond_scale 3')
 
     g = torch.Generator(device='cuda').manual_seed(6060)
@@ -773,10 +783,9 @@ def phase_sr1024_serving(torch, it, build, results):
             f'({calls[name] / (3 * SR_STEPS):g} a forward x {SR_STEPS} steps x 3 requests) '
             f'-> {"ok" if exact else "FAIL"}')
     log(f'sr1024_serving: {CF_KERNEL} site (no launch: wired nowhere, as in JAX) '
-        f'{dict(final_sites)}; also held at the JAX-gate shape {CF_JAX_GATE_SHAPE}')
+        f'{dict(final_sites)}; also held at the JAX-gate shape {LOG_ONLY_SHAPES[CF_KERNEL]}')
     results['counts']['sr1024_serving'] = counts
     results['sites']['sr1024_serving'] = {CF_KERNEL: final_sites}
-    results['sites']['jax_gate_shape'] = {CF_KERNEL: Counter({CF_JAX_GATE_SHAPE: 0})}
 
     # the device FLOPs of one CFG-doubled forward, on the plain route (the
     # counter sees aten ops, not the kernels' launches; the function is the same)
@@ -791,16 +800,15 @@ def phase_sr1024_serving(torch, it, build, results):
     del x
     free_cuda()
 
-    # kernel 14 on and off on the same weights, in turns
+    # kernel 14 on and off (its gate closed) on the same weights, in turns
     outputs, lats = {}, defaultdict(list)
     for on in (True, False, False, True):
-        set_fused_stem(unet, on)
-        good, outputs[on], lat = sr1024_request(torch, imagen, emb, mask, start,
-                                                f'sr1024 A/B fused_stem={on}')
+        with open_or_closed(on, 'stem_available'):
+            good, outputs[on], lat = sr1024_request(torch, imagen, emb, mask, start,
+                                                    f'sr1024 A/B stem kernel={on}')
         ok &= good
         lats[on].append(lat)
-    set_fused_stem(unet, True)
-    log(f'sr1024_serving A/B: fused_stem on {[round(v, 3) for v in lats[True]]} s, off '
+    log(f'sr1024_serving A/B: stem kernel on {[round(v, 3) for v in lats[True]]} s, off '
         f'{[round(v, 3) for v in lats[False]]} s; max |on - off| of the images '
         f'{float((outputs[True] - outputs[False]).abs().max()):.3e}; '
         f'achieved {flops * SR_STEPS / min(lats[True]) / 1e12:.1f} TFLOP/s at the fastest on')
@@ -1078,6 +1086,8 @@ def phase_kernels(torch, results):
         for path, sites in results['sites'].items():
             for dims, count in sites.get(name, {}).items():
                 by_dims[dims][f'{path} sites'] += count
+        for dims in LOG_ONLY_SHAPES.get(name, ()):
+            by_dims[dims]['log only'] += 0
         for dims, counts in sorted(by_dims.items()):
             count = sum(counts.values())
             kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
@@ -1152,18 +1162,22 @@ def phase_kernels(torch, results):
 
 # --- small nets on both paths ----------------------------------------------------------
 
+GATES = ('blocks.conv2d_same_available', 'blocks.fused_feedforward_available',
+         'blocks.fused_film_available', 'blocks.stem_available',
+         'attention.flash_attention_available', 'video_blocks.flash_attention_available',
+         'video_blocks.grouped_temporal_available', 'video_blocks.temporal_layout_available')
+
+
 @contextmanager
-def plain_path():
-    """Every kernel gate closed: the nets run their plain PyTorch path."""
-    from imagen_tpu_torch.models import blocks
-    from imagen_tpu_torch.models import video_blocks
-    import imagen_tpu_torch.ops.attention as attn
-    saved = [(m, n, getattr(m, n)) for m, n in (
-        (blocks, 'conv2d_same_available'), (blocks, 'fused_feedforward_available'),
-        (blocks, 'fused_film_available'), (blocks, 'stem_available'),
-        (attn, 'flash_attention_available'), (video_blocks, 'flash_attention_available'),
-        (video_blocks, 'grouped_temporal_available'),
-        (video_blocks, 'temporal_layout_available'))]
+def open_or_closed(is_open, *names):
+    """With `is_open` false, the named kernel gates (of `GATES`, by the name
+    after the module) closed, so the nets take those sites' plain PyTorch
+    path; with it true, nothing changed."""
+    from imagen_tpu_torch.models import blocks, video_blocks
+    import imagen_tpu_torch.ops.attention as attention
+    modules = dict(blocks=blocks, video_blocks=video_blocks, attention=attention)
+    gates = [g.split('.') for g in GATES if g.split('.')[1] in names]
+    saved = [] if is_open else [(modules[m], n, getattr(modules[m], n)) for m, n in gates]
     try:
         for m, n, _ in saved:
             setattr(m, n, lambda *a, **k: False)
@@ -1171,6 +1185,11 @@ def plain_path():
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
+
+
+def plain_path():
+    """Every kernel gate closed: the nets run their plain PyTorch path."""
+    return open_or_closed(False, *{g.split('.')[1] for g in GATES})
 
 
 def held_to_fp32(torch, label, ref, fast, x, t, emb, kernels):
@@ -1215,22 +1234,22 @@ def held_to_fp32(torch, label, ref, fast, x, t, emb, kernels):
 
 
 def phase_small_unet(torch, it):
-    """A small bf16 U-Net with `fused_film=True` and `fused_stem=True` that
+    """A small bf16 U-Net with `fused_film=True` that
     reaches every 2D kernel of the paths (128x128 input, 128 channels,
-    attention at 64x64), kernel 8 at every Block (c 128, 256, 384) and
-    kernel 14 at the stem."""
+    attention at 64x64, kernel 14 at the stem) and kernel 8 at every Block
+    (c 128, 256, 384)."""
     torch.manual_seed(3)
     cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
                layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
                text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
-               fused_film=True, fused_stem=True)
+               fused_film=True)
     g = torch.Generator(device='cuda').manual_seed(5)
     x = torch.randn((2, 128, 128, 3), generator=g, device='cuda')
     t = torch.rand((2,), generator=g, device='cuda')
     emb = torch.randn((2, 16, 64), generator=g, device='cuda')
     return held_to_fp32(torch, 'small unet (b2 128x128, dim 128)', it.Unet(**cfg).eval(),
                         it.Unet(**cfg, dtype=torch.bfloat16).eval(), x, t, emb,
-                        [*IMAGE_KERNELS, FILM_KERNEL, STEM_KERNEL])
+                        [*IMAGE_KERNELS, FILM_KERNEL])
 
 
 def phase_small_unet3d(torch, it):
@@ -1250,7 +1269,8 @@ def phase_small_unet3d(torch, it):
     return held_to_fp32(torch, 'small Unet3D (b2 8x32x32, dim 64, fused temporal norms)',
                         it.Unet3D(**cfg).eval(),
                         it.Unet3D(**cfg, dtype=torch.bfloat16).eval(), x, t, emb,
-                        ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS])
+                        ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS,
+                         STEM_KERNEL])
 
 
 def main():

@@ -13,7 +13,7 @@
   in fp32.
 - PixelShuffleUpsample, Downsample and CrossEmbedLayer compute in their plain
   forms (1x1 conv + pixel shuffle, space-to-depth + Linear, per-scale convs +
-  concat, or kernel 14 for the stem with `fused_stem`); the JAX package's
+  concat, or kernel 14 for a stem its gate admits); the JAX package's
   transposed-conv, strided-conv and phase-tiled forms were TPU layout
   workarounds.
 """
@@ -34,9 +34,9 @@ from imagen_tpu_torch.ops.fused_norm import (
     fused_film_norm,
     layernorm,
 )
-from imagen_tpu_torch.ops.stem_conv import cross_embed_stem, stem_available
+from imagen_tpu_torch.ops.stem_conv import cross_embed_stem, pack_stem_weights, stem_available
 from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
-from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to
+from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to, wants_grad
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
 F32 = torch.float32
@@ -516,17 +516,15 @@ class Parallel(nn.Module):
 class CrossEmbedLayer(nn.Module):
     """Multi-kernel-size conv, channels split per scale, concatenated.
 
-    With `fused_stem`, a stride-1 call whose shape `stem_available` admits
-    runs every scale, the concatenation and the bias as kernel 14
-    (ops/stem_conv.py). The parameters are the same either way."""
+    A stride-1 call whose shape `stem_available` admits runs every scale,
+    the concatenation and the bias as kernel 14 (ops/stem_conv.py); the
+    parameters are the same either way. Without a gradient the kernel's
+    packed weights are kept until a parameter changes or the layer moves."""
 
-    def __init__(self, dim_in, kernel_sizes, dim_out=None, stride=2, dtype=F32,
-                 fused_stem=False):
+    def __init__(self, dim_in, kernel_sizes, dim_out=None, stride=2, dtype=F32):
         super().__init__()
         if not all((k % 2) == (stride % 2) for k in kernel_sizes):
             raise ValueError('kernel sizes must share the stride parity')
-        if fused_stem and stride != 1:
-            raise ValueError('fused_stem takes the stride-1 stem')
         dim_out = default(dim_out, dim_in)
         kernel_sizes = sorted(kernel_sizes)
         num_scales = len(kernel_sizes)
@@ -537,15 +535,43 @@ class CrossEmbedLayer(nn.Module):
                    padding=(kernel - stride) // 2, dtype=dtype)
             for kernel, dim_scale in zip(kernel_sizes, dim_scales)])
         self.kernel_sizes = kernel_sizes
-        self.fused_stem = fused_stem
+        self.stride = stride
+        self._stem_cache = None   # (parameters, their stamps, stem_conv arguments)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._stem_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _stem_args(self, dt):
+        """The kernel's (k, k, c, d) weights in `dt` and the concatenated bias;
+        a unit-time video weight (O, I, 1, k, k) is read as (O, I, k, k)."""
+        ws = [conv.weight.reshape(*conv.weight.shape[:2], k, k).to(dt).permute(2, 3, 1, 0)
+              for conv, k in zip(self.convs, self.kernel_sizes)]
+        return ws, torch.cat([conv.bias for conv in self.convs])
+
+    def _cached_stem_args(self, dt, device_type):
+        """`_stem_args` and the packed weights, made again when a parameter is
+        replaced, changed in place (its version) or given new data (its
+        pointer); a change made through `.data` in place is not seen."""
+        params = list(self.parameters())
+        stamp = [(p._version, p.data_ptr()) for p in params]
+        cached = self._stem_cache
+        if (cached is None or cached[1] != stamp
+                or any(p is not q for p, q in zip(cached[0], params))):
+            ws, bias = self._stem_args(dt)
+            packed = pack_stem_weights(ws) if device_type == 'cuda' else None
+            self._stem_cache = cached = (params, stamp, (ws, bias.to(dt), packed))
+        return cached[2]
 
     def forward(self, x):
         dt = self.convs[0].compute_dtype
-        if self.fused_stem and stem_available(tuple(x.shape), self.kernel_sizes, dt,
-                                              x.device.type):
-            ws = [conv.weight.to(dt).permute(2, 3, 1, 0) for conv in self.convs]
-            bias = torch.cat([conv.bias for conv in self.convs])
-            return cross_embed_stem(x.to(dt), ws, bias)
+        if self.stride == 1 and stem_available(tuple(x.shape), self.kernel_sizes, dt,
+                                               x.device.type):
+            x = x.to(dt)
+            if wants_grad(x, *self.parameters()):
+                return cross_embed_stem(x, *self._stem_args(dt))
+            ws, bias, packed = self._cached_stem_args(dt, x.device.type)
+            return cross_embed_stem(x, ws, bias, packed=packed)
         return torch.cat([conv(x) for conv in self.convs], dim=-1)
 
 

@@ -184,10 +184,7 @@ class Unet(ConditionedUnet):
 
     `fused_film` is the JAX `IMAGEN_TPU_FUSED_FILM=1` carried as a keyword:
     every 2-D `Block` whose shape the gate admits runs its norm -> FiLM ->
-    SiLU prologue as kernel 8. Off by default, as the JAX switch is.
-    `fused_stem` routes the cross-embed `init_conv` through kernel 14 where
-    its gate admits the input; off by default, as the JAX package leaves
-    that kernel unwired."""
+    SiLU prologue as kernel 8. Off by default, as the JAX switch is."""
 
     def __init__(
         self,
@@ -238,7 +235,6 @@ class Unet(ConditionedUnet):
         combine_upsample_fmaps=False,
         pixel_shuffle_upsample=True,
         fused_film=False,
-        fused_stem=False,
         dtype=F32,
         device=None,
     ):
@@ -285,8 +281,7 @@ class Unet(ConditionedUnet):
             init_channels = channels * (1 + int(lowres_cond))
             if init_cross_embed:
                 self.init_conv = CrossEmbedLayer(init_channels, init_cross_embed_kernel_sizes,
-                                                 dim_out=init_dim, stride=1, dtype=dtype,
-                                                 fused_stem=fused_stem)
+                                                 dim_out=init_dim, stride=1, dtype=dtype)
             else:
                 k = init_conv_kernel_size
                 self.init_conv = Conv2d(init_channels, init_dim, k, padding=k // 2, dtype=dtype)

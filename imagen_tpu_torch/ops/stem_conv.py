@@ -60,7 +60,7 @@ def cross_embed_stem_reference(x, ws, bias):
     return y + bias.to(y.dtype)
 
 
-def _packed_weights(ws):
+def pack_stem_weights(ws):
     """Each scale's (k, k, c, d) weight as (d / 32, k, P, 16, 32) bf16, P = (k + 1) / 2:
     per 32 output channels, row dy, tap pair q, the 16 rows of one mma step
     (taps 2q and 2q + 1, 8 channels each; the odd row's last tap, channels
@@ -75,7 +75,7 @@ def _packed_weights(ws):
     return torch.cat(packed).contiguous()
 
 
-def _stem_forward(x, bias, *ws):
+def _stem_forward(x, bias, *ws, packed=None):
     if x.device.type == 'cpu':
         return cross_embed_stem_reference(x, ws, bias)
     if not x.is_cuda or bias.device != x.device or any(w.device != x.device for w in ws):
@@ -97,7 +97,7 @@ def _stem_forward(x, bias, *ws):
     if tuple(bias.shape) != (sum(ds),):
         raise ValueError(f'cross_embed_stem: bias {tuple(bias.shape)}, expected ({sum(ds)},)')
     x = x.contiguous()
-    w = _packed_weights(ws)
+    w = pack_stem_weights(ws) if packed is None else packed
     bias = bias.to(torch.bfloat16).contiguous()
     out = torch.empty((b, H, W, sum(ds)), dtype=x.dtype, device=x.device)
     pad = MAX_SCALES - len(ws)
@@ -118,9 +118,11 @@ class _CrossEmbedStem(torch.autograd.Function):
             ctx, lambda x, bias, *ws: cross_embed_stem_reference(x, ws, bias), g)
 
 
-def cross_embed_stem(x, ws, bias):
+def cross_embed_stem(x, ws, bias, packed=None):
     """x NHWC (c <= 8); ws the scales' (k, k, c, d_i) weights, sorted like
-    `CrossEmbedLayer`'s; bias (sum d_i,)."""
+    `CrossEmbedLayer`'s; bias (sum d_i,). `packed`, where no gradient is
+    wanted, is `pack_stem_weights(ws)` made earlier; the kernel then reads it
+    in place of packing ws again."""
     if wants_grad(x, bias, *ws):
         return _CrossEmbedStem.apply(x, bias, *ws)
-    return _stem_forward(x, bias, *ws)
+    return _stem_forward(x, bias, *ws, packed=packed)

@@ -11,10 +11,9 @@ either paper-preset BaseUnet64 + SRUnet256 with an `ImagenServer` at batch 4
 have `fused_film=True`, at `chip_smoke.py`'s EDM steps), or the `Unet3D` of
 `chip_smoke.py`'s video phase (dim 64, mults 1-2-4, 16 frames at 64 px)
 with a server at batch 1 (a request of 1 prompt), or (`--sr1024`)
-`chip_smoke.py`'s SR-1024 tail, `NullUnet` + `SRUnet1024` with
-`fused_stem=True`, whose request is `Imagen.sample` from
-`start_at_unet_number=2` on a 256 px image, batch 1 (the server takes no
-start image). Warms up, then times one request unprofiled, then one
+`chip_smoke.py`'s SR-1024 tail, `NullUnet` + `SRUnet1024`, whose request
+is `Imagen.sample` from `start_at_unet_number=2` on a 256 px image, batch 1
+(the server takes no start image). Warms up, then times one request unprofiled, then one
 under `torch.profiler` (device activity only). Prints both wall times, the summed device time of
 the kernels (and so the device idle share), device time by category (the
 port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies)
@@ -99,7 +98,7 @@ def video_server():
 def sr1024_request():
     """`chip_smoke.py`'s SR-1024 request: one prompt, a 256 px start image."""
     sr = it.SRUnet1024(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
-                       lowres_cond=True, fused_stem=True)
+                       lowres_cond=True)
     randomize_final_conv(sr)
     imagen = it.Imagen((it.NullUnet(), sr), image_sizes=(256, 1024),
                        timesteps=(2 * SR_STEPS, SR_STEPS), cond_drop_prob=0.1).eval()
@@ -111,7 +110,7 @@ def sr1024_request():
         imagen.sample(text_embeds=emb, cond_scale=3., start_at_unet_number=2,
                       start_image_or_video=start)
     request()   # warm-up
-    return request, f'SR-1024 tail, fused_stem, steps {SR_STEPS}, batch 1 (2 with CFG)'
+    return request, f'SR-1024 tail, steps {SR_STEPS}, batch 1 (2 with CFG)'
 
 
 def server_request(server, label):
@@ -128,7 +127,7 @@ def main():
     mode.add_argument('--edm', action='store_true',
                       help='profile the EDM request of the 64->256 cascade with fused_film')
     mode.add_argument('--sr1024', action='store_true',
-                      help='profile the SR-1024 request (NullUnet + SRUnet1024, fused_stem)')
+                      help='profile the SR-1024 request (NullUnet + SRUnet1024)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')

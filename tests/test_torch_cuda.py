@@ -601,15 +601,14 @@ def test_stem_and_cf_wrappers_raise_on_wrong_dtype_or_device(cuda):
 
 @pytest.mark.cuda
 def test_offloaded_sr_cascade_samples_through_the_stem_kernel(cuda):
-    """A small bf16 NullUnet -> SR cascade with `fused_stem=True`, the SR unet
-    parked on the host: sampled from `start_at_unet_number=2` with
+    """A small bf16 NullUnet -> SR cascade, the SR unet parked on the host: sampled from `start_at_unet_number=2` with
     `offload_inactive_unets`, it gives the sample of the unet on the card,
     through kernel 14, and the unet is back on the host after."""
     torch.manual_seed(0)
     cfg = dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=False,
                layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
                text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
-               memory_efficient=True, fused_stem=True, dtype=BF16, device=cuda)
+               memory_efficient=True, dtype=BF16, device=cuda)
     imagen = it.Imagen((it.NullUnet(device=cuda), it.Unet(**cfg, lowres_cond=True)),
                        image_sizes=(32, 64), text_embed_dim=64, timesteps=(4, 3),
                        device=cuda).eval()

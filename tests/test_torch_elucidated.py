@@ -18,15 +18,13 @@ import pytest
 import torch
 
 from torch_port_bridge import BASE_CFG, SR_CFG, jparams, load_into, max_abs, randn, \
-    random_params, rng, t
+    random_params, rng, softmax_in_input_dtype, t
 
-import imagen_tpu.ops.attention as jattn
 import imagen_tpu.ops.edm_math as jem
 from imagen_tpu.diffusion.elucidated import ElucidatedImagen as JElucidated
 from imagen_tpu.models.unet2d import Unet as JUnet
 
 import imagen_tpu_torch as it
-from imagen_tpu_torch.ops import attention as tattn
 from imagen_tpu_torch.ops import edm_math as em
 
 SIZES, STEPS = (16, 32), (3, 2)
@@ -152,25 +150,6 @@ def test_cascade_samples_match_jax(cascades):
     assert max_abs(up, ref[1]) <= 1e-2
 
 
-def _softmax_in_input_dtype(monkeypatch):
-    """Both packages take the attention softmax in fp32 whatever the input
-    dtype; for a float64 run it keeps float64 on both sides."""
-    def jax_softmax(sim, mask=None, null_tokens=0):
-        if mask is not None:
-            mask = jnp.pad(mask, ((0, 0), (null_tokens, 0)), constant_values=True)
-            sim = jnp.where(mask[:, None, None, :], sim, -jnp.finfo(sim.dtype).max)
-        return jax.nn.softmax(sim, axis=-1)
-
-    def torch_softmax(sim, mask=None, null_tokens=0):
-        if mask is not None:
-            mask = torch.nn.functional.pad(mask, (null_tokens, 0), value=True)
-            sim = sim.masked_fill(~mask[:, None, None, :], -torch.finfo(sim.dtype).max)
-        return torch.softmax(sim, dim=-1)
-
-    monkeypatch.setattr(jattn, '_masked_softmax_fp32', jax_softmax)
-    monkeypatch.setattr(tattn, '_masked_softmax_fp32', torch_softmax)
-
-
 def test_cascade_end_to_end_in_float64_matches_jax(cascades, monkeypatch):
     """The whole cascade, stage 2 from each package's own stage 1, in float64
     on both sides (float64 weights, compute, noise and softmax; the same
@@ -179,7 +158,7 @@ def test_cascade_end_to_end_in_float64_matches_jax(cascades, monkeypatch):
     fp32 run is rounding that the random SR stage amplifies, not a different
     op."""
     _, params, _ = cascades
-    _softmax_in_input_dtype(monkeypatch)
+    softmax_in_input_dtype(monkeypatch)
     schedule = em.sample_schedule
     monkeypatch.setattr(em, 'sample_schedule',
                         lambda *a: schedule(*a).astype(np.float64))

@@ -7,10 +7,10 @@ to 1e-5 against the XLA references (`stem_conv._xla_reference`,
 (`stem_conv._forward`, `conv2d._forward_cf`); the autograd Functions'
 gradients to `jax.grad` of the references (1e-5 of each gradient's largest
 value); the gates to the JAX shape conditions. `CrossEmbedLayer` and a dim-8
-`Unet` built with `fused_stem=True` are held to the JAX modules (1e-4, of
-the Unet output's largest value) and to the port's plain route (1e-5), with
-a count showing the stem went the kernel's way. The CUDA kernels themselves
-are held to the plain versions in `tests/test_torch_cuda.py`.
+`Unet`, whose stems take the kernel's route where the gate admits them, are
+held to the JAX modules (1e-4; the Unet in float64 on both sides) and to
+the port's plain route with the gate closed (1e-5), with a count showing the stem went the kernel's way. The CUDA
+kernels themselves are held to the plain versions in `tests/test_torch_cuda.py`.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from torch_port_bridge import BASE_CFG, load_block, load_into, max_abs, randn, \
-    random_params, rng, t
+    random_params, rng, softmax_in_input_dtype, t
 
 import imagen_tpu.ops.conv2d as jc2d
 import imagen_tpu.ops.stem_conv as jstem
@@ -134,12 +134,19 @@ def _count_stem_calls(monkeypatch):
     calls = []
     kernel_route = blocks.cross_embed_stem
 
-    def spy(x, ws, bias):
+    def spy(x, ws, bias, packed=None):
         calls.append(tuple(x.shape))
-        return kernel_route(x, ws, bias)
+        return kernel_route(x, ws, bias, packed=packed)
 
     monkeypatch.setattr(blocks, 'cross_embed_stem', spy)
     return calls
+
+
+def _plain_route(monkeypatch, fn):
+    """fn() with the stem gate closed: the layer's three F.conv2d and the cat."""
+    with monkeypatch.context() as m:
+        m.setattr(blocks, 'stem_available', lambda *a, **k: False)
+        return fn()
 
 
 @pytest.mark.parametrize('c', [3, 6])
@@ -150,37 +157,72 @@ def test_cross_embed_layer_fused_stem_matches_jax(c, monkeypatch):
     params = random_params(jlayer, jnp.asarray(x), seed=7)
     ref = jax.jit(jlayer.apply)({'params': jax.tree_util.tree_map(jnp.asarray, params)},
                                 jnp.asarray(x))
-    layer = load_block(blocks.CrossEmbedLayer(c, KERNELS, dim_out=32, stride=1,
-                                              fused_stem=True), params, 'init_conv', 'init_conv.')
+    layer = load_block(blocks.CrossEmbedLayer(c, KERNELS, dim_out=32, stride=1), params,
+                       'init_conv', 'init_conv.')
     with torch.no_grad():
         out = layer(t(x))
-        plain = load_block(blocks.CrossEmbedLayer(c, KERNELS, dim_out=32, stride=1), params,
-                           'init_conv', 'init_conv.')(t(x))
+        plain = _plain_route(monkeypatch, lambda: layer(t(x)))
     assert calls == [(2, 16, 16, c)]
     assert max_abs(out, ref) <= 1e-4
     assert max_abs(out, plain) <= TOL
 
 
 def test_unet_with_fused_stem_matches_jax(monkeypatch):
+    """A dim-8 Unet whose stem takes the kernel's route: in fp32 against the
+    plain route (1e-5), and in float64 on both sides against the JAX Unet
+    (1e-4; they agree to 1e-13, where an fp32 run ends 1.5e-4 apart at
+    outputs up to 6, through the whole net's rounding)."""
     calls = _count_stem_calls(monkeypatch)
+    softmax_in_input_dtype(monkeypatch)
     r = rng(8)
     x, time = randn(r, 2, 16, 16, 3), r.rand(2).astype(np.float32)
     emb, mask = randn(r, 2, 8, 16), np.ones((2, 8), bool)
-    junet = JUnet(**BASE_CFG)
-    kw = dict(text_embeds=jnp.asarray(emb), text_mask=jnp.asarray(mask))
-    params = random_params(junet, jnp.asarray(x), jnp.asarray(time), **kw, seed=9)
-    ref = jax.jit(junet.apply)({'params': jax.tree_util.tree_map(jnp.asarray, params)},
-                               jnp.asarray(x), jnp.asarray(time), **kw)
-    unet = load_into(it.Unet(**BASE_CFG, fused_stem=True, device='cpu'), params)
-    plain = load_into(it.Unet(**BASE_CFG, device='cpu'), params)
+    with jax.enable_x64(True):
+        junet = JUnet(**BASE_CFG, dtype=jnp.float64)
+        f64 = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+        kw = dict(text_embeds=f64(emb), text_mask=jnp.asarray(mask))
+        params = random_params(junet, f64(x), f64(time), **kw, seed=9)
+        ref = np.asarray(jax.jit(junet.apply)({'params': jax.tree_util.tree_map(f64, params)},
+                                              f64(x), f64(time), **kw))
+    assert ref.dtype == np.float64
+    unet = load_into(it.Unet(**BASE_CFG, device='cpu'), params)
+    unet64 = load_into(it.Unet(**BASE_CFG, dtype=torch.float64, device='cpu'), params).double()
+    d = lambda a: torch.from_numpy(np.asarray(a, np.float64))  # noqa: E731
     with torch.no_grad():
         out = unet(t(x), t(time), text_embeds=t(emb), text_mask=t(mask))
-        plain_out = plain(t(x), t(time), text_embeds=t(emb), text_mask=t(mask))
-    assert calls == [(2, 16, 16, 3)]
-    # 1e-4 of the output's largest value (6.3 here): the whole net's fp32
-    # rounding, which the port's plain route shows as well
-    assert max_abs(out, ref) <= 1e-4 * max(1., float(np.abs(np.asarray(ref)).max()))
+        plain_out = _plain_route(
+            monkeypatch, lambda: unet(t(x), t(time), text_embeds=t(emb), text_mask=t(mask)))
+        out64 = unet64(d(x), d(time), text_embeds=d(emb), text_mask=t(mask))
+    assert calls == [(2, 16, 16, 3), (2, 16, 16, 3)]
+    assert out64.dtype == torch.float64
+    assert max_abs(out64, ref) <= 1e-4
     assert max_abs(out, plain_out) <= TOL
+
+
+def test_cross_embed_layer_repacks_after_its_parameters_change():
+    """The layer keeps the kernel's weights between calls without a gradient;
+    an in-place update, new data or a move drops them. In bf16 the kept weights are
+    copies, so a stale one would change the output."""
+    x = t(randn(rng(12), 1, 8, 8, 3)).to(torch.bfloat16)
+    layer = blocks.CrossEmbedLayer(3, KERNELS, dim_out=16, stride=1, dtype=torch.bfloat16)
+    with torch.no_grad():
+        before = layer(x)
+        assert layer(x) is not before and torch.equal(layer(x), before)
+        layer.convs[2].weight.mul_(2.)
+        layer.convs[0].bias.add_(1.)
+        after = layer(x)
+        fresh = blocks.CrossEmbedLayer(3, KERNELS, dim_out=16, stride=1, dtype=torch.bfloat16)
+        fresh.load_state_dict(layer.state_dict())
+        assert not torch.equal(after, before)
+        assert torch.equal(after, fresh(x))
+        for conv in layer.convs:   # new data, as a parked unet gets back its host copy
+            conv.weight.data = conv.weight.data.clone().neg_()
+        fresh.load_state_dict(layer.state_dict())
+        swapped = layer(x)
+        assert not torch.equal(swapped, after)
+        assert torch.equal(swapped, fresh(x))
+        layer.to(torch.float64)
+        assert layer._stem_cache is None
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -114,3 +114,27 @@ def jparams(params):
     import jax
     import jax.numpy as jnp
     return {'params': jax.tree_util.tree_map(jnp.asarray, params)}
+
+
+def softmax_in_input_dtype(monkeypatch):
+    """Both packages take the attention softmax in fp32 whatever the input
+    dtype; for a float64 run it keeps float64 on both sides."""
+    import jax
+    import jax.numpy as jnp
+    import imagen_tpu.ops.attention as jattn
+    from imagen_tpu_torch.ops import attention as tattn
+
+    def jax_softmax(sim, mask=None, null_tokens=0):
+        if mask is not None:
+            mask = jnp.pad(mask, ((0, 0), (null_tokens, 0)), constant_values=True)
+            sim = jnp.where(mask[:, None, None, :], sim, -jnp.finfo(sim.dtype).max)
+        return jax.nn.softmax(sim, axis=-1)
+
+    def torch_softmax(sim, mask=None, null_tokens=0):
+        if mask is not None:
+            mask = torch.nn.functional.pad(mask, (null_tokens, 0), value=True)
+            sim = sim.masked_fill(~mask[:, None, None, :], -torch.finfo(sim.dtype).max)
+        return torch.softmax(sim, dim=-1)
+
+    monkeypatch.setattr(jattn, '_masked_softmax_fp32', jax_softmax)
+    monkeypatch.setattr(tattn, '_masked_softmax_fp32', torch_softmax)
