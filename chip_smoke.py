@@ -58,8 +58,8 @@ sites of kernels 9 and 11, the on/off latencies and output difference;
 per SR-1024 request latency, shape, finiteness, range and peak memory, the
 forward's FLOPs, kernel 14's and kernel 6's launches against their hook
 counts, kernel 7's site, the on/off latencies and output difference;
-per-kernel errors, CUDA-event times and bounds at each shape (with the
-unfused route's time for kernels 8, 11, 12, 13 and 14); the small nets'
+per-kernel errors, CUDA-event times, device times and bounds at each shape
+(with the unfused route's time for kernels 8, 11, 12, 13 and 14); the small nets'
 errors; then the card again, one JSON line of kernel results and, last,
 the result line {"ok": ..., "device": {...}}.
 
@@ -84,10 +84,14 @@ kernels 12 and 13: no one call fuses a LayerNorm with a relayout; kernel
 14: no one call runs convs of three kernel sizes). For kernels 8, 11, 12,
 13 and 14 `unfused_route_ms` times the port's unfused module chain instead
 (for 11 that chain is its plain version; for 14 three cuDNN convs and the
-`cat`). For kernels 7, 8, 9, 11 and 14 `device_ms` sums the device time
-per call that torch.profiler reads at each shape, weighted the same way. `max_abs_err` is
-the kernel's worst error against the fp32 truth over those shapes and
-outputs.
+`cat`). For kernels 1-3 (the flash forward and backward), 7, 8, 9, 11
+and 14 `device_ms` sums the device time per call that torch.profiler reads
+at each shape, weighted the same way: for the backward, its three CUDA
+functions (the dK/dV pass, the sum of its row slices, dQ). For those with a
+library call, `library_device_ms` sums every device kernel that call
+launches, weighted the same way (the flash forward's SDPA takes q and k
+normalised beforehand). `max_abs_err` is the kernel's worst error against
+the fp32 truth over those shapes and outputs.
 
 Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
 package beside this file; imports no JAX.
@@ -116,13 +120,18 @@ VIDEO_TRAIN_BATCH = 4
 SR_STEPS = 8                 # SR-1024 steps, cut from the JAX bench's 32 (sr1024_paper) for time
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes per second
+# `device_kernel`: the name (or a prefix shared by every CUDA function one
+# call launches) for device times from the profiler
 KERNEL_INFO = {
     'flash_rows_fwd_bf16': dict(
         source='imagen_tpu_torch/csrc/flash_rows_fwd.cu',
-        replaces='imagen_tpu/ops/flash_attention.py:249'),
+        replaces='imagen_tpu/ops/flash_attention.py:249', device_kernel='flash_rows_fwd_kernel'),
+    # `device_kernels`: how many CUDA functions a call launches, if not 1:
+    # here the dK/dV pass, the sum of its row slices and dQ
     'flash_rows_bwd_bf16': dict(
         source='imagen_tpu_torch/csrc/flash_rows_bwd.cu',
-        replaces='imagen_tpu/ops/flash_attention.py:591'),
+        replaces='imagen_tpu/ops/flash_attention.py:591', device_kernel='flash_rows_bwd_',
+        device_kernels=3),
     'conv2d_same_3x3_bf16': dict(
         source='imagen_tpu_torch/csrc/conv2d_same.cu',
         replaces='imagen_tpu/ops/conv2d.py:199'),
@@ -138,7 +147,6 @@ KERNEL_INFO = {
     'norm_untranspose_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_layout.cu',
         replaces='imagen_tpu/ops/temporal_layout.py:184'),
-    # `device_kernel`: the CUDA function's name, for device times from the profiler
     'fused_film_norm_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_film_norm.cu',
         replaces='imagen_tpu/ops/fused_norm.py:63', device_kernel='film_norm_kernel'),
@@ -192,19 +200,29 @@ def cuda_time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, kernel_name, iters=10):
-    """Device time per call of the CUDA function `kernel_name` that `fn`
-    launches, from torch.profiler: CUDA events over calls of a few
-    microseconds read the host's launch time, not the device's."""
+def device_time_ms(fn, kernel_name=None, kernels=1, iters=10):
+    """Device time per call of the CUDA functions whose names hold
+    `kernel_name` (every one, given None) that `fn` launches, from
+    torch.profiler: CUDA events over calls of a few microseconds read the
+    host's launch time, not the device's. The profiler now and then drops
+    kernels from a trace, so each function's time is its mean over the
+    launches the trace holds, times its launches per call, and a trace that
+    caught fewer than `kernels` distinct such functions is taken again, up
+    to three times in all."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel_name in e.key) / 1e3 / iters
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if e.self_device_time_total > 0 and e.count > 0
+                and (kernel_name is None or kernel_name in e.key)]
+        if len(hits) >= kernels:
+            break
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+               for e in hits) / 1e3
 
 
 def free_cuda():
@@ -842,7 +860,7 @@ def kernel_cases(torch, name, dims, g):
         scale = scale2 / fa.LOG2E
         qs, ks = 1. + rnd(d, scale=0.1), 1. + rnd(d, scale=0.1)
         inputs = [rnd(b, rows, d).to(bf16), rnd(b, nk, d).to(bf16), rnd(b, nk, d).to(bf16)]
-        qn = fa.l2norm_scale(inputs[0], qs)
+        qn, kn = fa.l2norm_scale(inputs[0], qs), fa.l2norm_scale(inputs[1], ks)
 
         def kernel(q, k, v):
             return fa._rows_forward(q, fa.l2norm_scale(k, ks), v, scale, qs, with_lse=True)
@@ -851,9 +869,9 @@ def kernel_cases(torch, name, dims, g):
             return fa.flash_rows_reference(q, fa.l2norm_scale(k, ks), v, scale, qs,
                                            return_lse=True)
 
-        def library(q, k, v):
-            return F.scaled_dot_product_attention(qn[:, None], fa.l2norm_scale(k, ks)[:, None],
-                                                  v[:, None], scale=scale)
+        def library(q, k, v):   # SDPA alone: q and k normalised beforehand
+            return F.scaled_dot_product_attention(qn[:, None], kn[:, None], v[:, None],
+                                                  scale=scale)
 
         def served(q, k, v):
             return fa.flash_cosine_mqa_rows(q, k, v, qs, ks, scale)
@@ -883,7 +901,7 @@ def kernel_cases(torch, name, dims, g):
         flops = 4 * P * f * h * nk * d
         nbytes = 2 * (2 * P * f * h * d + 2 * P * nk * d) + 4 * (h * f * nk + d)
     elif name == fa.BWD_KERNEL:
-        b, rows, nk, d, scale = dims
+        b, rows, nk, d, _splits, scale = dims
         q, k = (fa.l2norm_scale(rnd(b, n, d), torch.ones(d, device='cuda')) for n in (rows, nk))
         v, do = rnd(b, nk, d), rnd(b, rows, d)
         q, k, v, do = (x.to(bf16) for x in (q, k, v, do))
@@ -1104,11 +1122,16 @@ def phase_kernels(torch, results):
                 p2 = cuda_time_ms(lambda: plain(*xb))
                 served_ms = cuda_time_ms(lambda: served(*xb)) if served else None
                 unfused_ms = cuda_time_ms(lambda: unfused(*xb)) if unfused else None
-                dev_ms = (device_time_ms(lambda: kernel(*xb), info['device_kernel'])
+                dev_ms = (device_time_ms(lambda: kernel(*xb), info['device_kernel'],
+                                         info.get('device_kernels', 1))
                           if 'device_kernel' in info else None)
             lib_ms = cuda_time_ms(lambda: library(*xb)) if library else None
+            # every device kernel the library call launches
+            lib_dev_ms = (device_time_ms(lambda: library(*xb))
+                          if library and 'device_kernel' in info else None)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            bound = max(bound_ops, bound_bytes)
             bounds = [max(2 * e, 1e-3) for e in errs_p]
             good = all(e <= b for e, b in zip(errs_k, bounds))
             ok &= good
@@ -1122,6 +1145,8 @@ def phase_kernels(torch, results):
             totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
             if lib_ms is not None:
                 lib_total = (lib_total or 0.) + count * lib_ms
+            if lib_dev_ms is not None:
+                totals['library_device_ms'] += count * lib_dev_ms
             if unfused_ms is not None:
                 totals['unfused_route_ms'] += count * unfused_ms
             if dev_ms is not None:
@@ -1132,12 +1157,14 @@ def phase_kernels(torch, results):
             unfused_note = ('' if unfused_ms is None else
                             f', the unfused route {unfused_ms:.4f} ms')
             if dev_ms is not None:
-                served_note += f' (device {dev_ms:.4f} ms)'
+                share = f'{bound / dev_ms:.1%}' if dev_ms > 0 else 'n/a'
+                served_note += f' (device {dev_ms:.4f} ms, {share} of the bound)'
             log(f'{name} {dims} x{count} {dict(counts)}: max_abs_err kernel [{fmt}] '
                 f'plain-bf16 [{fmt_p}] -> {"ok" if good else "FAIL"}; {ms:.4f} ms'
                 f'{served_note} vs plain {plain_ms:.4f} ms{unfused_note}, '
-                f'library {"n/a" if lib_ms is None else f"{lib_ms:.4f} ms"}, bound '
-                f'{max(bound_ops, bound_bytes):.4f} ms by '
+                f'library {"n/a" if lib_ms is None else f"{lib_ms:.4f} ms"}'
+                f'{"" if lib_dev_ms is None else f" (device {lib_dev_ms:.4f} ms)"}, bound '
+                f'{bound:.4f} ms by '
                 f'{"operations" if bound_ops >= bound_bytes else "bytes"} '
                 f'({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)')
             free_cuda()
@@ -1150,7 +1177,7 @@ def phase_kernels(torch, results):
             bound_ms=totals['operations'] + totals['bytes'],
             bound_by='operations' if totals['operations'] >= totals['bytes'] else 'bytes',
             library_ms=lib_total))
-        for key in ('unfused_route_ms', 'device_ms'):
+        for key in ('unfused_route_ms', 'device_ms', 'library_device_ms'):
             if key in totals:
                 summary[-1][key] = totals[key]
         if name in UNWIRED:   # times and bounds weighted by these site counts

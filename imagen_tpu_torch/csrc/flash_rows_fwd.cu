@@ -16,212 +16,313 @@
 // (`return_stats=True` of the JAX forward), which the backward
 // (flash_rows_bwd.cu) needs; serving passes null and writes nothing.
 //
-// What bounds it on the H100: at the slice's shape (b 8, R 8192, nk 1063,
-// D 64) it does 4*R*nk*D flops per batch row for 2*R*D bytes of q and o, so
-// it is bound by the tensor cores, not by HBM. Design (FlashAttention-2
-// style): one block of 8 warps per (batch, 128-row tile); each warp keeps
-// its 16 q rows, its scores and its output accumulator in registers and runs
-// both products as mma.sync m16n8k16 bf16 (fp32 accumulate), with operands
-// read from shared memory by ldmatrix. K/V stream through shared memory in
-// 64-key tiles, double-buffered with cp.async so the next tile loads while
-// this one computes; rows are padded by 16 bytes so ldmatrix is free of bank
-// conflicts. The ragged key tail (nk is not a multiple of 64) is zero-filled
-// by cp.async and masked to -inf before the softmax. Simple first: no wgmma,
-// no TMA; those are later work.
+// What bounds it on the H100: 4 R nk D flops per batch row against 2 R D +
+// 2 nk D bf16 values of I/O, so at the paths' shapes (R 8192 or 32768, nk 1063
+// or 4097, D 64) the tensor cores bound it, and only wgmma reaches their rate.
+// At D 64 the exponentials weigh as much: a 64 x 128 tile's 8,192 exp2 take
+// the special-function units as long as its two products take the tensor
+// cores, so the design overlaps the two (FlashAttention-3 style).
+// - A block is 2 consumer warpgroups of 64 q rows each and a producer
+//   warpgroup that gives its registers to them (setmaxnreg). One producer
+//   thread keeps the K and V tiles (128 keys at D <= 64, else 64) of a
+//   3-stage ring in flight by TMA, into the wgmma swizzle, with full/empty
+//   mbarriers.
+// - Each consumer loads its q rows once, 16 bytes a thread, normalises them in
+//   fp32 and writes the swizzled bf16 tile.
+// - Per key tile, S = q K^T is a wgmma with both operands in shared memory
+//   (K-major) and O += P V a wgmma with P as the register A operand (rounded
+//   to bf16 in place) and V read MN-major through the descriptor. Tile t's S
+//   and tile t-1's P V go out together, so tile t's softmax runs while the
+//   P V does; the two warpgroups take turns at issuing (named barriers), so
+//   one's softmax runs while the other's products do.
+// - The last key tile's products and softmax are only as wide as its keys
+//   need (16, 32 or 64 where fewer than half of it are left: 39 of 128 at nk
+//   1063, 1 at 4097). The ragged key tail arrives as zeros from TMA and is
+//   masked to -inf before the softmax.
+// - O goes out through shared memory by TMA, which writes no row past R.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_mma.cuh"
+#include "bf16_rows.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 128;   // q rows per block
-constexpr int BK = 64;    // keys per tile
-constexpr int WARPS = 8;  // 16 rows per warp
-constexpr int THREADS = WARPS * 32;
+constexpr int WGS = 2;                  // consumer warpgroups, 64 q rows each
+constexpr int BQ = 64 * WGS;            // q rows per block
+constexpr int THREADS = 128 * (WGS + 1);  // and one producer warpgroup
+constexpr int STAGES = 3;
 constexpr float NEG = -1e30f;
 
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;  // padded row, in elements
-  static constexpr size_t q = size_t(BQ) * LD * 2;
-  static constexpr size_t kv = size_t(BK) * LD * 2;  // one tile of K or V
-  static constexpr size_t total = q + 4 * kv;        // K and V, two stages each
+struct Fwd {
+  static constexpr int BK = D <= 64 ? 128 : 64;  // keys per tile
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;    // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_rows_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const float* __restrict__ q_scale,
-                      __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse,
-                      int rows, int nk, float scale2) {
-  using S = Smem<D>;
-  constexpr int LD = S::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S::q);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S::q + 2 * S::kv);
+// One tile of the online softmax on the score accumulator `sc` (64 rows x BK
+// keys in the wgmma layout, keys from j0): keys past nk to -inf, the running
+// row maxima m and sums l of this thread's two rows updated, the rescale
+// factors of the output returned in a0, a1, and sc turned into P. A row's 4
+// owners are a quad of lanes.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float& m0, float& m1,
+                                               float& l0, float& l1, float& a0, float& a1, int j0,
+                                               int nk, int lane) {
+  if (j0 + BK > nk) {
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j0 + nb * 8 + (lane % 4) * 2 + (e & 1) >= nk) sc[4 * nb + e] = NEG;
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nb = 0; nb < BK / 8; ++nb) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o *= 2) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  a0 = exp2_fast(m0 - mx0);
+  a1 = exp2_fast(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < BK / 8; ++nb) {
+    sc[4 * nb] = exp2_fast(sc[4 * nb] - mx0);
+    sc[4 * nb + 1] = exp2_fast(sc[4 * nb + 1] - mx0);
+    sc[4 * nb + 2] = exp2_fast(sc[4 * nb + 2] - mx1);
+    sc[4 * nb + 3] = exp2_fast(sc[4 * nb + 3] - mx1);
+    ps0 += sc[4 * nb] + sc[4 * nb + 1];
+    ps1 += sc[4 * nb + 2] + sc[4 * nb + 3];
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o *= 2) {
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, o);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, o);
+  }
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bb = blockIdx.y;
-  const int row0 = blockIdx.x * BQ;
-  const __nv_bfloat16* qb = q + (size_t)bb * rows * D;
-  const __nv_bfloat16* kb = k + (size_t)bb * nk * D;
-  const __nv_bfloat16* vb = v + (size_t)bb * nk * D;
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_rows_fwd_kernel(const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_out,
+                      const __nv_bfloat16* __restrict__ q, const float* __restrict__ q_scale,
+                      float* __restrict__ lse, int rows, int nk, float scale2) {
+  using F = Fwd<D>;
+  constexpr int BK = F::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bb = blockIdx.y, row0 = blockIdx.x * BQ;
   const int num_tiles = (nk + BK - 1) / BK;
 
-  auto load_kv = [&](int t, int stage) {
-    const int j0 = t * BK;
-    for (int i = threadIdx.x; i < BK * (D / 8); i += THREADS) {
-      const int j = i / (D / 8), c = i % (D / 8);
-      const bool valid = j0 + j < nk;
-      const size_t off = (size_t)(valid ? j0 + j : 0) * D + c * 8;
-      cp_async16(Ks + (stage * BK + j) * LD + c * 8, kb + off, valid);
-      cp_async16(Vs + (stage * BK + j) * LD + c * 8, vb + off, valid);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WGS);  // one arrival per consumer warp
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  load_kv(0, 0);
-
-  // --- q prologue: l2norm * q_scale * scale * log2e (or * scale * log2e) -> Qs ---
-  {
-    const int r = lane / 2, half = lane % 2;  // lane pair per row, half the columns each
-    const int lr = warp * 16 + r;
-    const int grow = row0 + lr;
-    float ss = 0.f;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-      const float x = grow < rows ? __bfloat162float(qb[(size_t)grow * D + c]) : 0.f;
-      ss += x * x;
-    }
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    const float inv = q_scale ? rsqrtf(fmaxf(ss, 1e-12f)) : 1.f;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-      const float x = grow < rows ? __bfloat162float(qb[(size_t)grow * D + c]) : 0.f;
-      const float y = q_scale ? (x * inv) * (q_scale[c] * scale2) : x * scale2;
-      Qs[lr * LD + c] = __float2bfloat16(y);
-    }
+    mbar_fence_init();
   }
-  __syncwarp();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+  __syncthreads();
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
-  // this thread's two rows: lane / 4 and lane / 4 + 8 of the warp's 16
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
-
-  for (int t = 0; t < num_tiles; ++t) {
-    if (t + 1 < num_tiles) {
-      load_kv(t + 1, (t + 1) & 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + (t & 1) * BK * LD;
-    const __nv_bfloat16* Vt = Vs + (t & 1) * BK * LD;
-
-    // S = Q K^T: 16 x BK per warp, in base-2 scaled logits
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nb2 = 0; nb2 < BK / 16; ++nb2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, Kt + (nb2 * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                           ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * nb2], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * nb2 + 1], qf[kk], b[2], b[3]);
+  if (warp >= 4 * WGS) {  // the producer warpgroup: one thread issues the K/V loads
+    setmaxnreg_dec<24>();
+    if (warp == 4 * WGS && lane == 0) {
+      for (int t = 0; t < num_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * F::KV_BYTES);
+        tma_load_rows<D, BK>(sbase + F::K_OFF + s * F::KV_BYTES, &tm_k, &full[s], t * BK, bb);
+        tma_load_rows<D, BK>(sbase + F::V_OFF + s * F::KV_BYTES, &tm_v, &full[s], t * BK, bb);
       }
     }
-    const int j0 = t * BK;
-    if (j0 + BK > nk) {
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j0 + nb * 8 + (lane % 4) * 2 + (e & 1) >= nk) s[nb][e] = NEG;
-    }
+    return;
+  }
 
-    // online softmax over the tile; a row's 4 owners are a quad of lanes
-    float mx0 = m0, mx1 = m1;
+  setmaxnreg_inc<240>();
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int wrow0 = wg * 64;  // this warpgroup's rows in the block's q tile
+
+  // --- q prologue: each row once, 16 bytes a thread, D / 8 threads a row ---
+  {
+    constexpr int TPR = D / 8, RPP = 128 / TPR;
+    const int c = tid % TPR;
+    float gain[8];
+    if (q_scale) {
+      load8(q_scale + c * 8, gain);
 #pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
+      for (int i = 0; i < 8; ++i) gain[i] *= scale2;
+    }
+    uint4 u[64 / RPP];  // every load in flight before the first is used
+#pragma unroll
+    for (int p = 0; p < 64 / RPP; ++p) {
+      const int grow = row0 + wrow0 + p * RPP + tid / TPR;
+      u[p] = grow < rows
+                 ? *reinterpret_cast<const uint4*>(q + ((size_t)bb * rows + grow) * D + c * 8)
+                 : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ *= 2) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
+    for (int p = 0; p < 64 / RPP; ++p) {
+      const int r = wrow0 + p * RPP + tid / TPR;
+      float x[8];
+      unpack8(u[p], x);
+      if (q_scale) {
+        float ss = 0.f;
 #pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-      s[nb][0] = exp2f(s[nb][0] - mx0);
-      s[nb][1] = exp2f(s[nb][1] - mx0);
-      s[nb][2] = exp2f(s[nb][2] - mx1);
-      s[nb][3] = exp2f(s[nb][3] - mx1);
-      ps0 += s[nb][0] + s[nb][1];
-      ps1 += s[nb][2] + s[nb][3];
-    }
+        for (int i = 0; i < 8; ++i) ss += x[i] * x[i];
+        const float inv = rsqrtf(fmaxf(group_sum<TPR>(ss), 1e-12f));
 #pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ *= 2) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, o_);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, o_);
+        for (int i = 0; i < 8; ++i) x[i] = (x[i] * inv) * gain[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] *= scale2;
+      }
+      *reinterpret_cast<uint4*>(smem + tile_offset<D, BQ>(r, c)) = pack8(x);
     }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
+  }
+  fence_proxy_async();
+  named_sync(1 + wg, 128);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // this thread's two rows: (warp % 4) * 16 + lane / 4 and that + 8
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f, a0, a1;
+  uint32_t pa[BK / 16][4];  // P of the tile before, the A operand of its P V
+
+  // S = q K^T of tile t: 64 rows x N keys (N = 2 * sc's size), base-2 scaled
+  // logits
+  auto issue_s = [&](auto& sc, int t) {
+    constexpr int N = 2 * sizeof(sc) / sizeof(float);
+    const uint32_t k_tile = sbase + F::K_OFF + (t % STAGES) * F::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<N, 0>(sc, desc_k<D, BQ>(sbase, wrow0, kk), desc_k<D, BK>(k_tile, 0, kk), kk);
+    wgmma_commit();
+  };
+  // O += P V of tile t over P's keys (16 a k16 step of p), V read MN-major
+  auto issue_pv = [&](auto& p, int t) {
+    constexpr int STEPS = sizeof(p) / sizeof(p[0]);
+    const uint32_t v_tile = sbase + F::V_OFF + (t % STAGES) * F::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < STEPS; ++kk) wgmma_rs<D, 1>(o, p[kk], desc_mn<D, BK>(v_tile, kk), 1);
+    wgmma_commit();
+  };
+  // Key tile t >= 1 with tile t-1's P V (from pa): S and the P V are issued
+  // together and tile t's softmax runs while the P V does; then O is
+  // rescaled and tile t's P goes to p. p is pa, or for the last tile, whose
+  // keys past nk need no products, a narrower array.
+  auto step = [&](auto& p, int t) {
+    float sc[8 * (sizeof(p) / sizeof(p[0]))];  // 16 keys a k16 step of p
+    constexpr int N = 2 * sizeof(sc) / sizeof(float);
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    fence_regs(o);  // the rescale and P's packing stay before the products
+    fence_regs(pa);
+    named_sync(3 + wg, 256);
+    wgmma_fence();
+    issue_s(sc, t);
+    issue_pv(pa, t - 1);
+    named_arrive(4 - wg, 256);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    online_softmax<N>(sc, m0, m1, l0, l1, a0, a1, t * BK, nk, lane);
+    wgmma_wait<0>();  // tile t-1's P V is done: its stage is free, O can be rescaled
+    fence_regs(o);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb) {
-      o[nb][0] *= a0;
-      o[nb][1] *= a0;
-      o[nb][2] *= a1;
-      o[nb][3] *= a1;
+      o[4 * nb] *= a0;
+      o[4 * nb + 1] *= a0;
+      o[4 * nb + 2] *= a1;
+      o[4 * nb + 3] *= a1;
     }
+    acc_to_a<N>(p, sc);  // P rounded to bf16 straight from the score registers
+  };
+  // the last P V, from p
+  auto last_pv = [&](auto& p) {
+    fence_regs(o);
+    fence_regs(p);
+    named_sync(3 + wg, 256);
+    wgmma_fence();
+    issue_pv(p, num_tiles - 1);
+    if (wg == 0) named_arrive(4, 256);  // warpgroup 1's last turn
+    wgmma_wait<0>();
+    fence_regs(o);
+  };
 
-    // O += P V, P rounded to bf16 straight from the score registers
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nb2 = 0; nb2 < D / 16; ++nb2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                 nb2 * 16 + (lane / 16) * 8);
-        mma_bf16(o[2 * nb2], pa, b[0], b[1]);
-        mma_bf16(o[2 * nb2 + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is free for the load two tiles ahead
+  {  // tile 0
+    float sc[BK / 2];
+    mbar_wait(&full[0], 0);
+    if (wg == 1) named_arrive(3, 256);  // warpgroup 0 issues first
+    named_sync(3 + wg, 256);
+    wgmma_fence();
+    issue_s(sc, 0);
+    named_arrive(4 - wg, 256);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    online_softmax<BK>(sc, m0, m1, l0, l1, a0, a1, 0, nk, lane);
+    acc_to_a<BK>(pa, sc);
+  }
+  for (int t = 1; t < num_tiles - 1; ++t) step(pa, t);
+  // the last tile, as wide as its keys need: 16, 32, 64 or BK
+  const int last_keys = nk - (num_tiles - 1) * BK;
+  if (num_tiles == 1 || last_keys > BK / 2) {
+    if (num_tiles > 1) step(pa, num_tiles - 1);
+    last_pv(pa);
+  } else if (BK == 128 && last_keys > 32) {
+    uint32_t p[4][4];
+    step(p, num_tiles - 1);
+    last_pv(p);
+  } else if (last_keys > 16) {
+    uint32_t p[2][4];
+    step(p, num_tiles - 1);
+    last_pv(p);
+  } else {
+    uint32_t p[1][4];
+    step(p, num_tiles - 1);
+    last_pv(p);
   }
 
-  const int r0 = row0 + warp * 16 + lane / 4, r1 = r0 + 8;
+  // O / l in bf16 over this warpgroup's q rows in shared memory (their q is
+  // read), then to global memory by TMA, which drops the rows past R
+  const int lr0 = wrow0 + (warp % 4) * 16 + lane / 4;
   const float il0 = 1.f / l0, il1 = 1.f / l1;
 #pragma unroll
   for (int nb = 0; nb < D / 8; ++nb) {
-    const int c = nb * 8 + (lane % 4) * 2;
-    if (r0 < rows)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bb * rows + r0) * D + c) =
-          __floats2bfloat162_rn(o[nb][0] * il0, o[nb][1] * il0);
-    if (r1 < rows)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bb * rows + r1) * D + c) =
-          __floats2bfloat162_rn(o[nb][2] * il1, o[nb][3] * il1);
+    const int byte = (lane % 4) * 4;
+    *reinterpret_cast<__nv_bfloat162*>(smem + tile_offset<D, BQ>(lr0, nb) + byte) =
+        __floats2bfloat162_rn(o[4 * nb] * il0, o[4 * nb + 1] * il0);
+    *reinterpret_cast<__nv_bfloat162*>(smem + tile_offset<D, BQ>(lr0 + 8, nb) + byte) =
+        __floats2bfloat162_rn(o[4 * nb + 2] * il1, o[4 * nb + 3] * il1);
   }
+  fence_proxy_async();
+  named_sync(1 + wg, 128);
+  if (tid == 0) {
+    tma_store_rows<D, BQ>(sbase, wrow0, &tm_out, row0 + wrow0, bb);
+    tma_store_wait();
+  }
+  const int r0 = row0 + lr0, r1 = r0 + 8;
   // row log2-sum-exp2 in the scaled base-2 domain, for the backward
   if (lse && lane % 4 == 0) {
     if (r0 < rows) lse[(size_t)bb * rows + r0] = m0 + log2f(l0);
@@ -230,27 +331,28 @@ flash_rows_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* q_scale,
-                   void* out, void* lse, int b, int rows, int nk, float scale2,
-                   cudaStream_t stream) {
-  const size_t smem = Smem<D>::total;
+cudaError_t launch(const void* q, const void* k, const void* v, const void* q_scale, void* out,
+                   void* lse, int b, int rows, int nk, float scale2, cudaStream_t stream) {
+  CUtensorMap tm_k, tm_v, tm_out;
+  if (!rows_map(&tm_k, k, b, nk, D, 64) || !rows_map(&tm_v, v, b, nk, D, 64) ||
+      !rows_map(&tm_out, out, b, rows, D, 64))
+    return cudaErrorInvalidValue;
+  const int smem = Fwd<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(flash_rows_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((rows + BQ - 1) / BQ, b);
   flash_rows_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(q_scale),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), rows, nk, scale2);
+      tm_k, tm_v, tm_out, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const float*>(q_scale), static_cast<float*>(lse), rows, nk, scale2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (b, rows, d), k/v (b, nk, d) bf16 contiguous; q_scale fp32 (d,) or null;
-// out (b, rows, d) bf16; lse fp32 (b, rows) or null. d must be a multiple of
-// 16, at most 128.
+// q (b, rows, d), k/v (b, nk, d) bf16 contiguous, 16-byte aligned; q_scale
+// fp32 (d,) or null; out (b, rows, d) bf16; lse fp32 (b, rows) or null. d is
+// 16, 32, 64 or 128.
 extern "C" int flash_rows_fwd_bf16(const void* q, const void* k, const void* v,
                                    const void* q_scale, void* out, void* lse, int b,
                                    int rows, int nk, int d, float scale2, void* stream) {
@@ -258,11 +360,7 @@ extern "C" int flash_rows_fwd_bf16(const void* q, const void* k, const void* v,
   switch (d) {
     case 16: return launch<16>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
     case 32: return launch<32>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
-    case 48: return launch<48>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
     case 64: return launch<64>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
-    case 80: return launch<80>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
-    case 96: return launch<96>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
-    case 112: return launch<112>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
     case 128: return launch<128>(q, k, v, q_scale, out, lse, b, rows, nk, scale2, s);
     default: return (int)cudaErrorInvalidValue;
   }

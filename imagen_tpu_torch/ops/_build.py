@@ -40,8 +40,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # q, k, v, q_scale (nullable), out, lse (nullable), b, rows, nk, d, scale2, stream
     'flash_rows_fwd_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # q, k, v, dout, lse, delta, dq, dk, dv, b, rows, nk, d, scale, stream
-    'flash_rows_bwd_bf16': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, dout, lse, delta, dq, dk, dv, part (fp32 scratch), b, rows, nk, d, splits,
+    # scale, stream
+    'flash_rows_bwd_bf16': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x, w (kh, kw, I, O), bias (nullable), out, b, H, W, cin, cout, stream
     'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, stream

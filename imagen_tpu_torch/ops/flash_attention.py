@@ -30,6 +30,7 @@ raise.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,6 +43,9 @@ FLASH_MIN_SEQ = 1024
 LOG2E = math.log2(math.e)
 KERNEL = 'flash_rows_fwd_bf16'
 BWD_KERNEL = 'flash_rows_bwd_bf16'
+_KERNEL_DIMS = (16, 32, 64, 128)   # head dims the kernels take; others pad up
+BWD_KEYS = 128    # keys per dK/dV block of the backward kernel
+BWD_ROWS = 64     # q rows per streamed tile of its dK/dV pass
 
 
 def _pick_block_q(rows):
@@ -110,7 +114,33 @@ def flash_rows_backward_reference(q, k, v, do, lse, delta, scale):
 
 
 def _pad_d(d):
-    return -(-d // 16) * 16
+    return next(x for x in _KERNEL_DIMS if x >= d)
+
+
+def bwd_splits(b, rows, nk, sm_count, min_tiles=4):
+    """How many slices S of the R rows the backward's dK/dV pass splits
+    across blocks: its grid is b * ceil(nk / BWD_KEYS) * S blocks. S is 1
+    where that grid already fills the SMs twice, else the least S that does,
+    but never below `min_tiles` row tiles of BWD_ROWS a slice (each block
+    loads its K and V tiles once, whatever its slice's length)."""
+    blocks = b * -(-nk // BWD_KEYS)
+    if blocks >= 2 * sm_count:
+        return 1
+    tiles = -(-rows // BWD_ROWS)
+    return max(1, min(-(-2 * sm_count // blocks), tiles // min_tiles))
+
+
+def split_row_ranges(rows, splits):
+    """The (start, end) q rows of each of the S slices of the dK/dV pass: a
+    balanced split of the row tiles, as the kernel computes it."""
+    tiles = -(-rows // BWD_ROWS)
+    bounds = [tiles * s // splits * BWD_ROWS for s in range(splits + 1)]
+    return [(lo, min(hi, rows)) for lo, hi in zip(bounds, bounds[1:])]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_rows(q, k, v, name):
@@ -128,9 +158,16 @@ def _check_rows(q, k, v, name):
 
 
 def _padded(tensors, d):
-    """Zero columns change no dot product and no norm; sliced off after."""
+    """Zero columns change no dot product and no norm; sliced off after. The
+    kernels read 16-byte vectors and TMA tiles, so each tensor is also
+    contiguous and 16-byte aligned."""
     dp = _pad_d(d)
-    return [(F.pad(t, (0, dp - d)) if dp != d else t).contiguous() for t in tensors], dp
+    return [_aligned(F.pad(t, (0, dp - d)) if dp != d else t) for t in tensors], dp
+
+
+def _aligned(t):
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _rows_forward(q, k, v, scale, q_scale, with_lse=False):
@@ -164,11 +201,14 @@ def flash_rows_backward(q, k, v, do, lse, delta, scale):
     if lse.shape != (b, rows) or delta.shape != (b, rows):
         raise ValueError(f'lse {tuple(lse.shape)}, delta {tuple(delta.shape)} != {(b, rows)}')
     (q, k, v, do), dp = _padded((q, k, v, do), d)
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    lse, delta = _aligned(lse.float()), _aligned(delta.float())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    splits = bwd_splits(b, rows, nk, _sm_count(q.device.index))
+    # the fp32 dK and dV partials of each slice of R, summed by the kernel's second pass
+    part = torch.empty((2, splits, b, nk, dp), dtype=torch.float32, device=q.device)
     _build.launch(BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), b, rows, nk, dp, scale)
+                  dv.data_ptr(), part.data_ptr(), b, rows, nk, dp, splits, scale)
     if dp != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
@@ -258,7 +298,6 @@ def flash_multiquery_attention(q, k, v, scale):
 TEMPORAL_KERNEL = 'temporal_attn_fwd_bf16'
 TEMPORAL_MAX_NK = 64      # keys per pixel the kernel holds
 TEMPORAL_MAX_ROWS = 128   # frames * heads per pixel (8 warps of 16 rows)
-_TEMPORAL_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
 
 
@@ -274,7 +313,7 @@ def grouped_temporal_available(frames, heads, nk, dim_head, dtype=torch.bfloat16
     What is added: the kernel's limits (nk <= 64, dim_head <= 128,
     frames * heads <= 128) and, on CUDA, bf16. The answer is a bool, not G.
     """
-    return (nk <= TEMPORAL_MAX_NK and dim_head <= _TEMPORAL_DIMS[-1]
+    return (nk <= TEMPORAL_MAX_NK and dim_head <= _KERNEL_DIMS[-1]
             and frames * heads <= TEMPORAL_MAX_ROWS
             and (device_type == 'cpu' or dtype == torch.bfloat16))
 
@@ -330,7 +369,7 @@ def _temporal_forward(q, kn, v, q_scale, bias, scale, heads):
         raise ValueError(f'temporal kernel: frames {f} x heads {heads}, nk {nk}, d {d} '
                          'outside its limits')
     q_rows = q.reshape(P, f * heads, d)
-    dp = next(x for x in _TEMPORAL_DIMS if x >= d)
+    dp = _pad_d(d)
     if dp != d:  # zero columns change no dot product and no norm; sliced off after
         q_rows, kn, v = (F.pad(t, (0, dp - d)).contiguous() for t in (q_rows, kn, v))
     qs = q_scale.float()

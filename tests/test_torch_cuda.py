@@ -47,18 +47,38 @@ def _check(run, plain, bf16_inputs, fp32_inputs, name):
     assert err_k <= max(2 * err_p, 1e-3), (err_k, err_p)
 
 
+# (b, rows, nk, d): ragged nk (1, 63, 65, 77, 150, 1063, 4097), rows that are
+# not a multiple of the 128-row block (130, 200), d padded (40 -> 64) or at
+# the ends of the kernels' range (16, 128), batch 1 and 8. The forward's last
+# key tile is 64, 32 and 16 keys wide at nk 1063, 150 and 4097 (d 64) and
+# 16 at nk 65 (d 128)
+FLASH_CASES = [(2, 2048, 1063, 64), (2, 512, 77, 32), (2, 200, 200, 40), (1, 130, 1, 16),
+               (1, 200, 65, 128), (8, 1024, 63, 64), (2, 1024, 4097, 64), (2, 256, 150, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (512, 77, 32), (200, 200, 40)])
-def test_flash_kernel_matches_plain(cuda, rows, nk, d):
+@pytest.mark.parametrize('b,rows,nk,d', FLASH_CASES)
+@pytest.mark.parametrize('cosine', [True, False], ids=['cosine', 'plain'])
+def test_flash_kernel_matches_plain(cuda, b, rows, nk, d, cosine):
     r = rng(3)
-    q, k, v = (t(randn(r, 2, n, d)).to(cuda).to(BF16) for n in (rows, nk, nk))
+    q, k, v = (t(randn(r, b, n, d)).to(cuda).to(BF16) for n in (rows, nk, nk))
     qs, ks = (t(1. + randn(r, d, scale=0.1)).to(cuda) for _ in range(2))
+    if cosine:
+        def run(q, k, v):
+            return fa.flash_cosine_mqa_rows(q, k, v, qs, ks, 8.)
 
-    def plain(q, k, v):
-        return fa.flash_rows_reference(q, fa.l2norm_scale(k, ks), v, 8., qs)
+        def plain(q, k, v):
+            return fa.flash_rows_reference(q, fa.l2norm_scale(k, ks), v, 8., qs)
+    else:   # pre-normalised q and k, scaled only
+        q, k = (fa.l2norm_scale(x, torch.ones(d, device=cuda)) for x in (q, k))
 
-    _check(lambda q, k, v: fa.flash_cosine_mqa_rows(q, k, v, qs, ks, 8.), plain,
-           (q, k, v), (q.float(), k.float(), v.float()), fa.KERNEL)
+        def run(q, k, v):
+            return fa.flash_mqa_rows(q, k, v, 8.)
+
+        def plain(q, k, v):
+            return fa.flash_rows_reference(q, k, v, 8.)
+
+    _check(run, plain, (q, k, v), (q.float(), k.float(), v.float()), fa.KERNEL)
 
 
 @pytest.mark.cuda
@@ -103,23 +123,35 @@ def _bound(err_plain):
     return max(2 * err_plain, 1e-3)
 
 
-def _flash_bwd_inputs(cuda, rows, nk, d, seed):
+def _flash_bwd_inputs(cuda, b, rows, nk, d, seed):
     """bf16-valued q, k (normalised rows, as on the cosine path), v, dO, and
     the fp32 forward's lse and delta, which both versions then share."""
     r = rng(seed)
-    q, k = (fa.l2norm_scale(t(randn(r, 2, n, d)).to(cuda), torch.ones(d, device=cuda))
+    q, k = (fa.l2norm_scale(t(randn(r, b, n, d)).to(cuda), torch.ones(d, device=cuda))
             for n in (rows, nk))
-    v, do = t(randn(r, 2, nk, d)).to(cuda), t(randn(r, 2, rows, d)).to(cuda)
+    v, do = t(randn(r, b, nk, d)).to(cuda), t(randn(r, b, rows, d)).to(cuda)
     q, k, v, do = (x.to(BF16).float() for x in (q, k, v, do))
     out, lse = fa.flash_rows_reference(q, k, v, 8., return_lse=True)
     return q, k, v, do, lse, fa._delta(do, out)
 
 
+def _splits(cuda, b, rows, nk):
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return fa.bwd_splits(b, rows, nk, sm_count)
+
+
+# (b, rows, nk, d) as FLASH_CASES, with the video mid_attn (4, 32768, 4097,
+# 64); (2, 2048, 1063, 64) splits the rows of its dK/dV pass (S > 1) and
+# (8, 1024, 4097, 64) does not (S = 1), as the split test asserts
+FLASH_BWD_CASES = [(2, 2048, 1063, 64), (2, 512, 77, 32), (2, 200, 200, 40),
+                   (4, 32768, 4097, 64), (1, 130, 1, 16), (1, 200, 65, 128),
+                   (8, 1024, 4097, 64), (2, 1000, 63, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (512, 77, 32), (200, 200, 40),
-                                      (32768, 4097, 64)])   # the last: Unet3D's mid_attn
-def test_flash_backward_kernel_matches_plain(cuda, rows, nk, d):
-    q, k, v, do, lse, delta = _flash_bwd_inputs(cuda, rows, nk, d, seed=6)
+@pytest.mark.parametrize('b,rows,nk,d', FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda, b, rows, nk, d):
+    q, k, v, do, lse, delta = _flash_bwd_inputs(cuda, b, rows, nk, d, seed=6)
     before = _build.LAUNCHES[fa.BWD_KERNEL]
     got = fa.flash_rows_backward(*(x.to(BF16) for x in (q, k, v, do)), lse, delta, 8.)
     torch.cuda.synchronize()
@@ -134,17 +166,40 @@ def test_flash_backward_kernel_matches_plain(cuda, rows, nk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('rows,nk,d', [(2048, 1063, 64), (200, 200, 40)])
-def test_flash_forward_lse_matches_plain(cuda, rows, nk, d):
+def test_flash_backward_splits_at_the_test_shapes(cuda):
+    assert _splits(cuda, 2, 2048, 1063) > 1
+    assert _splits(cuda, 8, 1024, 4097) == 1
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give bitwise-equal gradients,
+    with the rows split across blocks (S > 1)."""
+    q, k, v, do, lse, delta = _flash_bwd_inputs(cuda, 2, 2048, 1063, 64, seed=7)
+    assert _splits(cuda, 2, 2048, 1063) > 1
+    args = (*(x.to(BF16) for x in (q, k, v, do)), lse, delta, 8.)
+    first = fa.flash_rows_backward(*args)
+    second = fa.flash_rows_backward(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dq', 'dk', 'dv'), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,rows,nk,d', [(2, 2048, 1063, 64), (2, 200, 200, 40), (1, 130, 1, 16),
+                                        (1, 200, 65, 128), (8, 1024, 4097, 64)])
+def test_flash_forward_lse_matches_plain(cuda, b, rows, nk, d):
     r = rng(8)
-    q, k, v = (t(randn(r, 2, n, d)).to(cuda).to(BF16) for n in (rows, nk, nk))
+    q, k, v = (t(randn(r, b, n, d)).to(cuda).to(BF16) for n in (rows, nk, nk))
     qs, ks = (t(1. + randn(r, d, scale=0.1)).to(cuda) for _ in range(2))
     kn = fa.l2norm_scale(k, ks)
+    before = _build.LAUNCHES[fa.KERNEL]
     _, lse = fa._rows_forward(q, kn, v, 8., qs, with_lse=True)
+    assert _build.LAUNCHES[fa.KERNEL] == before + 1
     _, truth = fa.flash_rows_reference(q.float(), kn.float(), v.float(), 8., qs,
                                        return_lse=True)
     _, plain = fa.flash_rows_reference(q, kn, v, 8., qs, return_lse=True)
-    assert lse.shape == (2, rows) and lse.dtype == torch.float32
+    assert lse.shape == (b, rows) and lse.dtype == torch.float32
     assert max_abs(lse, truth) <= _bound(max_abs(plain, truth))
 
 
