@@ -36,7 +36,10 @@ parameters and random weights from a seed:
   the final conv's input, where kernel 7 (wired nowhere, as in the JAX
   package) would run; the device FLOPs of one forward from
   `torch.utils.flop_counter`; then two request pairs with kernel 14 on and
-  off (its gate closed) on the same weights, in turns.
+  off (its gate closed) on the same weights, in turns; then one request
+  each with kernel 6 on and off (its gate closed, so cuDNN runs those
+  convs) under torch.profiler, for the device time of the request and of
+  kernel 6 in it.
 Every path's cross-embed stem runs kernel 14: its gate admits the stem of
 every U-Net above.
 The launch counts are set to 0 just before each path and read just after.
@@ -57,7 +60,9 @@ shape, finiteness, range and peak memory, kernel 8's sites per forward, the
 sites of kernels 9 and 11, the on/off latencies and output difference;
 per SR-1024 request latency, shape, finiteness, range and peak memory, the
 forward's FLOPs, kernel 14's and kernel 6's launches against their hook
-counts, kernel 7's site, the on/off latencies and output difference;
+counts, kernel 7's site, the on/off latencies and output difference, the
+profiled requests' device time and kernel 6's share of it; the device time
+of the wrapper's weight copy at the (3, 3, 2048, 1024) site;
 per-kernel errors, CUDA-event times, device times and bounds at each shape
 (with the unfused route's time for kernels 8, 11, 12, 13 and 14); the small nets'
 errors; then the card again, one JSON line of kernel results and, last,
@@ -84,14 +89,13 @@ kernels 12 and 13: no one call fuses a LayerNorm with a relayout; kernel
 14: no one call runs convs of three kernel sizes). For kernels 8, 11, 12,
 13 and 14 `unfused_route_ms` times the port's unfused module chain instead
 (for 11 that chain is its plain version; for 14 three cuDNN convs and the
-`cat`). For kernels 1-3 (the flash forward and backward), 7, 8, 9, 11
-and 14 `device_ms` sums the device time per call that torch.profiler reads
-at each shape, weighted the same way: for the backward, its three CUDA
-functions (the dK/dV pass, the sum of its row slices, dQ). For those with a
-library call, `library_device_ms` sums every device kernel that call
-launches, weighted the same way (the flash forward's SDPA takes q and k
-normalised beforehand). `max_abs_err` is the kernel's worst error against
-the fp32 truth over those shapes and outputs.
+`cat`). For every kernel `device_ms` sums the device time per call that
+torch.profiler reads at each shape, weighted the same way: for the flash
+backward, its three CUDA functions (the dK/dV pass, the sum of its row
+slices, dQ). For those with a library call, `library_device_ms` sums every
+device kernel that call launches, weighted the same way (the flash
+forward's SDPA takes q and k normalised beforehand). `max_abs_err` is the
+kernel's worst error against the fp32 truth over those shapes and outputs.
 
 Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
 package beside this file; imports no JAX.
@@ -134,19 +138,20 @@ KERNEL_INFO = {
         device_kernels=3),
     'conv2d_same_3x3_bf16': dict(
         source='imagen_tpu_torch/csrc/conv2d_same.cu',
-        replaces='imagen_tpu/ops/conv2d.py:199'),
+        replaces='imagen_tpu/ops/conv2d.py:199', device_kernel='conv2d_same_3x3_kernel'),
     'fused_feedforward_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_feedforward.cu',
-        replaces='imagen_tpu/ops/fused_norm.py:271'),
+        replaces='imagen_tpu/ops/fused_norm.py:271', device_kernel='fused_feedforward_kernel'),
     'temporal_attn_fwd_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_attn_fwd.cu',
-        replaces='imagen_tpu/ops/flash_attention.py:886'),
+        replaces='imagen_tpu/ops/flash_attention.py:886', device_kernel='temporal_attn_fwd_kernel'),
+    # kernels 12 and 13 are one CUDA function, its fold and unfold variants
     'ln_transpose_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_layout.cu',
-        replaces='imagen_tpu/ops/temporal_layout.py:136'),
+        replaces='imagen_tpu/ops/temporal_layout.py:136', device_kernel='ln_relayout_kernel'),
     'norm_untranspose_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_layout.cu',
-        replaces='imagen_tpu/ops/temporal_layout.py:184'),
+        replaces='imagen_tpu/ops/temporal_layout.py:184', device_kernel='ln_relayout_kernel'),
     'fused_film_norm_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_film_norm.cu',
         replaces='imagen_tpu/ops/fused_norm.py:63', device_kernel='film_norm_kernel'),
@@ -830,6 +835,27 @@ def phase_sr1024_serving(torch, it, build, results):
         f'{[round(v, 3) for v in lats[False]]} s; max |on - off| of the images '
         f'{float((outputs[True] - outputs[False]).abs().max()):.3e}; '
         f'achieved {flops * SR_STEPS / min(lats[True]) / 1e12:.1f} TFLOP/s at the fastest on')
+
+    # kernel 6 on and off (cuDNN at its sites), one profiled request each
+    busy, conv_ms = {}, {}
+    for on in (True, False):
+        with open_or_closed(on, 'conv2d_same_available'):
+            sr1024_request(torch, imagen, emb, mask, start, f'sr1024 conv kernel={on} (unprofiled)')
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                good, _, lat = sr1024_request(torch, imagen, emb, mask, start,
+                                              f'sr1024 profiled, conv kernel={on}')
+        ok &= good
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy[on] = sum(e.self_device_time_total for e in events) / 1e3
+        conv = [e for e in events if KERNEL_INFO['conv2d_same_3x3_bf16']['device_kernel'] in e.key]
+        conv_ms[on] = sum(e.self_device_time_total for e in conv) / 1e3
+        log(f'sr1024_serving profiled, conv kernel {on}: latency {lat:.3f} s, device busy '
+            f'{busy[on]:.1f} ms; kernel 6 {conv_ms[on]:.1f} ms over '
+            f'{sum(e.count for e in conv)} launches, {conv_ms[on] / busy[on]:.1%} of the '
+            f'device time')
+    log(f'sr1024_serving: cuDNN at kernel 6\'s sites, by the difference of the two profiled '
+        f'requests: {conv_ms[True] + busy[False] - busy[True]:.1f} ms against kernel 6\'s '
+        f'{conv_ms[True]:.1f} ms')
     return ok
 
 
@@ -925,7 +951,7 @@ def kernel_cases(torch, name, dims, g):
         flops = 10 * b * rows * nk * d
         nbytes = 2 * (4 * b * rows * d + 4 * b * nk * d) + 8 * b * rows
     elif name == c2d.KERNEL:
-        b, H, W, cin, cout = dims
+        b, H, W, cin, cout = dims[:5]   # then the tiling: rows, stages, grid
         inputs = [rnd(b, H, W, cin).to(bf16),
                   rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(bf16),
                   rnd(cout, scale=0.1).to(bf16)]
@@ -1089,10 +1115,24 @@ def kernel_cases(torch, name, dims, g):
             nbytes)
 
 
+def log_weight_copy(torch):
+    """The device time of one contiguous copy of `SameConv3x3`'s permuted bf16
+    weight view at the (3, 3, 2048, 1024) site, the copy the conv wrapper's
+    `kernel_weight` makes, beside a zero pad followed by `.contiguous()`,
+    which copies twice."""
+    import torch.nn.functional as F
+    view = torch.randn((1024, 2048, 3, 3), device='cuda').to(torch.bfloat16).permute(2, 3, 1, 0)
+    one = device_time_ms(view.contiguous)
+    two = device_time_ms(lambda: F.pad(view, (0, 0)).contiguous())
+    log(f'conv weight copy at (3, 3, 2048, 1024), {view.numel() * 2 / 1e6:.1f} MB: one copy '
+        f'{one:.4f} ms on the device; a zero pad then .contiguous() {two:.4f} ms')
+
+
 def phase_kernels(torch, results):
     g = torch.Generator(device='cuda').manual_seed(7)
     ok = True
     summary = []
+    log_weight_copy(torch)
     for name, info in KERNEL_INFO.items():
         worst = 0.
         totals = defaultdict(float)

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of the flash attention kernels of csrc/:
+// Hopper (sm_90a) building blocks of the flash attention and 3x3 conv kernels of csrc/:
 // tiles in shared memory in the swizzled layouts that wgmma reads, their
 // matrix descriptors, the wgmma products (A from shared memory or from
 // registers, fp32 accumulators in registers), mbarriers, TMA tile loads, and
@@ -60,6 +60,10 @@ __device__ __forceinline__ int tile_offset(int r, int c) {
   return (c / (S::RB / 16)) * ROWS * S::RB + (o ^ (((o >> 7) & (S::RB / 16 - 1)) << 4));
 }
 
+// The matrix base offset (bits 49-51) stays 0, also for a matrix that starts
+// off the swizzle's 1024-byte period (the conv's shifted windows): the H100
+// swizzles by the absolute shared-memory address, as TMA writes (setting the
+// field to the start's phase gave wrong products there).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                               int layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
@@ -347,6 +351,34 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// A box at signed coordinates (c0 innermost); what lies outside the tensor
+// arrives as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// A box from shared memory to the tensor; what lies outside it is not written.
+// Commit with `tma_store_commit`, then `tma_store_wait` before the shared
+// memory is written again.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0) {
   asm volatile(
@@ -370,7 +402,7 @@ __device__ __forceinline__ void tma_store_rows(uint32_t tile, int r0, const CUte
             reinterpret_cast<uint64_t>(map)),
         "r"(tile + (blk * ROWS + r0) * S::RB), "r"(blk * S::C), "r"(row), "r"(batch)
         : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  tma_store_commit();
 }
 // Waits until the TMA stores have read their shared memory.
 __device__ __forceinline__ void tma_store_wait() {
@@ -441,7 +473,7 @@ inline bool encode_cached(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t
                           const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
                           const cuuint32_t* box, CUtensorMapSwizzle swizzle,
                           CUtensorMapL2promotion l2) {
-  constexpr int KEY = 13, ENTRIES = 64;
+  constexpr int KEY = 16, ENTRIES = 64;
   struct Entry {
     uint64_t key[KEY];
     CUtensorMap map;
@@ -450,10 +482,10 @@ inline bool encode_cached(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t
   static Entry kept[ENTRIES];
   static int used = 0, next = 0;
   uint64_t key[KEY] = {(uint64_t)type, rank, (uint64_t)base, (uint64_t)swizzle, (uint64_t)l2};
-  for (cuuint32_t i = 0; i < rank; ++i) {  // rank <= 3
+  for (cuuint32_t i = 0; i < rank; ++i) {  // rank <= 4
     key[5 + i] = dims[i];
-    key[8 + i] = box[i];
-    if (i > 0) key[11 + i - 1] = strides[i - 1];
+    key[9 + i] = box[i];
+    if (i > 0) key[13 + i - 1] = strides[i - 1];
   }
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i) {
@@ -463,10 +495,11 @@ inline bool encode_cached(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t
     }
   }
   const EncodeTiled encode = encode_tiled();
-  const cuuint32_t elem[3] = {1, 1, 1};
-  if (!encode || encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (!encode || rank > 4 ||
+      encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   memcpy(kept[next].key, key, sizeof key);
   kept[next].map = *map;

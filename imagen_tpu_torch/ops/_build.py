@@ -43,8 +43,9 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, dk, dv, part (fp32 scratch), b, rows, nk, d, splits,
     # scale, stream
     'flash_rows_bwd_bf16': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # x, w (kh, kw, I, O), bias (nullable), out, b, H, W, cin, cout, stream
-    'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w (kh, kw, I, O), bias (nullable), out, b, H, W, cin, cout, rows, stages, grid,
+    # stream
+    'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, stream
     'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, q_scale, bias2, out, P, frames, heads, nk, d, scale2, stream

@@ -25,6 +25,8 @@ backward is the VJP of its plain version (`_bwd_cf`).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +37,48 @@ from imagen_tpu_torch.ops.tensor_utils import wants_grad
 KERNEL = 'conv2d_same_3x3_bf16'
 CF_KERNEL = 'conv2d_same_cf_bf16'
 CF_MAX_COUT = 8
+
+# The tiling of csrc/conv2d_same.cu: a tile is `rows` output rows x TILE_W
+# pixels x TILE_N output channels, K in CHUNK-channel bands.
+SMS = 132                 # the H100's SMs (the wrapper reads the card's count)
+SMEM_LIMIT = 232448       # bytes of shared memory a block may use on the H100
+TILE_W, TILE_N, CHUNK = 64, 128, 64
+
+
+class ConvTiles(NamedTuple):
+    rows: int     # output rows a tile (2 or 4): 128 or 256 pixels
+    stages: int   # weight stages (one tap of 64 channels x 128 outputs each)
+    grid: int     # blocks; fewer than `tiles` makes the grid persistent
+    tiles: int
+    smem: int     # bytes of shared memory a block asks for
+
+
+def conv_smem(rows, stages):
+    """Shared memory of a block, as csrc/conv2d_same.cu lays it out: two
+    input bands of (rows + 2) x (TILE_W + 2) pixels x 128 bytes on 1024-byte
+    boundaries, the output staging (rows x 64 pixels x 256 bytes), the weight
+    ring, its mbarriers and 1024 bytes of alignment slack."""
+    band = -(-(rows + 2) * (TILE_W + 2) * 2 * CHUNK // 1024) * 1024
+    return 2 * band + rows * TILE_W * TILE_N * 2 + stages * CHUNK * TILE_N * 2 \
+        + 16 * (2 + stages) + 1024
+
+
+def conv_tiles(b, H, W, cin, cout, sms=SMS):
+    """The tiling of one call: 256-pixel tiles (4 rows) where they still give
+    every SM a tile, else 128-pixel tiles (2 rows); as many weight stages as
+    fit; and, where the tiles outnumber the SMs, a persistent grid of one
+    block an SM, so a block's next tile loads during its epilogue."""
+    n_tiles = -(-(-(-cout // 8) * 8) // TILE_N)
+
+    def tiles(rows):
+        return b * -(-H // rows) * -(-W // TILE_W) * n_tiles
+
+    rows = 4 if tiles(4) >= sms else 2
+    stages = 2
+    while conv_smem(rows, stages + 1) <= SMEM_LIMIT:
+        stages += 1
+    count = tiles(rows)
+    return ConvTiles(rows, stages, min(count, sms), count, conv_smem(rows, stages))
 
 
 def conv2d_same_available(x_shape, w_shape, dtype=torch.bfloat16, device_type='cuda'):
@@ -69,6 +113,21 @@ def conv2d_same_reference(x, w, bias):
     return y
 
 
+def kernel_weight(w):
+    """The (3, 3, cin, coutp) bf16 weight the kernel reads, coutp = cout
+    rounded up to 8 (TMA rows are 16-byte multiples), zero past cout: at most
+    one copy (none for a contiguous bf16 weight of cout % 8 == 0), whatever
+    the strides of `w` (`SameConv3x3` hands over a permuted view)."""
+    cout = w.shape[3]
+    coutp = -(-cout // 8) * 8
+    if coutp == cout and w.dtype == torch.bfloat16 and w.is_contiguous():
+        return w
+    wp = torch.empty((*w.shape[:3], coutp), dtype=torch.bfloat16, device=w.device)
+    wp[..., :cout].copy_(w)
+    wp[..., cout:].zero_()
+    return wp
+
+
 def _conv_forward(x, w, bias):
     if x.device.type == 'cpu':
         return conv2d_same_reference(x, w, bias)
@@ -82,15 +141,17 @@ def _conv_forward(x, w, bias):
     if cin % 16 != 0:
         raise ValueError(f'conv2d_same kernel needs cin % 16 == 0, got {cin}')
     cout = w.shape[3]
-    coutp = -(-cout // 8) * 8  # the kernel moves 8-channel vectors
     x = x.contiguous()
-    w = F.pad(w.to(torch.bfloat16), (0, coutp - cout)).contiguous()
+    w = kernel_weight(w)
+    coutp = w.shape[3]
     if bias is not None:
         bias = F.pad(bias.to(torch.bfloat16), (0, coutp - cout)).contiguous()
     out = torch.empty((b, H, W, coutp), dtype=x.dtype, device=x.device)
+    tiles = conv_tiles(b, H, W, cin, coutp,
+                       torch.cuda.get_device_properties(x.device).multi_processor_count)
     _build.launch(KERNEL, x.data_ptr(), w.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  b, H, W, cin, coutp)
+                  b, H, W, cin, coutp, tiles.rows, tiles.stages, tiles.grid)
     return out if coutp == cout else out[..., :cout]
 
 

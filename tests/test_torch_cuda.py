@@ -10,12 +10,14 @@ no JAX, so on a machine without JAX run them without the repo's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+import numpy as np
 import pytest
 import torch
 
 from torch_port_bridge import max_abs, randn, rng, t
 
 import imagen_tpu_torch as it
+from imagen_tpu_torch.models import blocks
 from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.ops import conv2d as c2d
 from imagen_tpu_torch.ops import flash_attention as fa
@@ -81,16 +83,91 @@ def test_flash_kernel_matches_plain(cuda, b, rows, nk, d, cosine):
     _check(run, plain, (q, k, v), (q.float(), k.float(), v.float()), fa.KERNEL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('shape,cout', [((2, 16, 128, 128), 128), ((1, 7, 100, 64), 70)])
-def test_conv2d_kernel_matches_plain(cuda, shape, cout):
-    r = rng(4)
-    cin = shape[-1]
-    x = t(randn(r, *shape)).to(cuda).to(BF16)
+def _conv_inputs(cuda, shape, cout, seed=4, corners=False):
+    """bf16 x (nonzero only at the four image corners with `corners`), w
+    scaled to unit outputs, and bias."""
+    r = rng(seed)
+    b, H, W, cin = shape
+    x = randn(r, *shape)
+    if corners:
+        keep = np.zeros((H, W, 1), np.float32)
+        keep[0, 0] = keep[0, -1] = keep[-1, 0] = keep[-1, -1] = 1.
+        x = x * keep
+    x = t(x).to(cuda).to(BF16)
     w = t(randn(r, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)).to(cuda).to(BF16)
     bias = t(randn(r, cout, scale=0.1)).to(cuda).to(BF16)
+    return x, w, bias
+
+
+# (x shape, cout, bias, the tiling `conv_tiles` chooses: rows a tile and
+# whether the grid is persistent): ragged W 100 and H 7; b 1, 2 and 3; cin
+# 16, 48, 64, 128 and 2048; cout 8, 70, 128, 384 and 1024 (8 and 70 leave the
+# second 64-channel block of a tile wholly or partly outside cout)
+CONV_CASES = [((2, 16, 128, 128), 128, True, (2, False)),
+              ((1, 7, 100, 64), 70, True, (2, False)),
+              ((1, 7, 100, 16), 128, False, (2, False)),
+              ((3, 12, 70, 48), 1024, False, (4, True)),
+              ((1, 132, 256, 16), 8, True, (4, False)),
+              ((1, 128, 64, 64), 384, True, (2, True)),
+              ((2, 64, 64, 2048), 128, True, (2, False)),
+              ((2, 64, 64, 1024), 1024, True, (4, True))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout,with_bias,tiling', CONV_CASES)
+def test_conv2d_kernel_matches_plain(cuda, shape, cout, with_bias, tiling):
+    tiles = c2d.conv_tiles(*shape, cout)
+    assert (tiles.rows, tiles.grid < tiles.tiles) == tiling
+    assert tiles.smem <= c2d.SMEM_LIMIT
+    x, w, bias = _conv_inputs(cuda, shape, cout)
+    if not with_bias:
+        bias = None
+    fp32 = (x.float(), w.float(), None if bias is None else bias.float())
+    _check(c2d.conv2d_same, c2d.conv2d_same_reference, (x, w, bias), fp32, c2d.KERNEL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout', [((2, 9, 100, 64), 128), ((1, 8, 64, 128), 72)])
+def test_conv2d_kernel_zero_halo_at_every_tap(cuda, shape, cout):
+    """An input that is nonzero only at the four image corners: each corner
+    reaches its 3 x 3 neighbourhood through the tap that points back at it,
+    and every other output is the bias alone, exactly."""
+    x, w, bias = _conv_inputs(cuda, shape, cout, seed=12, corners=True)
     _check(c2d.conv2d_same, c2d.conv2d_same_reference, (x, w, bias),
            (x.float(), w.float(), bias.float()), c2d.KERNEL)
+    out = c2d.conv2d_same(x, w, bias)
+    H, W = shape[1:3]
+    far = torch.ones((H, W), dtype=torch.bool, device=cuda)
+    for y in (0, H - 1):
+        for xx in (0, W - 1):
+            far[max(y - 1, 0):y + 2, max(xx - 1, 0):xx + 2] = False
+    assert torch.equal(out[:, far], bias.expand_as(out[:, far]))
+
+
+@pytest.mark.cuda
+def test_conv2d_kernel_is_deterministic(cuda):
+    x, w, bias = _conv_inputs(cuda, (2, 64, 64, 1024), 1024, seed=13)
+    first = c2d.conv2d_same(x, w, bias)
+    assert torch.equal(first, c2d.conv2d_same(x, w, bias))
+
+
+@pytest.mark.cuda
+def test_same_conv_module_runs_the_kernel_right(cuda, monkeypatch):
+    """`SameConv3x3` hands the kernel a permuted bf16 view of its (O, I, 3, 3)
+    weight: its output is held to fp32 as its cuDNN route (gate closed) is."""
+    torch.manual_seed(14)
+    conv = blocks.SameConv3x3(128, 256, dtype=BF16).to(cuda)
+    x = t(randn(rng(15), 2, 128, 128, 128)).to(cuda).to(BF16)
+    before = _build.LAUNCHES[c2d.KERNEL]
+    with torch.no_grad():
+        out = conv(x)
+        assert _build.LAUNCHES[c2d.KERNEL] == before + 1
+        w, bias = (v.to(BF16).float() for v in (conv.weight, conv.bias))
+        truth = c2d.conv2d_same_reference(x.float(), w.permute(2, 3, 1, 0), bias)
+        monkeypatch.setattr(blocks, 'conv2d_same_available', lambda *a, **k: False)
+        plain = conv(x)
+    assert _build.LAUNCHES[c2d.KERNEL] == before + 1
+    assert max_abs(out.float(), truth) <= _bound(max_abs(plain.float(), truth))
 
 
 @pytest.mark.cuda
