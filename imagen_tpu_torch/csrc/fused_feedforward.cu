@@ -1,170 +1,502 @@
-// Fused transformer feedforward, bf16, for sm_90a:
+// Fused transformer feedforward, bf16, for sm_90a: wgmma products fed by TMA,
+// the hidden row split over a thread block cluster.
 //   out = LN1(gelu(LN0(x) @ W0^T)) @ W1^T        (bias-free LayerNorms, no biases)
 //
 // Replaces `fused_feedforward` -> `_ff_forward` -> `_ff_kernel` of
 // imagen_tpu/ops/fused_norm.py. Rounding follows `_ff_kernel`: LayerNorm
-// statistics in fp32, each matmul input rounded to bf16, matmuls accumulated
-// in fp32, the first product rounded to bf16 before the exact erf GELU, the
-// GELU output rounded to bf16 before the second LayerNorm. CUDA has erff, so
-// the GELU is exact rather than the Pallas kernel's A&S polynomial.
+// statistics in fp32 in two passes (the mean, then the centred variance), each
+// product's input rounded to bf16, products accumulated in fp32, the first
+// product rounded to bf16 before the exact erf GELU, the GELU output rounded to
+// bf16 before LN1, the output rounded to bf16 once. CUDA has erff, so the GELU
+// is exact rather than the Pallas kernel's A&S polynomial.
 //
-// W0 is the torch Linear weight (hid, k) and W1 is (k, hid), as the module
-// stores them; x and out are (rows, k).
+// x and out are (rows, k); W0 is the torch Linear weight (hid, k) and W1 is
+// (k, hid), bf16, as the module stores them (both K-major for wgmma's B
+// operand as they lie); the gains g0 (k,) and g1 (hid,) are fp32.
 //
-// What bounds it on the H100: 4 * k * hid flops per row against 4 * k bytes
-// of x and out, so at the slice's widths (k 128..512, hid 512..2048) it is
-// bound by the tensor cores, while the unfused chain would move the (rows,
-// hid) hidden activation through HBM four times. Design: one block of 8
-// warps per 16-row tile keeps the normalised x tile and the whole hidden row
-// tile (16 x hid bf16, 64 KB at hid 2048) in shared memory, so the second
-// LayerNorm, which needs the full hidden row, reads it there. Both products
-// run on 16x16x16 WMMA bf16 fragments with B read from the weights in global
-// memory (L2-resident across blocks). Simple first: no wgmma, no TMA, no
-// staging of weight tiles in shared memory; those are later work.
+// What bounds it on the H100: 4 k hid flops a row. At the paths' sites,
+// (8192, 512, 1024) does 17.2 GFLOP against 19 MB (0.017 ms at the dense
+// bf16 peak: the tensor cores bound it); the Perceiver's (b 36, 512, 2048)
+// and (b 36, 128, 512) are a few rows against 4 MB and 0.25 MB of weights
+// (the bytes bound them, 1.4 us and less), so there only latency and the
+// spread over SMs count. Next after the tensor cores comes the traffic from L2
+// into the SMs: every 64-row block reads both weights whole, 2 k hid bytes.
+//
+// Design.
+// - A cluster of `cl` blocks (1, 2, 4 or 8; `ops/fused_norm.ff_tiles` picks
+//   it) shares 64 rows; block `rank` owns the hidden columns [rank HS, (rank +
+//   1) HS), HS = hid / cl (128, 256 or 512). A block is a producer warpgroup,
+//   which gives its registers up (setmaxnreg), and two consumer warpgroups.
+// - One TMA load per 64 columns brings the x tile (128-byte swizzle; rows past
+//   `rows` arrive as zeros); the consumers take LN0 in place, 8 threads a row,
+//   each on its own 16 bytes of every 128-byte row block (no bank conflicts).
+// - The producer streams the weights by TMA through an mbarrier ring of 32-K
+//   stages (64-byte swizzle): first W0's HS rows, then, for the second
+//   product, all k rows of W1's block columns. W0 and W1 need no repack: each
+//   is K-major as stored.
+// - Product 1, wgmma m64nHS/2k16: warpgroup w computes hidden columns w HS/2 ..
+//   of its block; bf16 round, GELU, bf16 round, in registers.
+// - LN1's row statistics over the whole hidden row: each block sums its
+//   columns (two warpgroups, then a fixed order), writes the partial into
+//   every block of the cluster through distributed shared memory, and after a
+//   cluster barrier each block sums the cl partials in rank order: the mean,
+//   then the same for the centred squares. The normalised slice goes to
+//   shared memory as bf16, the A operand of product 2, over the x tile, which
+//   product 1 no longer reads: so a 512-column slice fits beside a 4-stage
+//   ring (128 KB in flight).
+// - Product 2, wgmma m64n(k/2)k16: warpgroup w computes output columns w k/2 ..
+//   over the block's HS hidden columns, a partial sum in fp32 registers (128 a
+//   thread at k = 512).
+// - The partials are reduced across the cluster and scattered: block j owns
+//   output columns [j k / cl, (j + 1) k / cl). After a cluster barrier (every
+//   block's products done, so its hidden slice and ring are free), each
+//   thread writes the float4s of each block's columns into that block's
+//   shared memory (its own by a local store); after another, each owner's 256
+//   consumer threads sum the cl partials in rank order, round once and stage
+//   its columns, which one TMA store a 64-column box writes, clipping the
+//   ragged last rows. The order is fixed, so a result is bitwise the same
+//   from run to run.
+// What was weighed: one block holding a whole 64-row hidden tile takes 128 KB
+// at hid 1024 and 256 KB at hid 2048 beside 64 KB of x, past shared memory,
+// and gives 5 blocks at 288 rows; the split puts up to 40 blocks on that
+// shape. Gathering the normalised hidden slices (all-gather, 2 hid bytes a
+// row) in place of scattering fp32 partials (4 k bytes a row) moves fewer
+// bytes at hid 1024 but needs either the whole hidden row in every block's
+// shared memory or the register A form fed by remote loads. Timed on the
+// card in development: separate x and hidden regions with 256-column slices
+// (4 blocks a cluster at hid 1024) and a 3-stage ring lost to the layout
+// above by 2.5x at (8192, 512, 1024); the products there waited on the
+// ring, and the work outside them (LN0, GELU, the statistics, the scatter)
+// repeats in every block of a cluster, so fewer, wider blocks and a deeper
+// ring won. Summing the partials in the registers of the owner's
+// warpgroup, half the block idle, lost to the 256-thread loop below; GELU
+// as a called function, not inlined, lost too.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 16;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+constexpr int BM = 64;              // rows of a block: one m64 block
+constexpr int THREADS = 384;        // two consumer warpgroups and a producer warpgroup
+constexpr int CONSUMERS = 256;
+constexpr int KC = 32;              // K of a weight stage: 64-byte rows, 64-byte swizzle
+constexpr int MAX_CLUSTER = 8;
+constexpr int MAX_SMEM = 232448;    // shared memory a block may use on the H100
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Shared memory, every region on a 1024-byte boundary (ops/fused_norm.py
+// `ff_smem` computes the same): the x tile, which the normalised hidden slice
+// takes over once product 1 has read it; the weight ring; the row statistics
+// ([2 passes][8 ranks][64 rows] partials and [2 warpgroups][64 rows] sums);
+// the mbarriers; 1024 bytes of alignment slack. After product 2 the first two
+// regions hold the partials of the cluster's blocks ([cl][k / cl / 8 n8
+// blocks][128 threads] float4, k 256 bytes), then the output staging.
+struct Layout {
+  int ring, stats, red, bars, stage, total;
+};
+
+__host__ __device__ inline Layout layout(int k, int hs, int stages) {
+  Layout L;
+  const int wide = hs > k ? hs : k;
+  L.stage = wide * KC * 2;
+  L.ring = BM * wide * 2;
+  L.stats = L.ring + stages * L.stage;
+  L.red = L.stats + 2 * MAX_CLUSTER * BM * 4;
+  L.bars = L.red + 2 * BM * 4;
+  L.total = L.bars + 8 * (2 * stages + 1) + 1024;
+  return L;
 }
 
-// fp32 LayerNorm of one row of length n, rounded to bf16 into dst; one warp.
-template <typename Load>
-__device__ void layernorm_row(Load load, const float* __restrict__ g, int n, float eps,
-                              __nv_bfloat16* dst, int lane) {
-  float s = 0.f;
-  for (int c = lane; c < n; c += 32) s += load(c);
-  const float mean = warp_sum(s) / n;
-  float v = 0.f;
-  for (int c = lane; c < n; c += 32) {
-    const float d = load(c) - mean;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / n + eps);
-  for (int c = lane; c < n; c += 32)
-    dst[c] = __float2bfloat16((load(c) - mean) * rstd * g[c]);
+// K-major operands: k16 step at column `col` of a tile of 64-column blocks in
+// the 128-byte swizzle (x and the hidden slice, A), and k16 step `ks` of a
+// 32-column stage in the 64-byte swizzle (the weights, B).
+__device__ __forceinline__ uint64_t desc_a(uint32_t tile, int col) {
+  return make_desc(tile + (col / 64) * BM * 128 + (col % 64) * 2, 16, 1024, 1);
+}
+__device__ __forceinline__ uint64_t desc_b(uint32_t stage, int ks) {
+  return make_desc(stage + ks * 32, 16, 512, 2);
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_feedforward_kernel(const __nv_bfloat16* __restrict__ x,
-                         const float* __restrict__ g0,
-                         const __nv_bfloat16* __restrict__ w0,
-                         const float* __restrict__ g1,
-                         const __nv_bfloat16* __restrict__ w1,
-                         __nv_bfloat16* __restrict__ out,
-                         int rows, int k, int hid, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem);                 // BM x k
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem + BM * k * 2);    // BM x hid
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* scratch = reinterpret_cast<float*>(smem + BM * (k + hid) * 2) + warp * 256;
-  const int row0 = blockIdx.x * BM;
+__device__ __forceinline__ float gelu_bf16(float acc) {
+  const float h = __bfloat162float(__float2bfloat16(acc));
+  return __bfloat162float(__float2bfloat16(0.5f * h * (1.f + erff(h * 0.70710678118654752f))));
+}
 
-  // LN0 over k, two rows per warp (rows past the end are zeros)
-  for (int r = warp; r < BM; r += WARPS) {
-    const int gr = row0 + r;
-    if (gr < rows) {
-      const __nv_bfloat16* xr = x + (size_t)gr * k;
-      layernorm_row([&](int c) { return __bfloat162float(xr[c]); }, g0, k, eps,
-                    Xs + r * k, lane);
-    } else {
-      for (int c = lane; c < k; c += 32) Xs[r * k + c] = __float2bfloat16(0.f);
+template <int N1, int N2>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_feedforward_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w0,
+                         const __grid_constant__ CUtensorMap tm_w1,
+                         const __grid_constant__ CUtensorMap tm_out,
+                         const float* __restrict__ g0, const float* __restrict__ g1, int hid,
+                         int stages, float eps) {
+  constexpr int K = 2 * N2;          // the model width k
+  constexpr int HS = 2 * N1;         // hidden columns of a block
+  constexpr int ITEMS1 = K / KC;     // weight stages of product 1
+  constexpr int ITEMS2 = HS / KC;    // and of product 2
+  const Layout L = layout(K, HS, stages);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  uint64_t* x_full = empty + stages;
+  float* stats = reinterpret_cast<float*>(smem + L.stats);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cl = hid / HS;
+  const int rank = (int)cluster_rank();
+  const int row0 = (blockIdx.x / cl) * BM;
+  const int hs0 = rank * HS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    mbar_init(x_full, 1);
+    mbar_fence_init();
   }
-  __syncthreads();
+  // every block of the cluster runs, its barriers set up, before any block
+  // writes another's shared memory
+  cluster_sync();
 
-  // H = gelu(bf16(Xs @ W0^T)), rounded to bf16
-  for (int nf = warp; nf < hid / 16; nf += WARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < k / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, Xs + kk * 16, k);
-      wmma::load_matrix_sync(b, w0 + (size_t)nf * 16 * k + kk * 16, k);
-      wmma::mma_sync(acc, a, b, acc);
+  if (warp >= 8) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<40>();
+    const bool issuer = warp == 8 && lane == 0;
+    auto load = [&](int it) {
+      const int s = it % stages;
+      if (it >= stages) mbar_wait(&empty[s], (it / stages - 1) & 1);
+      const uint32_t dst = sbase + L.ring + s * L.stage;
+      if (it < ITEMS1) {
+        mbar_expect_tx(&full[s], HS * KC * 2);
+        tma_load_2d(dst, &tm_w0, &full[s], it * KC, hs0);
+        tma_load_2d(dst + N1 * KC * 2, &tm_w0, &full[s], it * KC, hs0 + N1);
+      } else {
+        const int c = hs0 + (it - ITEMS1) * KC;
+        mbar_expect_tx(&full[s], K * KC * 2);
+        tma_load_2d(dst, &tm_w1, &full[s], c, 0);
+        tma_load_2d(dst + N2 * KC * 2, &tm_w1, &full[s], c, N2);
+      }
+    };
+    // The cluster barriers come in the consumers' order: the statistics' two
+    // (arrived at once: these loads wait on nothing but this block), then the
+    // products' end and the partials'. Stages past the ring's depth into
+    // product 2 wait on consumers that are past the statistics.
+    cluster_arrive();
+    int it = 0;
+    if (issuer) {
+      mbar_expect_tx(x_full, BM * K * 2);
+      for (int b = 0; b < K / 64; ++b)
+        tma_load_2d(sbase + b * BM * 128, &tm_x, x_full, b * 64, row0);
+      const int first = ITEMS1 + (stages < ITEMS2 ? stages : ITEMS2);
+      for (; it < first; ++it) load(it);
     }
-    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
     __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const float h = __bfloat162float(__float2bfloat16(scratch[i]));
-      const float ge = 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-      Hs[(i / 16) * hid + nf * 16 + i % 16] = __float2bfloat16(ge);
-    }
+    cluster_wait();
+    cluster_sync();
+    if (issuer)
+      for (; it < ITEMS1 + ITEMS2; ++it) load(it);
     __syncwarp();
+    cluster_sync();
+    cluster_sync();
+    return;
   }
-  __syncthreads();
 
-  // LN1 over hid, in place
-  for (int r = warp; r < BM; r += WARPS) {
-    __nv_bfloat16* hr = Hs + r * hid;
-    // statistics read the row before any element is overwritten
+  setmaxnreg_inc<232>();
+  const int wg = warp / 4, tid = threadIdx.x % 128, ct = threadIdx.x;
+  const int r = (warp % 4) * 16 + lane / 4;  // this thread's accumulator rows: r, r + 8
+  const int cq = 2 * (lane % 4);             // its first column of each n8 block
+
+  // LN0 of the x tile in place: 8 threads a row, each a 16-byte chunk of every
+  // 128-byte row block (8 chunks of one swizzled row: no bank conflicts)
+  mbar_wait(x_full, 0);
+  const int part = ct % 8;
+  for (int row = ct / 8; row < BM; row += CONSUMERS / 8) {
     float s = 0.f;
-    for (int c = lane; c < hid; c += 32) s += __bfloat162float(hr[c]);
-    const float mean = warp_sum(s) / hid;
-    float v = 0.f;
-    for (int c = lane; c < hid; c += 32) {
-      const float d = __bfloat162float(hr[c]) - mean;
-      v += d * d;
+#pragma unroll
+    for (int c = part; c < K / 8; c += 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(smem + tile_offset<128, BM>(row, c));
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        s += f.x + f.y;
+      }
     }
-    const float rstd = rsqrtf(warp_sum(v) / hid + eps);
-    __syncwarp();
-    for (int c = lane; c < hid; c += 32)
-      hr[c] = __float2bfloat16((__bfloat162float(hr[c]) - mean) * rstd * g1[c]);
+#pragma unroll
+    for (int o = 1; o < 8; o *= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / K;
+    float q = 0.f;
+#pragma unroll
+    for (int c = part; c < K / 8; c += 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(smem + tile_offset<128, BM>(row, c));
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        q += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o *= 2) q += __shfl_xor_sync(0xffffffffu, q, o);
+    const float rstd = rsqrtf(q / K + eps);
+#pragma unroll
+    for (int c = part; c < K / 8; c += 8) {
+      uint4* at = reinterpret_cast<uint4*>(smem + tile_offset<128, BM>(row, c));
+      uint4 v = *at;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+      const float4 ga = *reinterpret_cast<const float4*>(g0 + c * 8);
+      const float4 gb = *reinterpret_cast<const float4*>(g0 + c * 8 + 4);
+      const float gs[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        p[e] = __floats2bfloat162_rn((f.x - mean) * rstd * gs[2 * e],
+                                     (f.y - mean) * rstd * gs[2 * e + 1]);
+      }
+      *at = v;
+    }
   }
-  __syncthreads();
+  fence_proxy_async();
+  named_sync(1, CONSUMERS);
 
-  // out = Hs @ W1^T
-  for (int nf = warp; nf < k / 16; nf += WARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < hid / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, Hs + kk * 16, hid);
-      wmma::load_matrix_sync(b, w1 + (size_t)nf * 16 * hid + kk * 16, hid);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
+  // product 1: hidden columns wg N1 .. of this block's slice
+  float acc1[N1 / 2];
+  for (int it = 0; it < ITEMS1; ++it) {
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    const uint32_t wt = sbase + L.ring + s * L.stage + wg * N1 * KC * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+      wgmma_ss<N1, 0>(acc1, desc_a(sbase, it * KC + ks * 16), desc_b(wt, ks), (it | ks) != 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the stage before is read: free it
     __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int gr = row0 + i / 16;
-      if (gr < rows) out[(size_t)gr * k + nf * 16 + i % 16] = __float2bfloat16(scratch[i]);
+    if (lane == 0 && it > 0) mbar_arrive(&empty[(it - 1) % stages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc1);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[(ITEMS1 - 1) % stages]);
+
+  // gelu(bf16(h)) rounded to bf16, kept in acc1; d[4j + {0, 1}] are row r,
+  // d[4j + {2, 3}] row r + 8
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N1 / 2; ++i) {
+    acc1[i] = gelu_bf16(acc1[i]);
+    if (i & 2) s1 += acc1[i];
+    else s0 += acc1[i];
+  }
+
+  // A row statistic over the whole hidden row: this thread's sums (rows r, r
+  // + 8) over its columns -> the warpgroup's -> the block's (warpgroup 0, then
+  // 1) -> into every block's `stats[pass][rank]` -> summed in rank order.
+  auto row_total = [&](int pass, float& a, float& b) {
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+    b += __shfl_xor_sync(0xffffffffu, b, 2);
+    if (lane % 4 == 0) {
+      red[wg * BM + r] = a;
+      red[wg * BM + r + 8] = b;
     }
+    named_sync(1, CONSUMERS);
+    if (ct < BM) {
+      const float part = red[ct] + red[BM + ct];
+      const uint32_t at = smem_u32(stats + (pass * MAX_CLUSTER + rank) * BM + ct);
+      for (int dst = 0; dst < cl; ++dst) st_cluster(map_rank(at, dst), part);
+    }
+    cluster_sync();  // every block's partials are in
+    const float* col = stats + pass * MAX_CLUSTER * BM;
+    a = col[r];
+    b = col[r + 8];
+    for (int src = 1; src < cl; ++src) {
+      a += col[src * BM + r];
+      b += col[src * BM + r + 8];
+    }
+  };
+  row_total(0, s0, s1);
+  const float m0 = s0 / hid, m1 = s1 / hid;
+  float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N1 / 2; ++i) {
+    if (i & 2) v1 += (acc1[i] - m1) * (acc1[i] - m1);
+    else v0 += (acc1[i] - m0) * (acc1[i] - m0);
+  }
+  row_total(1, v0, v1);
+  const float rs0 = rsqrtf(v0 / hid + eps), rs1 = rsqrtf(v1 / hid + eps);
+
+  // the normalised slice, bf16, the A operand of product 2, over the x tile:
+  // both warpgroups are past product 1 (the statistics' barriers)
+#pragma unroll
+  for (int j = 0; j < N1 / 8; ++j) {
+    const int col = wg * N1 + 8 * j + cq;
+    const float2 g = *reinterpret_cast<const float2*>(g1 + hs0 + col);
+    const int byte = (col % 8) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(smem + tile_offset<128, BM>(r, col / 8) + byte) =
+        __floats2bfloat162_rn((acc1[4 * j] - m0) * rs0 * g.x, (acc1[4 * j + 1] - m0) * rs0 * g.y);
+    *reinterpret_cast<__nv_bfloat162*>(smem + tile_offset<128, BM>(r + 8, col / 8) + byte) =
+        __floats2bfloat162_rn((acc1[4 * j + 2] - m1) * rs1 * g.x,
+                              (acc1[4 * j + 3] - m1) * rs1 * g.y);
+  }
+  fence_proxy_async();
+  named_sync(1, CONSUMERS);
+
+  // product 2: output columns wg N2 .., over this block's hidden columns
+  float acc2[N2 / 2];
+  for (int i = 0; i < ITEMS2; ++i) {
+    const int it = ITEMS1 + i, s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    const uint32_t wt = sbase + L.ring + s * L.stage + wg * N2 * KC * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+      wgmma_ss<N2, 0>(acc2, desc_a(sbase, i * KC + ks * 16), desc_b(wt, ks), (i | ks) != 0);
+    wgmma_commit();
+    wgmma_wait<1>();
     __syncwarp();
+    if (lane == 0 && i > 0) mbar_arrive(&empty[(it - 1) % stages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc2);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[(ITEMS1 + ITEMS2 - 1) % stages]);
+
+  // the partials: block j owns output columns [j oc, (j + 1) oc). Each
+  // thread writes the float4 of each n8 block of its accumulator into the
+  // owner's slot `rank` (its own block's by a local store): slots [cl][ob n8
+  // blocks][128 threads] float4 over the hidden slice and the ring
+  const int oc = K / cl, ob = oc / 8;
+  cluster_sync();  // every block's products are done: its hidden slice and ring are free
+#pragma unroll
+  for (int j = 0; j < N2 / 8; ++j) {
+    const int J = wg * (N2 / 8) + j;
+    const uint32_t at = sbase + ((rank * ob + J % ob) * 128 + tid) * 16;
+    st_cluster_v4(map_rank(at, J / ob), acc2[4 * j], acc2[4 * j + 1], acc2[4 * j + 2],
+                  acc2[4 * j + 3]);
+  }
+  cluster_sync();  // every partial is in
+
+  // The owner's sums, slot by slot in rank order (the same in every run),
+  // one rounding, into the output staging past the slots; every consumer
+  // thread takes entries. Entry (jl, t) of a slot is thread t's float4 of n8
+  // block jl: rows 16 (t / 32) + (t % 32) / 4 and + 8, columns 8 jl + 2 (t %
+  // 4) + {0, 1}.
+  const int out_off = K * 256;
+  for (int e = ct; e < ob * 128; e += CONSUMERS) {
+    const int jl = e / 128, t = e % 128;
+    float4 sum = *reinterpret_cast<const float4*>(smem + e * 16);
+    for (int src = 1; src < cl; ++src) {
+      const float4 p = *reinterpret_cast<const float4*>(smem + (src * ob * 128 + e) * 16);
+      sum.x += p.x, sum.y += p.y, sum.z += p.z, sum.w += p.w;
+    }
+    const int row = (t / 32) * 16 + (t % 32) / 4, col = jl * 8 + 2 * (t % 4);
+    const int byte = (col % 8) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(smem + out_off + tile_offset<128, BM>(row, col / 8) +
+                                       byte) = __floats2bfloat162_rn(sum.x, sum.y);
+    *reinterpret_cast<__nv_bfloat162*>(smem + out_off + tile_offset<128, BM>(row + 8, col / 8) +
+                                       byte) = __floats2bfloat162_rn(sum.z, sum.w);
+  }
+  fence_proxy_async();
+  named_sync(1, CONSUMERS);
+  if (ct == 0) {
+    for (int b = 0; b < oc / 64; ++b)
+      tma_store_2d(&tm_out, sbase + out_off + b * BM * 128, rank * oc + b * 64, row0);
+    tma_store_commit();
+    tma_store_wait();
+  }
+}
+
+// A contiguous bf16 (outer, inner) matrix as TMA boxes of box_inner x box_outer.
+inline bool matrix_map(CUtensorMap* map, const void* base, int inner, int outer, int box_inner,
+                       int box_outer, CUtensorMapSwizzle swizzle, CUtensorMapL2promotion l2) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box,
+                       swizzle, l2);
+}
+
+template <int N1, int N2>
+cudaError_t launch(const void* x, const void* g0, const void* w0, const void* g1, const void* w1,
+                   void* out, int rows, int hid, float eps, int cl, int stages,
+                   cudaStream_t stream) {
+  constexpr int K = 2 * N2, HS = 2 * N1;
+  const Layout L = layout(K, HS, stages);
+  // the partials and the output staging fit in the x tile and the ring
+  if (L.total > MAX_SMEM || K * 256 + BM * (K / cl) * 2 > L.stats)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_x, tm_w0, tm_w1, tm_out;
+  const auto l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+  if (!matrix_map(&tm_x, x, K, rows, 64, BM, CU_TENSOR_MAP_SWIZZLE_128B, l2) ||
+      !matrix_map(&tm_w0, w0, K, hid, KC, N1, CU_TENSOR_MAP_SWIZZLE_64B, l2) ||
+      !matrix_map(&tm_w1, w1, hid, K, KC, N2, CU_TENSOR_MAP_SWIZZLE_64B, l2) ||
+      !matrix_map(&tm_out, out, K, rows, 64, BM, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_NONE))
+    return cudaErrorInvalidValue;
+  auto kernel = fused_feedforward_kernel<N1, N2>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((rows + BM - 1) / BM * cl));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_w0, tm_w1, tm_out,
+                           static_cast<const float*>(g0), static_cast<const float*>(g1), hid,
+                           stages, eps);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int N1>
+cudaError_t launch_k(int k, const void* x, const void* g0, const void* w0, const void* g1,
+                     const void* w1, void* out, int rows, int hid, float eps, int cl, int stages,
+                     cudaStream_t s) {
+  switch (k) {
+    case 128: return launch<N1, 64>(x, g0, w0, g1, w1, out, rows, hid, eps, cl, stages, s);
+    case 256: return launch<N1, 128>(x, g0, w0, g1, w1, out, rows, hid, eps, cl, stages, s);
+    case 384: return launch<N1, 192>(x, g0, w0, g1, w1, out, rows, hid, eps, cl, stages, s);
+    case 512: return launch<N1, 256>(x, g0, w0, g1, w1, out, rows, hid, eps, cl, stages, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // x (rows, k) bf16, g0 (k,) fp32, w0 (hid, k) bf16, g1 (hid,) fp32,
-// w1 (k, hid) bf16, out (rows, k) bf16; k and hid multiples of 16.
+// w1 (k, hid) bf16, out (rows, k) bf16; all contiguous and 16-byte aligned.
+// k is 128, 256, 384 or 512; `cluster` blocks (1, 2, 4 or 8) split hid into
+// slices of 128, 256 or 512 and k into multiples of 64; `stages` weight
+// stages (`ff_tiles` chooses both).
 extern "C" int fused_feedforward_bf16(const void* x, const void* g0, const void* w0,
-                                      const void* g1, const void* w1, void* out,
-                                      int rows, int k, int hid, float eps, void* stream) {
-  if (k % 16 != 0 || hid % 16 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = size_t(BM) * (k + hid) * 2 + size_t(WARPS) * 256 * 4;
-  cudaError_t err = cudaFuncSetAttribute(fused_feedforward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((rows + BM - 1) / BM);
-  fused_feedforward_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g0),
-      static_cast<const __nv_bfloat16*>(w0), static_cast<const float*>(g1),
-      static_cast<const __nv_bfloat16*>(w1), static_cast<__nv_bfloat16*>(out),
-      rows, k, hid, eps);
-  return (int)cudaGetLastError();
+                                      const void* g1, const void* w1, void* out, int rows, int k,
+                                      int hid, float eps, int cluster, int stages, void* stream) {
+  const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8;
+  if (rows < 1 || !cluster_ok || hid % cluster != 0 || k % (64 * cluster) != 0 || stages < 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hid / cluster) {
+    case 128:
+      return (int)launch_k<64>(k, x, g0, w0, g1, w1, out, rows, hid, eps, cluster, stages, s);
+    case 256:
+      return (int)launch_k<128>(k, x, g0, w0, g1, w1, out, rows, hid, eps, cluster, stages, s);
+    case 512:
+      return (int)launch_k<256>(k, x, g0, w0, g1, w1, out, rows, hid, eps, cluster, stages, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

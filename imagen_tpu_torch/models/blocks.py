@@ -33,6 +33,7 @@ from imagen_tpu_torch.ops.fused_norm import (
     fused_film_available,
     fused_film_norm,
     layernorm,
+    pack_ff_weights,
 )
 from imagen_tpu_torch.ops.stem_conv import cross_embed_stem, pack_stem_weights, stem_available
 from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
@@ -182,7 +183,9 @@ class FeedForward(nn.Sequential):
     """LayerNorm -> Linear -> GELU -> LayerNorm -> Linear, no biases.
 
     Where the gate admits the shape the whole chain runs as one kernel
-    (ops/fused_norm.py); the parameters are the same either way."""
+    (ops/fused_norm.py); the parameters are the same either way. Without a
+    gradient the kernel's bf16 weights are kept until a weight changes or the
+    module moves."""
 
     def __init__(self, dim, mult=2., dtype=F32):
         hidden_dim = int(dim * mult)
@@ -194,6 +197,23 @@ class FeedForward(nn.Sequential):
             Linear(hidden_dim, dim, bias=False, dtype=dtype),
         )
         self.compute_dtype = dtype
+        self._ff_cache = None   # (weights, their stamps, the kernel's weights)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._ff_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _packed_weights(self):
+        """`pack_ff_weights` of the two Linear weights, made again when a
+        weight is replaced, changed in place (its version) or given new data
+        (its pointer); a change made through `.data` in place is not seen."""
+        ws = (self[1].weight, self[4].weight)
+        stamp = [(w._version, w.data_ptr()) for w in ws]
+        cached = self._ff_cache
+        if (cached is None or cached[1] != stamp
+                or any(w is not c for w, c in zip(ws, cached[0]))):
+            self._ff_cache = cached = (ws, stamp, pack_ff_weights(*ws))
+        return cached[2]
 
     def forward(self, x):
         dt = self.compute_dtype
@@ -201,8 +221,10 @@ class FeedForward(nn.Sequential):
         dim, hidden_dim = self[1].in_features, self[1].out_features
         if fused_feedforward_available(x.numel() // dim, dim, hidden_dim, dt,
                                        x.device.type):
-            return fused_feedforward(x, self[0].g, self[1].weight, self[3].g,
-                                     self[4].weight, ln_eps(dt))
+            args = (x, self[0].g, self[1].weight, self[3].g, self[4].weight, ln_eps(dt))
+            if x.is_cuda and not wants_grad(x, *self.parameters()):
+                return fused_feedforward(*args, packed=self._packed_weights())
+            return fused_feedforward(*args)
         return super().forward(x)
 
 

@@ -15,6 +15,7 @@ not 0. `LAUNCHES` counts the launches of each kernel by name.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,8 +47,8 @@ SIGNATURES = {
     # x, w (kh, kw, I, O), bias (nullable), out, b, H, W, cin, cout, rows, stages, grid,
     # stream
     'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, stream
-    'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, cluster, stages, stream
+    'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, q_scale, bias2, out, P, frames, heads, nk, d, scale2, stream
     'temporal_attn_fwd_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x (b, f, hw, c), g, y ((b hw), f, c), b, f, hw, c, eps, stream
@@ -63,9 +64,10 @@ SIGNATURES = {
     'fused_ln_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # x (rows, k), w (n, k), g (n,), y (rows, n), rows, k, n, eps, stream
     'fused_matmul_ln_bf16': (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x (b, H, W, c), packed w, bias (sum d), out (b, H, W, sum d), b, H, W, c,
-    # nscales, k0..k3, d0..d3, stream
-    'cross_embed_stem_bf16': (_P, _P, _P, _P, *(_I,) * 13, _P),
+    # x (b, H, W, c), x8 (b, H, W, 8) scratch, packed w, bias (sum d), out (b, H, W, sum d),
+    # the work list's sets (host int array), b, H, W, c, nscales, k0..k3, d0..d3, nsets,
+    # grid, stream
+    'cross_embed_stem_bf16': (_P, _P, _P, _P, _P, _P, *(_I,) * 15, _P),
     # x (b, H, W, cin), packed w, bias (nullable), out (b, cout, H, W), b, H, W, cin,
     # cout, k, stream
     'conv2d_same_cf_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -150,3 +152,11 @@ def launch(name, *args):
 
 def reset_launches():
     LAUNCHES.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index):
+    """The SMs of CUDA device `device_index`, asked of the driver once (the
+    kernels' tilings size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
-from imagen_tpu_torch.ops.fused_norm import recomputed_grads
+from imagen_tpu_torch.ops.fused_norm import SMEM_LIMIT, SMS, recomputed_grads
 from imagen_tpu_torch.ops.tensor_utils import wants_grad
 
 KERNEL = 'conv2d_same_3x3_bf16'
@@ -40,8 +40,6 @@ CF_MAX_COUT = 8
 
 # The tiling of csrc/conv2d_same.cu: a tile is `rows` output rows x TILE_W
 # pixels x TILE_N output channels, K in CHUNK-channel bands.
-SMS = 132                 # the H100's SMs (the wrapper reads the card's count)
-SMEM_LIMIT = 232448       # bytes of shared memory a block may use on the H100
 TILE_W, TILE_N, CHUNK = 64, 128, 64
 
 
@@ -147,8 +145,7 @@ def _conv_forward(x, w, bias):
     if bias is not None:
         bias = F.pad(bias.to(torch.bfloat16), (0, coutp - cout)).contiguous()
     out = torch.empty((b, H, W, coutp), dtype=x.dtype, device=x.device)
-    tiles = conv_tiles(b, H, W, cin, coutp,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count)
+    tiles = conv_tiles(b, H, W, cin, coutp, _build.sm_count(x.device.index))
     _build.launch(KERNEL, x.data_ptr(), w.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   b, H, W, cin, coutp, tiles.rows, tiles.stages, tiles.grid)

@@ -30,7 +30,6 @@ raise.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -138,11 +137,6 @@ def split_row_ranges(rows, splits):
     return [(lo, min(hi, rows)) for lo, hi in zip(bounds, bounds[1:])]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index):
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _check_rows(q, k, v, name):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f'{name}: tensors must share one CUDA device')
@@ -203,7 +197,7 @@ def flash_rows_backward(q, k, v, do, lse, delta, scale):
     (q, k, v, do), dp = _padded((q, k, v, do), d)
     lse, delta = _aligned(lse.float()), _aligned(delta.float())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    splits = bwd_splits(b, rows, nk, _sm_count(q.device.index))
+    splits = bwd_splits(b, rows, nk, _build.sm_count(q.device.index))
     # the fp32 dK and dV partials of each slice of R, summed by the kernel's second pass
     part = torch.empty((2, splits, b, nk, dp), dtype=torch.float32, device=q.device)
     _build.launch(BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -1,10 +1,11 @@
-"""The fused norms of the port: kernels 3 (feedforward), 8 (ChanRMSNorm·FiLM·
+"""The fused norms of the port: kernels 10 (feedforward), 8 (ChanRMSNorm·FiLM·
 SiLU), 9 (row LayerNorm) and 11 (LayerNorm->matmul, matmul->LayerNorm).
 
 Counterparts of `imagen_tpu/ops/fused_norm.py`:
 
   fused_feedforward(x, g0, w0, g1, w1, eps): LayerNorm -> Linear -> exact
-      GELU -> LayerNorm -> Linear, no biases (`csrc/fused_feedforward.cu`);
+      GELU -> LayerNorm -> Linear, no biases (`csrc/fused_feedforward.cu`,
+      tiled by `ff_tiles`);
   fused_film_norm(x, gamma, scale, shift): silu(x / ||x|| * sqrt(C) * gamma
       * (scale + 1) + shift) over the channels of NHWC x, the prologue of a
       2-D `Block` (`csrc/fused_film_norm.cu`);
@@ -29,6 +30,9 @@ differentiated by autograd, so only the inputs are kept between the passes.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -41,9 +45,75 @@ LN_KERNEL = 'fused_layernorm_bf16'
 LNMM_KERNEL = 'fused_ln_matmul_bf16'
 MMLN_KERNEL = 'fused_matmul_ln_bf16'
 _FF_WEIGHT_BUDGET = 4 * 1024 * 1024
-_SMEM_LIMIT = 227 * 1024
+SMS = 132                 # the H100's SMs (the wrappers read the card's count)
+SMEM_LIMIT = 232448       # bytes of shared memory a block may use on the H100
 ROW_MAX_C = 4096   # kernels 8 and 9: one warp holds a row, 16 vectors of 8 bf16 a lane
 LNMM_MAX_KN = 6144  # kernel 11: 16 rows of k and of n, and the weight stages, fit in shared memory
+
+
+# The tiling of csrc/fused_feedforward.cu: a cluster of blocks shares FF_ROWS
+# rows and splits hid; weights stream in FF_KC-column stages.
+FF_ROWS, FF_KC = 64, 32
+FF_WIDTHS = (128, 256, 384, 512)   # k: product 2's accumulators, k / 2 columns a warpgroup
+FF_SLICES = (512, 256, 128)        # hidden columns a block holds: product 1's, 2 x its N
+FF_CLUSTERS = (1, 2, 4, 8)
+FF_MAX_CLUSTER = 8                 # the kernel's statistics buffers are sized for 8 ranks
+FF_MAX_STAGES = 8
+
+
+class FFTiles(NamedTuple):
+    cluster: int     # blocks of a cluster: one 64-row tile, hid split between them
+    hid_slice: int   # hidden columns of a block, hid / cluster
+    row_tiles: int
+    grid: int        # blocks: row_tiles * cluster
+    stages: int      # weight stages of FF_KC K-columns
+    smem: int        # bytes of shared memory a block asks for
+
+
+def ff_smem(k, hid_slice, stages):
+    """Shared memory of a block, as csrc/fused_feedforward.cu lays it out:
+    the x tile and then, in its place, the normalised hidden slice; the
+    weight ring; the row statistics (partials of 8 ranks for two passes, two
+    warpgroup sums); the mbarriers and 1024 bytes of alignment slack."""
+    wide = max(k, hid_slice)
+    return (FF_ROWS * wide * 2 + stages * wide * FF_KC * 2
+            + (2 * FF_MAX_CLUSTER + 2) * FF_ROWS * 4 + 8 * (2 * stages + 1) + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def ff_tiles(rows, k, hid, sms=SMS):
+    """The tiling of one call, or None where the kernel does not take (k, hid).
+
+    A cluster of `cluster` blocks takes 64 rows, each block `hid_slice` =
+    hid / cluster hidden columns (512, 256 or 128) and, for the reduction of the
+    second product, k / cluster output columns (a multiple of 64). Of the
+    splits that exist, the one that puts the most blocks to work, up to one
+    per SM, then the wider slice (fewer partials to exchange); as many weight
+    stages as fit, at least 3."""
+    if k not in FF_WIDTHS or rows < 1:
+        return None
+    row_tiles = -(-rows // FF_ROWS)
+    best = None
+    for hs in FF_SLICES:
+        cl = hid // hs
+        if hid % hs or cl not in FF_CLUSTERS or k % (64 * cl):
+            continue
+        key = (min(row_tiles * cl, sms), hs)
+        if best is None or key > best[0]:
+            best = (key, hs, cl)
+    if best is None:
+        return None
+    _, hs, cl = best
+    stages = 3
+    while stages < FF_MAX_STAGES and ff_smem(k, hs, stages + 1) <= SMEM_LIMIT:
+        stages += 1
+    # the partials of the cluster (k x 256 bytes) and the output staging fit
+    # in the hidden slice's region and the ring
+    wide = max(k, hs)
+    if (ff_smem(k, hs, stages) > SMEM_LIMIT
+            or k * 256 + FF_ROWS * (k // cl) * 2 > FF_ROWS * wide * 2 + stages * wide * FF_KC * 2):
+        return None
+    return FFTiles(cl, hs, row_tiles, row_tiles * cl, stages, ff_smem(k, hs, stages))
 
 
 def _ff_rows_block(rows, k, hid):
@@ -176,7 +246,14 @@ def _gain(g, c, name):
     return aligned_contiguous(g.reshape(c).float())
 
 
-def _ff_forward(x, g0, w0, g1, w1, eps):
+def pack_ff_weights(w0, w1):
+    """The weights as kernel 10 reads them: bf16 (hid, k) and (k, hid),
+    contiguous, the Linears' own layout (each is K-major for its product);
+    no copy for a weight that is already so."""
+    return tuple(aligned_contiguous(w.to(torch.bfloat16)) for w in (w0, w1))
+
+
+def _ff_forward(x, g0, w0, g1, w1, eps, packed=None):
     if x.device.type == 'cpu':
         return feedforward_reference(x, g0, w0, g1, w1, eps)
     _check_cuda('fused_feedforward', x, w0, w1)
@@ -185,17 +262,21 @@ def _ff_forward(x, g0, w0, g1, w1, eps):
     hid = w0.shape[0]
     if tuple(w0.shape) != (hid, k) or tuple(w1.shape) != (k, hid):
         raise ValueError(f'weights {tuple(w0.shape)}, {tuple(w1.shape)} do not fit k={k}')
-    if k % 16 or hid % 16:
-        raise ValueError(f'fused_feedforward kernel needs k, hid % 16 == 0, got {k}, {hid}')
-    if 16 * (k + hid) * 2 + 8 * 1024 > _SMEM_LIMIT:
-        raise ValueError(f'fused_feedforward: k={k}, hid={hid} exceed shared memory')
-    x2 = x.reshape(-1, k).contiguous()
-    rows = x2.shape[0]
-    g0f, g1f = g0.float().contiguous(), g1.float().contiguous()
-    w0c, w1c = w0.to(x.dtype).contiguous(), w1.to(x.dtype).contiguous()
+    rows = x.numel() // k
+    if rows == 0:
+        return x.new_empty(shape)
+    tiles = ff_tiles(rows, k, hid, _build.sm_count(x.device.index))
+    if tiles is None:
+        raise ValueError(f'fused_feedforward kernel takes k in {FF_WIDTHS} and hid = 128, '
+                         f'256 or 512 times 1, 2, 4 or 8 with k / cluster a multiple of 64; got '
+                         f'k={k}, hid={hid}')
+    x2 = aligned_contiguous(x.reshape(rows, k))
+    g0f, g1f = _gain(g0, k, 'fused_feedforward'), _gain(g1, hid, 'fused_feedforward')
+    w0c, w1c = pack_ff_weights(w0, w1) if packed is None else packed
     out = torch.empty_like(x2)
     _build.launch(KERNEL, x2.data_ptr(), g0f.data_ptr(), w0c.data_ptr(), g1f.data_ptr(),
-                  w1c.data_ptr(), out.data_ptr(), rows, k, hid, float(eps))
+                  w1c.data_ptr(), out.data_ptr(), rows, k, hid, float(eps), tiles.cluster,
+                  tiles.stages)
     return out.reshape(shape)
 
 
@@ -357,11 +438,13 @@ class _MatmulLn(torch.autograd.Function):
 
 # --- entry points ---------------------------------------------------------------------------
 
-def fused_feedforward(x, g0, w0, g1, w1, eps):
-    """x (..., k) -> (..., k)."""
+def fused_feedforward(x, g0, w0, g1, w1, eps, packed=None):
+    """x (..., k) -> (..., k). `packed`, where no gradient is wanted, is
+    `pack_ff_weights(w0, w1)` made earlier; the kernel then reads it in place
+    of casting the weights again."""
     if wants_grad(x, g0, w0, g1, w1):
         return _FusedFeedForward.apply(x, g0, w0, g1, w1, eps)
-    return _ff_forward(x, g0, w0, g1, w1, eps)
+    return _ff_forward(x, g0, w0, g1, w1, eps, packed=packed)
 
 
 def fused_film_norm(x, gamma, scale=None, shift=None):

@@ -170,15 +170,36 @@ def test_same_conv_module_runs_the_kernel_right(cuda, monkeypatch):
     assert max_abs(out.float(), truth) <= _bound(max_abs(plain.float(), truth))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('rows,k,hid', [(300, 256, 1024), (288, 512, 2048)])
-def test_fused_feedforward_kernel_matches_plain(cuda, rows, k, hid):
-    r = rng(5)
+# (rows, k, hid) and the cluster `ff_tiles` splits hid over: the paths' sites
+# (BaseUnet64's 32^2 TransformerBlock at batch 8; the Perceivers at b 2, 4
+# and 8 x 36 latents, k 512 in BaseUnet64, 128 in the SR unets), rows ragged
+# against the 64-row tile (8, 72, 200, 300, 8200), every cluster size the
+# tiler can choose (1, 2, 4, 8), every hidden slice (128, 256, 512) and every
+# k it takes (128 to 512)
+FF_CASES = [(8192, 512, 1024, 2), (72, 128, 512, 2), (144, 128, 512, 2), (288, 128, 512, 2),
+            (72, 512, 2048, 8), (144, 512, 2048, 8), (288, 512, 2048, 8), (8, 512, 1024, 8),
+            (8200, 512, 1024, 2), (300, 256, 1024, 4), (200, 384, 128, 1), (72, 256, 256, 2),
+            (8448, 128, 512, 1)]
+
+
+def _ff_inputs(cuda, rows, k, hid, seed=5):
+    r = rng(seed)
     x = t(randn(r, rows, k)).to(cuda).to(BF16)
     g0 = t(1. + randn(r, k, scale=0.1)).to(cuda)
     w0 = t(randn(r, hid, k, scale=k ** -0.5)).to(cuda).to(BF16)
     g1 = t(1. + randn(r, hid, scale=0.1)).to(cuda)
     w1 = t(randn(r, k, hid, scale=hid ** -0.5)).to(cuda).to(BF16)
+    return x, g0, w0, g1, w1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,k,hid,cluster', FF_CASES)
+def test_fused_feedforward_kernel_matches_plain(cuda, rows, k, hid, cluster):
+    """Within the bound of the plain bf16 chain, and the same bits on a
+    second run (the partials are summed in rank order)."""
+    assert fn.ff_tiles(rows, k, hid).cluster == cluster
+    assert {c[-1] for c in FF_CASES} == set(fn.FF_CLUSTERS)
+    x, g0, w0, g1, w1 = _ff_inputs(cuda, rows, k, hid)
 
     def run(x, w0, w1):
         return fn.fused_feedforward(x, g0, w0, g1, w1, 1e-3)
@@ -187,6 +208,51 @@ def test_fused_feedforward_kernel_matches_plain(cuda, rows, k, hid):
         return fn.feedforward_reference(x, g0, w0, g1, w1, 1e-3)
 
     _check(run, plain, (x, w0, w1), (x.float(), w0.float(), w1.float()), fn.KERNEL)
+    assert torch.equal(run(x, w0, w1), run(x, w0, w1))
+
+
+@pytest.mark.cuda
+def test_fused_feedforward_reads_packed_weights(cuda):
+    """`packed=` hands the kernel bf16 weights made earlier: the result is
+    the one it computes from the fp32 weights itself."""
+    x, g0, w0, g1, w1 = _ff_inputs(cuda, 288, 512, 2048, seed=6)
+    w0f, w1f = w0.float(), w1.float()
+    packed = fn.pack_ff_weights(w0f, w1f)
+    assert torch.equal(fn.fused_feedforward(x, g0, w0f, g1, w1f, 1e-3, packed=packed),
+                       fn.fused_feedforward(x, g0, w0f, g1, w1f, 1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['transformer', 'perceiver'])
+def test_feedforward_modules_run_the_kernel_right(cuda, monkeypatch, which):
+    """BaseUnet64's 32^2 TransformerBlock (batch 2) and a Perceiver at its
+    width, bf16 with the feedforward gate open, held to the same module in
+    fp32 as the plain route (gate closed) is; a second call reads the kept
+    bf16 weights and gives the same bits."""
+    torch.manual_seed(16)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    if which == 'transformer':
+        def build(dt):
+            return blocks.TransformerBlock(512, depth=1, heads=8, dim_head=64, ff_mult=2.,
+                                           dtype=dt)
+        x = torch.randn((2, 32, 32, 512), generator=g, device=cuda)
+    else:
+        def build(dt):
+            return blocks.PerceiverResampler(512, depth=2, dim_head=64, heads=8, num_latents=32,
+                                             dtype=dt)
+        x = torch.randn((4, 256, 512), generator=g, device=cuda)
+    ref = build(torch.float32).to(cuda)
+    fast = build(BF16).to(cuda)
+    fast.load_state_dict(ref.state_dict())
+    with torch.no_grad():
+        truth = ref(x)
+        before = _build.LAUNCHES[fn.KERNEL]
+        out = fast(x.to(BF16))
+        assert _build.LAUNCHES[fn.KERNEL] > before
+        assert torch.equal(fast(x.to(BF16)), out)
+        monkeypatch.setattr(blocks, 'fused_feedforward_available', lambda *a, **k: False)
+        plain = fast(x.to(BF16))
+    assert max_abs(out.float(), truth) <= _bound(max_abs(plain.float(), truth))
 
 
 @pytest.mark.cuda
@@ -651,9 +717,21 @@ def test_edm_sample_through_the_film_kernel(cuda):
 
 # --- kernel 14 (CrossEmbed stem) and kernel 7 (tiny-cout conv, channel-first out) --------
 
+# The six site shapes (the SR-1024 stem; SRUnet256's at batch 4 and 8;
+# BaseUnet64's 3-channel stem, its 15 x 15 scale in four sets of 32 channels;
+# the video U-Net's at 32 and 64 frames), then c = 3, 6 and 8; ragged tiles
+# with H and W of 4 x odd; a scale whose d falls short of its N (20 of 32,
+# 10 and 9 of 16, 24 of 32); odd channel offsets; one scale and four
 STEM_CASES = [((2, 1024, 1024, 6), (3, 7, 15), (64, 32, 32)),   # the SR-1024 stem
               ((2, 36, 100, 3), (3, 7, 15), (20, 10, 10)),      # ragged tiles and chunks
-              ((1, 20, 12, 8), (1, 5), (7, 9))]
+              ((1, 20, 12, 8), (1, 5), (7, 9)),
+              ((4, 256, 256, 6), (3, 7, 15), (64, 32, 32)),
+              ((8, 256, 256, 6), (3, 7, 15), (64, 32, 32)),
+              ((8, 64, 64, 3), (3, 7, 15), (256, 128, 128)),
+              ((32, 64, 64, 3), (3, 7, 15), (32, 16, 16)),
+              ((64, 64, 64, 3), (3, 7, 15), (32, 16, 16)),
+              ((1, 12, 28, 6), (9,), (24,)),
+              ((2, 36, 44, 3), (1, 5, 9, 13), (8, 8, 8, 16))]
 
 
 def _stem_inputs(cuda, shape, ks, ds, seed=20):
@@ -678,6 +756,7 @@ def _stem_plain(x, bias, *ws):
 def test_stem_kernel_matches_plain(cuda, shape, ks, ds):
     inputs = _stem_inputs(cuda, shape, ks, ds)
     _check(_stem_run, _stem_plain, inputs, [x.float() for x in inputs], stem.KERNEL)
+    assert torch.equal(_stem_run(*inputs), _stem_run(*inputs))
 
 
 CF_CASES = [((2, 1024, 1024, 131), 3, 3), ((2, 1024, 1024, 128), 3, 3),
