@@ -9,11 +9,11 @@ packed weights: the input padded to 8 channels; for each set, each group of
 stacked output rows and each band row, each tap column's window of
 consecutive weight blocks (zero blocks where a stacked row has no tap)
 times the tap's shifted window of the halo'd band; the bias added once;
-each set's channels past d dropped. It is held
-to the JAX package's XLA reference and its Pallas kernel in interpret mode
-to 1e-5 (the inputs are bf16 values, so packing the weights in bf16 is
-exact, and the sums differ only in fp32 order). The kernel itself is held to
-the plain version on the card in `tests/test_torch_cuda.py`.
+each set's channels past d dropped. It is held to the JAX package's XLA
+reference, and for one shape its Pallas kernel in interpret mode, to 1e-5
+(the inputs are bf16 values, so packing the weights in bf16 is exact, and
+the sums differ only in fp32 order). The kernel itself is held to the plain
+version on the card in `tests/test_torch_cuda.py`.
 """
 import jax
 import jax.numpy as jnp
@@ -105,13 +105,13 @@ def stem_emulation(x, ws, bias):
     return out
 
 
-# small shapes of the sites' kinds, held to the XLA reference and the Pallas
-# kernel (the SR stems' scales; BaseUnet64's, whose 15 x 15 scale takes four
-# sets and its 3 x 3 scale two), then to the XLA reference alone (the Pallas
-# kernel's interpret mode takes seconds a call): odd channel offsets at c =
-# 8; one scale with d short of n; four scales
+# small shapes of the sites' kinds: the SR stems' scales, held to the XLA
+# reference and the Pallas kernel; then, to the XLA reference alone (the
+# Pallas kernel's interpret mode takes about 9 s a call), BaseUnet64's,
+# whose 15 x 15 scale takes four sets and its 3 x 3 scale two, odd channel
+# offsets at c = 8, one scale with d short of n, and four scales
 EMULATED = [((2, 16, 16, 6), KERNELS, (64, 32, 32), True),
-            ((1, 8, 8, 3), KERNELS, (256, 128, 128), True),
+            ((1, 8, 8, 3), KERNELS, (256, 128, 128), False),
             ((1, 20, 12, 8), (1, 5), (7, 9), False), ((1, 12, 28, 6), (9,), (24,), False),
             ((1, 12, 20, 3), (1, 5, 9, 13), (8, 8, 8, 16), False)]
 
