@@ -36,11 +36,14 @@
 //   bytes on (SBO), and the K half of the odd tap one pixel, 16 bytes, on (LBO
 //   = 16: the two halves overlap in memory). No copy of the band per tap. A
 //   15-tap row takes P = 8 pairs, the last pair's odd tap with zero weights;
-//   channels past c have zero weights. A loop iteration issues a band row's
-//   P wgmmas: the set's k, N and P are broadcast from lane 0 so ptxas sees
-//   the branches on them uniform (one it could not prove uniform serialized
-//   every wgmma, C7520). Two wgmmas an iteration (P padded even, no branch)
-//   measured slower.
+//   channels past c have zero weights. P is rounded up to 2, 4 or 8 and is a
+//   template parameter with N, so a loop iteration issues a band row's P
+//   wgmmas unrolled, with no branch around them, and waits one row behind.
+//   The set's k, N and P are broadcast from lane 0 so ptxas sees the
+//   branches on them uniform. On the card, a branch it could not prove
+//   uniform serialized every wgmma (C7520); a guard around each wgmma made
+//   it fence each (C7519) and run up to 1.2x as long; two wgmmas an
+//   iteration were slower still.
 // - A scale has few channels (32 at the SR stems' 15 x 15 scale), and a
 //   wgmma of N 32 ran far below the tensor cores' rate on the card (each
 //   reads its 64 x 16 A again for 32 columns). So a wgmma stacks RP output
@@ -101,7 +104,10 @@ struct Plan {
 
 // Tap pairs of a row of k taps (one k16 step each; the last pair's odd tap
 // has zero weights), and the band pixels a tile row reads, 64 + 2 pairs.
-__host__ __device__ inline int tap_pairs(int k) { return (k + 1) / 2; }
+__host__ __device__ inline int tap_pairs(int k) {
+  const int P = (k + 1) / 2;
+  return P <= 2 ? 2 : P <= 4 ? 4 : 8;
+}
 __host__ __device__ inline int band_width(int k) { return TW + 2 * tap_pairs(k); }
 
 // A value every thread of the warp holds, broadcast from lane 0 so that ptxas
@@ -132,13 +138,13 @@ __host__ __device__ inline int weight_bytes(const Set& s) {
 // weights of tap row R - j, a window of RP consecutive blocks of the tap
 // group (zero where R - j is not a tap row). fp32 accumulators, + bias, one
 // rounding, stored; channels past `nvalid` and pixels past the image are not.
-template <int N>
+template <int N, int P>
 __device__ __forceinline__ void tile_rows(uint32_t band, uint32_t wts, int k, int ch0, int nvalid,
                                           const Plan& pl, int x0, int y0, int b, int wg,
                                           const __nv_bfloat16* __restrict__ bias,
                                           __nv_bfloat16* __restrict__ out, int warp, int lane) {
   constexpr int RP = stacked_rows(N), NS = RP * N;  // rows stacked, the wgmma's N
-  const int P = tap_pairs(k), bw = band_width(k);
+  const int bw = band_width(k);
   const uint32_t group = (k + RP - 1) * N * 16;      // bytes from a tap group to the next (LBO)
   const int px = x0 + (warp % 4) * 16 + lane / 4;    // this thread's pixels: px, px + 8
   const int cq = 2 * (lane % 4);
@@ -148,18 +154,15 @@ __device__ __forceinline__ void tile_rows(uint32_t band, uint32_t wts, int k, in
     const int r0 = wg * MB + pass * RP;
     float acc[NS / 2];
     named_sync(TURN + wg, 2 * 128);  // this warpgroup's turn at the tensor cores
-    // a band row's tap pairs an iteration, committed and waited one behind;
-    // the pair loop unrolled to its largest count (no wgmma in flight across
-    // a back-edge) with a branch that `uniform` lets ptxas see uniform
+    // a band row's tap pairs an iteration, committed and waited one behind
     for (int R = 0; R < k + RP - 1; ++R) {
       const uint32_t arow = band + (r0 + R) * bw * 16;
       const uint32_t brow = wts + (RP - 1 + k - 1 - R) * N * 16;  // block k - 1 - R of column 0
       wgmma_fence();
 #pragma unroll
-      for (int q = 0; q < MAX_P + 1; ++q)
-        if (q < P)
-          wgmma_ss<NS, 0>(acc, desc_plain(arow + q * 32, 16),
-                          desc_plain(brow + 2 * q * group, group), (R | q) != 0);
+      for (int q = 0; q < P; ++q)
+        wgmma_ss<NS, 0>(acc, desc_plain(arow + q * 32, 16),
+                        desc_plain(brow + 2 * q * group, group), (R | q) != 0);
       wgmma_commit();
       wgmma_wait<1>();
     }
@@ -279,20 +282,26 @@ cross_embed_stem_kernel(const __grid_constant__ CUtensorMap tm0,
     const int x0 = (t % pl.ntx) * TW, y0 = ((t / pl.ntx) % pl.nty) * TH;
     const int b = t / (pl.ntx * pl.nty), ch0 = st.coff + st.n0;
     const int nvalid = st.d - st.n0 < st.n ? st.d - st.n0 : st.n;
+    // one instance per (N, tap pairs): the wgmmas of a band row unrolled, no
+    // branch around them
+    const int P = uniform(tap_pairs(k));
+#define STEM_ROWS_CASE(NN)                                                                   \
+  case NN:                                                                                   \
+    if (P == 2)                                                                              \
+      tile_rows<NN, 2>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane); \
+    else if (P == 4)                                                                         \
+      tile_rows<NN, 4>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane); \
+    else                                                                                     \
+      tile_rows<NN, 8>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane); \
+    break;
     switch (n) {
-      case 16:
-        tile_rows<16>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane);
-        break;
-      case 32:
-        tile_rows<32>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane);
-        break;
-      case 64:
-        tile_rows<64>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane);
-        break;
+      STEM_ROWS_CASE(16)
+      STEM_ROWS_CASE(32)
+      STEM_ROWS_CASE(64)
       default:
-        tile_rows<128>(band, wts, k, ch0, nvalid, pl, x0, y0, b, wg, bias, out, warp, lane);
-        break;
+        STEM_ROWS_CASE(128)
     }
+#undef STEM_ROWS_CASE
     __syncwarp();
     if (lane == 0) {
       mbar_arrive(&band_empty[slot]);

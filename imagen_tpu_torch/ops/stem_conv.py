@@ -65,9 +65,10 @@ class StemPlan(NamedTuple):
 
 
 def stem_tap_pairs(k):
-    """Tap pairs of a row of k taps, one k16 step each (the last pair's odd
-    tap has zero weights)."""
-    return (k + 1) // 2
+    """Tap pairs of a row of k taps, one k16 step each, rounded up to 2, 4 or 8
+    (the kernel's instances; pairs past the taps have zero weights)."""
+    pairs = (k + 1) // 2
+    return 2 if pairs <= 2 else 4 if pairs <= 4 else 8
 
 
 def stem_stacked_rows(n):
