@@ -256,6 +256,18 @@ def test_feedforward_modules_run_the_kernel_right(cuda, monkeypatch, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('k,hid', [(1024, 1024), (512, 384), (128, 4096)])
+def test_fused_feedforward_raises_outside_its_instances(cuda, k, hid):
+    """Shapes the JAX gate admits but no instance of the kernel takes (k past
+    512, hid not 128, 256 or 512 times 1-8 blocks, k / cluster short of 64)
+    raise on CUDA; they never take the plain chain there."""
+    assert fn.fused_feedforward_available(64, k, hid) and fn.ff_tiles(64, k, hid) is None
+    x, g0, w0, g1, w1 = _ff_inputs(cuda, 64, k, hid)
+    with pytest.raises(ValueError):
+        fn.fused_feedforward(x, g0, w0, g1, w1, 1e-3)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_wrong_dtype(cuda):
     x = torch.zeros(1, 8, 64, 32, device=cuda)
     with pytest.raises(TypeError):
