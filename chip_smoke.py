@@ -45,8 +45,9 @@ every U-Net above.
 The launch counts are set to 0 just before each path and read just after.
 Then it holds each hand-written kernel, at every shape the paths launched
 it at (kernels 9, 11 and 7 at every recorded site shape; kernel 7 also at
-the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, logged and
-weighted by nothing), against its plain
+the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, and kernel
+10 at the Perceiver's batch 2 and 4 and on its staged route at (8192, 384,
+768) and (288, 1024, 1024), logged and weighted by nothing), against its plain
 PyTorch version, and a small bf16 U-Net and a small bf16 Unet3D that reach
 every kernel of the paths against the same nets on the plain path, outputs
 and gradients, both measured against fp32.
@@ -146,7 +147,7 @@ KERNEL_INFO = {
         replaces='imagen_tpu/ops/conv2d.py:199', device_kernel='conv2d_same_3x3_kernel'),
     'fused_feedforward_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_feedforward.cu',
-        replaces='imagen_tpu/ops/fused_norm.py:271', device_kernel='fused_feedforward_kernel'),
+        replaces='imagen_tpu/ops/fused_norm.py:271', device_kernel='fused_feedforward_'),
     'temporal_attn_fwd_bf16': dict(
         source='imagen_tpu_torch/csrc/temporal_attn_fwd.cu',
         replaces='imagen_tpu/ops/flash_attention.py:886', device_kernel='temporal_attn_fwd_kernel'),
@@ -191,9 +192,12 @@ NORM_UNWIRED = ('fused_layernorm_bf16', 'fused_ln_matmul_bf16', 'fused_matmul_ln
 UNWIRED = (*NORM_UNWIRED, CF_KERNEL)
 # measured and logged beside the launched and recorded shapes, weighted by
 # nothing: the nearest final conv that the JAX gate admits; BaseUnet64's
-# Perceiver at batch 2 and 4 (b x 36 latents), which no path launches
+# Perceiver at batch 2 and 4 (b x 36 latents), which no path launches; the
+# feedforward's staged route (shapes the cluster kernel refuses), at the
+# 384-wide 32^2 stage of a default Unet at dim 48 (batch 8) and at k past 512
 LOG_ONLY_SHAPES = {CF_KERNEL: ((2, 1024, 1024, 128, 3, 3),),
-                   'fused_feedforward_bf16': ((72, 512, 2048, 1e-3), (144, 512, 2048, 1e-3))}
+                   'fused_feedforward_bf16': ((72, 512, 2048, 1e-3), (144, 512, 2048, 1e-3),
+                                              (8192, 384, 768, 1e-3), (288, 1024, 1024, 1e-3))}
 # kernels whose result must be the same bits on a second call
 DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16')
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving')

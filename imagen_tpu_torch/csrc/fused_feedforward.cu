@@ -71,6 +71,17 @@
 // ring won. Summing the partials in the registers of the owner's
 // warpgroup, half the block idle, lost to the 256-thread loop below; GELU
 // as a called function, not inlined, lost too.
+//
+// The staged route. The cluster kernel holds a 64-row x tile whole and
+// product 2's k / 2 columns in a warpgroup's registers, so it takes k up to
+// 512 and hid = 128, 256 or 512 times 1, 2, 4 or 8 blocks. Every other shape
+// the gate admits (k and hid multiples of 128, 2 k hid <= 2M weights: (384,
+// 768) at ff_mult 2 of a 384-wide stage, (1024, 1024), (128, 8192), ...)
+// takes four launches with the same roundings: a row LayerNorm writes LN0(x)
+// as bf16; a wgmma product fed by a TMA ring writes gelu of its bf16
+// rounding as H; LN1 normalises H in place; the second product writes out.
+// H goes through global memory (L2 at these sizes), 4 hid bytes a row more
+// than the cluster kernel moves. No site of the presets takes this route.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -413,6 +424,142 @@ fused_feedforward_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
+// ---- the staged route: any k and hid that are multiples of 128 ---------------------------
+// LN0 of x into xn; H = gelu(xn W0^T) through global memory (L2 at these
+// sizes); LN1 of H in place; out = H W1^T. Four launches, the same roundings.
+constexpr int GM = 128, GN = 128, GK = 64;  // a product's block tile; K stages of 64 columns
+constexpr int GSTAGES = 4;
+constexpr int GSTAGE = (GM + GN) * GK * 2;  // an A and a B stage, each in the 128-byte swizzle
+constexpr int GSMEM = GSTAGES * GSTAGE + 16 * GSTAGES + 1024;
+
+// A bias-free LayerNorm of each row of c columns, a warp a row, as LN0 and
+// LN1 above take it; `out` may be `in`.
+__global__ void __launch_bounds__(256)
+fused_feedforward_rownorm_kernel(const __nv_bfloat16* in, const float* __restrict__ g,
+                                 __nv_bfloat16* out, int rows, int c, float eps) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const uint4* src = reinterpret_cast<const uint4*>(in + (size_t)row * c);
+  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)row * c);
+  float s = 0.f;
+  for (int i = lane; i < c / 8; i += 32) {
+    const uint4 v = src[i];
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      s += f.x + f.y;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mean = s / c;
+  float q = 0.f;
+  for (int i = lane; i < c / 8; i += 32) {
+    const uint4 v = src[i];
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      q += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) q += __shfl_xor_sync(0xffffffffu, q, o);
+  const float rstd = rsqrtf(q / c + eps);
+  for (int i = lane; i < c / 8; i += 32) {
+    uint4 v = src[i];
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+    const float4 ga = *reinterpret_cast<const float4*>(g + i * 8);
+    const float4 gb = *reinterpret_cast<const float4*>(g + i * 8 + 4);
+    const float gs[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(p[e]);
+      p[e] = __floats2bfloat162_rn((f.x - mean) * rstd * gs[2 * e],
+                                   (f.y - mean) * rstd * gs[2 * e + 1]);
+    }
+    dst[i] = v;
+  }
+}
+
+// out (m, n) = a (m, kd) b (n, kd)^T, both K-major, rounded to bf16 once (GELU:
+// rounded, the exact GELU, rounded again). A block is a producer warpgroup
+// streaming 128 x 64 tiles of a and b by TMA through a GSTAGES ring (rows
+// past m arrive as zeros) and two consumer warpgroups, each 64 rows x 128
+// columns of wgmma m64n128k16; the accumulators go straight to global memory,
+// rows past m not written.
+template <bool GELU>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_feedforward_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                              const __grid_constant__ CUtensorMap tm_b,
+                              __nv_bfloat16* __restrict__ out, int m, int n, int kd) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GSTAGES * GSTAGE);
+  uint64_t* empty = full + GSTAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM, iters = kd / GK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane == 0)
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % GSTAGES;
+        if (it >= GSTAGES) mbar_wait(&empty[s], (it / GSTAGES - 1) & 1);
+        const uint32_t dst = sbase + s * GSTAGE;
+        mbar_expect_tx(&full[s], GSTAGE);
+        tma_load_2d(dst, &tm_a, &full[s], it * GK, m0);
+        tma_load_2d(dst + GM * GK * 2, &tm_b, &full[s], it * GK, n0);
+      }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wg = warp / 4;
+  float acc[GN / 2];
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % GSTAGES;
+    mbar_wait(&full[s], (it / GSTAGES) & 1);
+    const uint32_t a = sbase + s * GSTAGE, b = a + GM * GK * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < GK / 16; ++ks)
+      wgmma_ss<GN, 0>(acc, desc_k<GK, GM>(a, wg * 64, ks), desc_k<GK, GN>(b, 0, ks),
+                      (it | ks) != 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the stage before is read: free it
+    __syncwarp();
+    if (lane == 0 && it > 0) mbar_arrive(&empty[(it - 1) % GSTAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int r = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  __nv_bfloat16* o = out + (size_t)r * n + n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < GN / 8; ++j) {
+    float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+    if (GELU)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = gelu_bf16(v[e]);
+    if (r < m)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(v[0], v[1]);
+    if (r + 8 < m)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * (size_t)n + 8 * j) =
+          __floats2bfloat162_rn(v[2], v[3]);
+  }
+}
+
 // A contiguous bf16 (outer, inner) matrix as TMA boxes of box_inner x box_outer.
 inline bool matrix_map(CUtensorMap* map, const void* base, int inner, int outer, int box_inner,
                        int box_outer, CUtensorMapSwizzle swizzle, CUtensorMapL2promotion l2) {
@@ -476,16 +623,58 @@ cudaError_t launch_k(int k, const void* x, const void* g0, const void* w0, const
   }
 }
 
+template <bool GELU>
+cudaError_t launch_gemm(const void* a, const void* b, void* out, int m, int n, int kd,
+                        cudaStream_t stream) {
+  CUtensorMap tm_a, tm_b;
+  const auto l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+  if (!matrix_map(&tm_a, a, kd, m, GK, GM, CU_TENSOR_MAP_SWIZZLE_128B, l2) ||
+      !matrix_map(&tm_b, b, kd, n, GK, GN, CU_TENSOR_MAP_SWIZZLE_128B, l2))
+    return cudaErrorInvalidValue;
+  auto kernel = fused_feedforward_gemm_kernel<GELU>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n / GN, (m + GM - 1) / GM), THREADS, GSMEM, stream>>>(
+      tm_a, tm_b, static_cast<__nv_bfloat16*>(out), m, n, kd);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_staged(const void* x, const void* g0, const void* w0, const void* g1,
+                          const void* w1, void* out, void* xn, void* h, int rows, int k, int hid,
+                          float eps, cudaStream_t stream) {
+  if (!xn || !h || k % GN != 0 || hid % GN != 0) return cudaErrorInvalidValue;
+  const dim3 norm_grid((rows + 7) / 8);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  fused_feedforward_rownorm_kernel<<<norm_grid, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g0),
+      static_cast<__nv_bfloat16*>(xn), rows, k, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_gemm<true>(xn, w0, h, rows, hid, k, stream);
+  if (err != cudaSuccess) return err;
+  fused_feedforward_rownorm_kernel<<<norm_grid, 256, 0, stream>>>(
+      hb, static_cast<const float*>(g1), hb, rows, hid, eps);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_gemm<false>(h, w1, out, rows, k, hid, stream);
+  return err;
+}
+
 }  // namespace
 
 // x (rows, k) bf16, g0 (k,) fp32, w0 (hid, k) bf16, g1 (hid,) fp32,
 // w1 (k, hid) bf16, out (rows, k) bf16; all contiguous and 16-byte aligned.
-// k is 128, 256, 384 or 512; `cluster` blocks (1, 2, 4 or 8) split hid into
-// slices of 128, 256 or 512 and k into multiples of 64; `stages` weight
-// stages (`ff_tiles` chooses both).
+// The cluster kernel: k is 128, 256, 384 or 512; `cluster` blocks (1, 2, 4
+// or 8) split hid into slices of 128, 256 or 512 and k into multiples of 64;
+// `stages` weight stages (`ff_tiles` chooses both); xn and h are null.
+// `cluster` 0 takes the staged route: k and hid multiples of 128, xn (rows,
+// k) and h (rows, hid) bf16 scratch.
 extern "C" int fused_feedforward_bf16(const void* x, const void* g0, const void* w0,
-                                      const void* g1, const void* w1, void* out, int rows, int k,
-                                      int hid, float eps, int cluster, int stages, void* stream) {
+                                      const void* g1, const void* w1, void* out, void* xn,
+                                      void* h, int rows, int k, int hid, float eps, int cluster,
+                                      int stages, void* stream) {
+  if (cluster == 0 && rows >= 1)
+    return (int)launch_staged(x, g0, w0, g1, w1, out, xn, h, rows, k, hid, eps,
+                              static_cast<cudaStream_t>(stream));
   const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8;
   if (rows < 1 || !cluster_ok || hid % cluster != 0 || k % (64 * cluster) != 0 || stages < 3)
     return (int)cudaErrorInvalidValue;

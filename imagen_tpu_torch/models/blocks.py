@@ -179,7 +179,32 @@ class TorchLayerNorm(nn.LayerNorm):
 
 # --- feedforward ------------------------------------------------------------------------
 
-class FeedForward(nn.Sequential):
+class KeepsPacked:
+    """A module mixin that keeps what it makes from its parameters for a
+    kernel (bf16 or packed weights) while no gradient is wanted. The value is
+    made again when a parameter is replaced, changed in place (its version)
+    or given new data (its pointer), and dropped when the module moves
+    (`_apply`: `.to()`, `.cuda()`, ...); a change made through `.data` in
+    place is not seen."""
+
+    _kept = None   # (parameters, their stamps, the value made from them)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kept = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def kept(self, params, make):
+        """`make()`, or the value it gave last while `params` are unchanged."""
+        params = tuple(params)
+        stamp = [(p._version, p.data_ptr()) for p in params]
+        cached = self._kept
+        if (cached is None or cached[1] != stamp
+                or any(p is not q for p, q in zip(cached[0], params))):
+            self._kept = cached = (params, stamp, make())
+        return cached[2]
+
+
+class FeedForward(KeepsPacked, nn.Sequential):
     """LayerNorm -> Linear -> GELU -> LayerNorm -> Linear, no biases.
 
     Where the gate admits the shape the whole chain runs as one kernel
@@ -197,23 +222,11 @@ class FeedForward(nn.Sequential):
             Linear(hidden_dim, dim, bias=False, dtype=dtype),
         )
         self.compute_dtype = dtype
-        self._ff_cache = None   # (weights, their stamps, the kernel's weights)
-
-    def _apply(self, fn, *args, **kwargs):
-        self._ff_cache = None
-        return super()._apply(fn, *args, **kwargs)
 
     def _packed_weights(self):
-        """`pack_ff_weights` of the two Linear weights, made again when a
-        weight is replaced, changed in place (its version) or given new data
-        (its pointer); a change made through `.data` in place is not seen."""
+        """`pack_ff_weights` of the two Linear weights, kept (`KeepsPacked`)."""
         ws = (self[1].weight, self[4].weight)
-        stamp = [(w._version, w.data_ptr()) for w in ws]
-        cached = self._ff_cache
-        if (cached is None or cached[1] != stamp
-                or any(w is not c for w, c in zip(ws, cached[0]))):
-            self._ff_cache = cached = (ws, stamp, pack_ff_weights(*ws))
-        return cached[2]
+        return self.kept(ws, lambda: pack_ff_weights(*ws))
 
     def forward(self, x):
         dt = self.compute_dtype
@@ -535,7 +548,7 @@ class Parallel(nn.Module):
         return sum(fn(x) for fn in self.fns)
 
 
-class CrossEmbedLayer(nn.Module):
+class CrossEmbedLayer(KeepsPacked, nn.Module):
     """Multi-kernel-size conv, channels split per scale, concatenated.
 
     A stride-1 call whose shape `stem_available` admits runs every scale,
@@ -558,11 +571,6 @@ class CrossEmbedLayer(nn.Module):
             for kernel, dim_scale in zip(kernel_sizes, dim_scales)])
         self.kernel_sizes = kernel_sizes
         self.stride = stride
-        self._stem_cache = None   # (parameters, their stamps, stem_conv arguments)
-
-    def _apply(self, fn, *args, **kwargs):
-        self._stem_cache = None
-        return super()._apply(fn, *args, **kwargs)
 
     def _stem_args(self, dt):
         """The kernel's (k, k, c, d) weights in `dt` and the concatenated bias;
@@ -572,18 +580,11 @@ class CrossEmbedLayer(nn.Module):
         return ws, torch.cat([conv.bias for conv in self.convs])
 
     def _cached_stem_args(self, dt, device_type):
-        """`_stem_args` and the packed weights, made again when a parameter is
-        replaced, changed in place (its version) or given new data (its
-        pointer); a change made through `.data` in place is not seen."""
-        params = list(self.parameters())
-        stamp = [(p._version, p.data_ptr()) for p in params]
-        cached = self._stem_cache
-        if (cached is None or cached[1] != stamp
-                or any(p is not q for p, q in zip(cached[0], params))):
+        """`_stem_args` and the packed weights, kept (`KeepsPacked`)."""
+        def make():
             ws, bias = self._stem_args(dt)
-            packed = pack_stem_weights(ws) if device_type == 'cuda' else None
-            self._stem_cache = cached = (params, stamp, (ws, bias.to(dt), packed))
-        return cached[2]
+            return ws, bias.to(dt), pack_stem_weights(ws) if device_type == 'cuda' else None
+        return self.kept(self.parameters(), make)
 
     def forward(self, x):
         dt = self.convs[0].compute_dtype

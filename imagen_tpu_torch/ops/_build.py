@@ -30,6 +30,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'imagen_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-Xcompiler', '-fPIC')
 
+# The H100 as the kernels' tilings see it: its SMs (the wrappers read the
+# card's own count, `sm_count`) and the shared memory a block may ask for.
+SMS = 132
+SMEM_LIMIT = 232448
+
 # Launches of each kernel, by name; a wrapper adds one where it launches.
 LAUNCHES: Counter = Counter()
 
@@ -47,8 +52,10 @@ SIGNATURES = {
     # x, w (kh, kw, I, O), bias (nullable), out, b, H, W, cin, cout, rows, stages, grid,
     # stream
     'conv2d_same_3x3_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, g0, w0 (hid, k), g1, w1 (k, hid), out, rows, k, hid, eps, cluster, stages, stream
-    'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    # x, g0, w0 (hid, k), g1, w1 (k, hid), out, xn (rows, k) and h (rows, hid) scratch
+    # (null but on the staged route), rows, k, hid, eps, cluster (0: the staged route),
+    # stages, stream
+    'fused_feedforward_bf16': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, q_scale, bias2, out, P, frames, heads, nk, d, scale2, stream
     'temporal_attn_fwd_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x (b, f, hw, c), g, y ((b hw), f, c), b, f, hw, c, eps, stream

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
-from imagen_tpu_torch.ops.fused_norm import SMEM_LIMIT, SMS, recomputed_grads
+from imagen_tpu_torch.ops._build import SMEM_LIMIT, SMS
+from imagen_tpu_torch.ops.fused_norm import recomputed_grads
 from imagen_tpu_torch.ops.tensor_utils import wants_grad
 
 KERNEL = 'conv2d_same_3x3_bf16'

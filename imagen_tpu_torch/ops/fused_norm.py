@@ -4,8 +4,9 @@ SiLU), 9 (row LayerNorm) and 11 (LayerNorm->matmul, matmul->LayerNorm).
 Counterparts of `imagen_tpu/ops/fused_norm.py`:
 
   fused_feedforward(x, g0, w0, g1, w1, eps): LayerNorm -> Linear -> exact
-      GELU -> LayerNorm -> Linear, no biases (`csrc/fused_feedforward.cu`,
-      tiled by `ff_tiles`);
+      GELU -> LayerNorm -> Linear, no biases (`csrc/fused_feedforward.cu`:
+      the cluster kernel, tiled by `ff_tiles`, or the staged route for the
+      shapes it refuses);
   fused_film_norm(x, gamma, scale, shift): silu(x / ||x|| * sqrt(C) * gamma
       * (scale + 1) + shift) over the channels of NHWC x, the prologue of a
       2-D `Block` (`csrc/fused_film_norm.cu`);
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
+from imagen_tpu_torch.ops._build import SMEM_LIMIT, SMS
 from imagen_tpu_torch.ops.tensor_utils import aligned_contiguous, wants_grad
 
 KERNEL = 'fused_feedforward_bf16'
@@ -45,19 +47,18 @@ LN_KERNEL = 'fused_layernorm_bf16'
 LNMM_KERNEL = 'fused_ln_matmul_bf16'
 MMLN_KERNEL = 'fused_matmul_ln_bf16'
 _FF_WEIGHT_BUDGET = 4 * 1024 * 1024
-SMS = 132                 # the H100's SMs (the wrappers read the card's count)
-SMEM_LIMIT = 232448       # bytes of shared memory a block may use on the H100
 ROW_MAX_C = 4096   # kernels 8 and 9: one warp holds a row, 16 vectors of 8 bf16 a lane
 LNMM_MAX_KN = 6144  # kernel 11: 16 rows of k and of n, and the weight stages, fit in shared memory
 
 
-# The tiling of csrc/fused_feedforward.cu: a cluster of blocks shares FF_ROWS
+# The tiling of csrc/fused_feedforward.cu's cluster kernel: a cluster of blocks shares FF_ROWS
 # rows and splits hid; weights stream in FF_KC-column stages.
 FF_ROWS, FF_KC = 64, 32
 FF_WIDTHS = (128, 256, 384, 512)   # k: product 2's accumulators, k / 2 columns a warpgroup
 FF_SLICES = (512, 256, 128)        # hidden columns a block holds: product 1's, 2 x its N
 FF_CLUSTERS = (1, 2, 4, 8)
-FF_MAX_CLUSTER = 8                 # the kernel's statistics buffers are sized for 8 ranks
+FF_MAX_CLUSTER = max(FF_CLUSTERS)  # the kernel's statistics buffers are sized for 8 ranks
+FF_STAGED_TILE = 128               # the staged route's product tile: k and hid multiples of it
 FF_MAX_STAGES = 8
 
 
@@ -82,7 +83,8 @@ def ff_smem(k, hid_slice, stages):
 
 @functools.lru_cache(maxsize=256)
 def ff_tiles(rows, k, hid, sms=SMS):
-    """The tiling of one call, or None where the kernel does not take (k, hid).
+    """The cluster kernel's tiling of one call, or None where it does not take
+    (k, hid) and the staged route runs the call.
 
     A cluster of `cluster` blocks takes 64 rows, each block `hid_slice` =
     hid / cluster hidden columns (512, 256 or 128) and, for the reduction of the
@@ -114,6 +116,13 @@ def ff_tiles(rows, k, hid, sms=SMS):
             or k * 256 + FF_ROWS * (k // cl) * 2 > FF_ROWS * wide * 2 + stages * wide * FF_KC * 2):
         return None
     return FFTiles(cl, hs, row_tiles, row_tiles * cl, stages, ff_smem(k, hs, stages))
+
+
+def ff_staged_takes(k, hid):
+    """Whether the staged route (csrc/fused_feedforward.cu: a row LayerNorm
+    and a wgmma product, twice, H through global memory) takes (k, hid); it
+    runs what `ff_tiles` refuses, every shape the gate admits."""
+    return k % FF_STAGED_TILE == 0 and hid % FF_STAGED_TILE == 0
 
 
 def _ff_rows_block(rows, k, hid):
@@ -266,17 +275,20 @@ def _ff_forward(x, g0, w0, g1, w1, eps, packed=None):
     if rows == 0:
         return x.new_empty(shape)
     tiles = ff_tiles(rows, k, hid, _build.sm_count(x.device.index))
-    if tiles is None:
-        raise ValueError(f'fused_feedforward kernel takes k in {FF_WIDTHS} and hid = 128, '
-                         f'256 or 512 times 1, 2, 4 or 8 with k / cluster a multiple of 64; got '
-                         f'k={k}, hid={hid}')
+    if tiles is None and not ff_staged_takes(k, hid):
+        raise ValueError(f'fused_feedforward kernel takes k and hid that are multiples of '
+                         f'{FF_STAGED_TILE}; got k={k}, hid={hid}')
     x2 = aligned_contiguous(x.reshape(rows, k))
     g0f, g1f = _gain(g0, k, 'fused_feedforward'), _gain(g1, hid, 'fused_feedforward')
     w0c, w1c = pack_ff_weights(w0, w1) if packed is None else packed
     out = torch.empty_like(x2)
+    if tiles is None:   # the staged route: LN0(x) and H through global memory
+        xn, h = torch.empty_like(x2), x2.new_empty((rows, hid))
+        route = (xn.data_ptr(), h.data_ptr(), rows, k, hid, float(eps), 0, 0)
+    else:
+        route = (None, None, rows, k, hid, float(eps), tiles.cluster, tiles.stages)
     _build.launch(KERNEL, x2.data_ptr(), g0f.data_ptr(), w0c.data_ptr(), g1f.data_ptr(),
-                  w1c.data_ptr(), out.data_ptr(), rows, k, hid, float(eps), tiles.cluster,
-                  tiles.stages)
+                  w1c.data_ptr(), out.data_ptr(), *route)
     return out.reshape(shape)
 
 

@@ -223,19 +223,22 @@ def test_fused_feedforward_reads_packed_weights(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('which', ['transformer', 'perceiver'])
+@pytest.mark.parametrize('which', ['transformer', 'perceiver', 'transformer_384'])
 def test_feedforward_modules_run_the_kernel_right(cuda, monkeypatch, which):
-    """BaseUnet64's 32^2 TransformerBlock (batch 2) and a Perceiver at its
-    width, bf16 with the feedforward gate open, held to the same module in
-    fp32 as the plain route (gate closed) is; a second call reads the kept
-    bf16 weights and gives the same bits."""
+    """BaseUnet64's 32^2 TransformerBlock (batch 2), a Perceiver at its
+    width and the 384-wide TransformerBlock of a default Unet at dim 48 (the
+    staged route), bf16 with the feedforward gate open, held to the same
+    module in fp32 as the plain route (gate closed) is; a second call reads
+    the kept bf16 weights and gives the same bits."""
     torch.manual_seed(16)
     g = torch.Generator(device=cuda).manual_seed(17)
-    if which == 'transformer':
+    if which.startswith('transformer'):
+        width = 384 if which == 'transformer_384' else 512
+
         def build(dt):
-            return blocks.TransformerBlock(512, depth=1, heads=8, dim_head=64, ff_mult=2.,
+            return blocks.TransformerBlock(width, depth=1, heads=8, dim_head=64, ff_mult=2.,
                                            dtype=dt)
-        x = torch.randn((2, 32, 32, 512), generator=g, device=cuda)
+        x = torch.randn((2, 32, 32, width), generator=g, device=cuda)
     else:
         def build(dt):
             return blocks.PerceiverResampler(512, depth=2, dim_head=64, heads=8, num_latents=32,
@@ -255,13 +258,38 @@ def test_feedforward_modules_run_the_kernel_right(cuda, monkeypatch, which):
     assert max_abs(out.float(), truth) <= _bound(max_abs(plain.float(), truth))
 
 
+# (rows, k, hid) that the gate admits and the cluster kernel refuses: ff_mult
+# 2 at width 384 (a default Unet's 384-wide stage, also ragged against the
+# 128-row product tile), k past 512, hid 5 x 256 and 3 x 128, the widest k
+# and the widest hid the 4 MB of weights allow, one row block of 8
+STAGED_CASES = [(64, 384, 768), (8200, 384, 768), (64, 1024, 1024), (64, 640, 1280),
+                (72, 512, 384), (200, 8192, 128), (72, 128, 8192), (8, 256, 768)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('k,hid', [(1024, 1024), (512, 384), (128, 4096)])
-def test_fused_feedforward_raises_outside_its_instances(cuda, k, hid):
-    """Shapes the JAX gate admits but no instance of the kernel takes (k past
-    512, hid not 128, 256 or 512 times 1-8 blocks, k / cluster short of 64)
-    raise on CUDA; they never take the plain chain there."""
-    assert fn.fused_feedforward_available(64, k, hid) and fn.ff_tiles(64, k, hid) is None
+@pytest.mark.parametrize('rows,k,hid', STAGED_CASES)
+def test_fused_feedforward_staged_route_matches_plain(cuda, rows, k, hid):
+    """The staged route, within the bound of the plain bf16 chain and the
+    same bits on a second run."""
+    assert fn.fused_feedforward_available(rows, k, hid) and fn.ff_tiles(rows, k, hid) is None
+    x, g0, w0, g1, w1 = _ff_inputs(cuda, rows, k, hid)
+
+    def run(x, w0, w1):
+        return fn.fused_feedforward(x, g0, w0, g1, w1, 1e-3)
+
+    def plain(x, w0, w1):
+        return fn.feedforward_reference(x, g0, w0, g1, w1, 1e-3)
+
+    _check(run, plain, (x, w0, w1), (x.float(), w0.float(), w1.float()), fn.KERNEL)
+    assert torch.equal(run(x, w0, w1), run(x, w0, w1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,hid', [(192, 384), (256, 320)])
+def test_fused_feedforward_raises_outside_the_gate(cuda, k, hid):
+    """Widths the gate refuses (not multiples of 128) raise on CUDA; they
+    never take the plain chain there."""
+    assert not fn.fused_feedforward_available(64, k, hid)
     x, g0, w0, g1, w1 = _ff_inputs(cuda, 64, k, hid)
     with pytest.raises(ValueError):
         fn.fused_feedforward(x, g0, w0, g1, w1, 1e-3)

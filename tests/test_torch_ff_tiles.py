@@ -14,8 +14,10 @@ of the output's largest value (the split only reorders fp32 sums), and in
 bf16, rounding where `_ff_kernel` rounds, to 2^-7 of it (a sum taken in
 another order can flip one bf16 rounding of the hidden row or the output,
 one step of bf16's 8-bit mantissa). The weight cache of `FeedForward` is
-held to its stamp. The kernel itself is held to the plain version on the
-card in `tests/test_torch_cuda.py`.
+held to its stamp. Every shape the gate admits has a route: the cluster
+kernel or, where `ff_tiles` refuses, the staged route, whose arithmetic is
+the emulation with one slice. The kernel itself is held to the plain version
+on the card in `tests/test_torch_cuda.py`.
 """
 import jax
 import jax.numpy as jnp
@@ -66,19 +68,41 @@ def test_ff_tiles_prefers_filled_sms_then_wide_slices():
 @pytest.mark.parametrize('rows,k,hid', [(64, 1024, 1024), (64, 640, 128), (64, 512, 384),
                                         (64, 128, 4096), (64, 128, 2048), (0, 512, 1024)])
 def test_ff_tiles_refuses_what_the_kernel_does_not_take(rows, k, hid):
-    """k past 512 or not in the kernel's instantiations; hid not 128, 256 or
-    512 times 1, 2, 4 or 8; k / cluster short of 64 columns (hid 2048 at k
-    128 needs 4 blocks of 32 columns); no rows."""
+    """k past 512 or not in the cluster kernel's instantiations; hid not 128,
+    256 or 512 times 1, 2, 4 or 8; k / cluster short of 64 columns (hid 2048
+    at k 128 needs 4 blocks of 32 columns); no rows. The staged route takes
+    each of these shapes."""
     assert fn.ff_tiles(rows, k, hid) is None
+    assert fn.ff_staged_takes(k, hid)
 
 
-def ff_emulation(x, g0, w0, g1, w1, eps, tiles):
+@pytest.mark.parametrize('rows', [8, 72, 8200])
+def test_every_shape_the_gate_admits_has_a_route(rows):
+    """Every (k, hid) that `fused_feedforward_available` admits on CUDA (k
+    and hid multiples of 128, 2 k hid bf16 weights within 4 MB) runs: on the
+    cluster kernel or on the staged route. Neither takes a shape the gate
+    refuses for its widths."""
+    admitted = 0
+    for k in range(64, 8193, 64):
+        for hid in range(64, 8193, 64):
+            takes = fn.ff_tiles(rows, k, hid) is not None or fn.ff_staged_takes(k, hid)
+            if fn.fused_feedforward_available(rows, k, hid):
+                admitted += 1
+                assert takes, (k, hid)
+            elif k % 128 or hid % 128:
+                assert not takes, (k, hid)
+    assert admitted == sum(64 // a for a in range(1, 65))   # k = 128 a, hid = 128 b, a b <= 64
+
+
+def ff_emulation(x, g0, w0, g1, w1, eps, cluster, hid_slice):
     """The kernel's split arithmetic, rounding to x's dtype where it rounds
-    to bf16; w0 (hid, k) and w1 (k, hid) as the module stores them."""
-    dt, rows = x.dtype, x.shape[0]
-    cl, hs = tiles.cluster, tiles.hid_slice
+    to bf16; w0 (hid, k) and w1 (k, hid) as the module stores them. The
+    staged route is one slice of the whole hidden row (cluster 1). Rows are
+    independent, so the zero rows TMA adds past the last change nothing."""
+    dt = x.dtype
+    cl, hs = cluster, hid_slice
     hid = w0.shape[0]
-    xp = F.pad(x.float(), (0, 0, 0, tiles.row_tiles * fn.FF_ROWS - rows))  # TMA's zero rows
+    xp = x.float()
     mean = xp.sum(-1, keepdim=True) / xp.shape[-1]
     var = ((xp - mean) ** 2).sum(-1, keepdim=True) / xp.shape[-1]
     xn = ((xp - mean) * torch.rsqrt(var + eps) * g0.float()).to(dt).float()
@@ -96,7 +120,7 @@ def ff_emulation(x, g0, w0, g1, w1, eps, tiles):
     rstd1 = torch.rsqrt(var1 + eps)
     parts = [((s - mean1) * rstd1 * g1[c].float()).to(dt).float() @ w1[:, c].to(dt).float().T
              for s, c in zip(h, cols)]
-    return rank_order(parts)[:rows].to(dt)
+    return rank_order(parts).to(dt)
 
 
 def _ff_inputs(seed, rows, k, hid):
@@ -115,7 +139,7 @@ EMULATED = [(72, 128, 512), (200, 512, 1024), (72, 512, 2048), (200, 384, 128),
 def test_split_arithmetic_matches_jax_in_fp32(rows, k, hid):
     x, g0, w0, g1, w1 = _ff_inputs(40, rows, k, hid)
     tiles = fn.ff_tiles(rows, k, hid)
-    mine = ff_emulation(*map(t, (x, g0, w0, g1, w1)), 1e-3, tiles)
+    mine = ff_emulation(*map(t, (x, g0, w0, g1, w1)), 1e-3, tiles.cluster, tiles.hid_slice)
     jargs = (jnp.asarray(x), jnp.asarray(g0), jnp.asarray(w0.T), jnp.asarray(g1),
              jnp.asarray(w1.T))
     xla = np.asarray(jax.jit(jfn._ff_xla, static_argnums=5)(*jargs, 1e-3))
@@ -125,14 +149,19 @@ def test_split_arithmetic_matches_jax_in_fp32(rows, k, hid):
     assert float(np.abs(mine.numpy() - pallas).max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize('rows,k,hid', [(72, 128, 512), (200, 512, 1024), (72, 512, 2048)])
+# the cluster kernel's splits, then shapes only the staged route takes: ff_mult
+# 2 at width 384 (a default Unet's 384-wide stage), k past 512, hid 5 x 256
+@pytest.mark.parametrize('rows,k,hid', [(72, 128, 512), (200, 512, 1024), (72, 512, 2048),
+                                        (72, 384, 768), (64, 1024, 1024), (64, 640, 1280)])
 def test_split_arithmetic_matches_the_pallas_kernel_in_bf16(rows, k, hid):
     """bf16 in and out: the emulation against `_ff_kernel` in interpret mode,
     which rounds at the same places."""
     x, g0, w0, g1, w1 = _ff_inputs(41, rows, k, hid)
     bf = jnp.bfloat16
+    tiles = fn.ff_tiles(rows, k, hid)
+    cluster, hid_slice = (1, hid) if tiles is None else (tiles.cluster, tiles.hid_slice)
     mine = ff_emulation(t(x).to(torch.bfloat16), t(g0), t(w0).to(torch.bfloat16), t(g1),
-                        t(w1).to(torch.bfloat16), 1e-3, fn.ff_tiles(rows, k, hid)).float()
+                        t(w1).to(torch.bfloat16), 1e-3, cluster, hid_slice).float()
     pallas = jfn._ff_forward(jnp.asarray(x, bf), jnp.asarray(g0), jnp.asarray(w0.T, bf),
                              jnp.asarray(g1), jnp.asarray(w1.T, bf), 1e-3, interpret=True)
     pallas = np.asarray(pallas.astype(jnp.float32))
@@ -157,5 +186,5 @@ def test_feedforward_keeps_its_bf16_weights_until_they_change():
     third = ff._packed_weights()
     assert third is not second and torch.equal(third[0], ff[1].weight.to(torch.bfloat16))
     ff.to(torch.float64)
-    assert ff._ff_cache is None
+    assert ff._kept is None
     assert ff._packed_weights()[0].dtype == torch.bfloat16

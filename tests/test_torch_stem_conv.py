@@ -222,7 +222,7 @@ def test_cross_embed_layer_repacks_after_its_parameters_change():
         assert not torch.equal(swapped, after)
         assert torch.equal(swapped, fresh(x))
         layer.to(torch.float64)
-        assert layer._stem_cache is None
+        assert layer._kept is None
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
