@@ -45,9 +45,11 @@ every U-Net above.
 The launch counts are set to 0 just before each path and read just after.
 Then it holds each hand-written kernel, at every shape the paths launched
 it at (kernels 9, 11 and 7 at every recorded site shape; kernel 7 also at
-the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, and kernel
+the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, kernel
 10 at the Perceiver's batch 2 and 4 and on its staged route at (8192, 384,
-768) and (288, 1024, 1024), logged and weighted by nothing), against its plain
+768) and (288, 1024, 1024), and kernel 11 past the k + n <= 6144 that its
+first design took, LN -> matmul at (8192, 256, 8192) and matmul -> LN on its
+staged route at (1024, 256, 8192), logged and weighted by nothing), against its plain
 PyTorch version, and a small bf16 U-Net and a small bf16 Unet3D that reach
 every kernel of the paths against the same nets on the plain path, outputs
 and gradients, both measured against fp32.
@@ -66,8 +68,10 @@ profiled requests' device time and kernel 6's share of it; the device time
 of the wrapper's weight copy at the (3, 3, 2048, 1024) site;
 per-kernel errors, CUDA-event times, device times and bounds at each shape
 (with the unfused route's time and device time for kernels 8, 10, 11, 12, 13
-and 14, and its factor over the kernel's device time; kernels 10 and 14 also
-held to the same bits on a second call); the small nets' errors; then the card again, one JSON line of kernel results and, last,
+and 14, and its factor over the kernel's device time; kernels 7, 10, 11 and
+14 also held to the same bits on a second call; a shape whose measurement
+raises is logged as failed and the next one measured); the small nets'
+errors; then the card again, one JSON line of kernel results and, last,
 the result line {"ok": ..., "device": {...}}.
 
 In the kernel line, `launches` is the sum over the paths (split in
@@ -166,10 +170,12 @@ KERNEL_INFO = {
         replaces='imagen_tpu/ops/fused_norm.py:155', device_kernel='layernorm_rows_kernel'),
     'fused_ln_matmul_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_ln_matmul.cu',
-        replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel='ln_matmul_kernel'),
+        replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel=None),
+    # None: every CUDA function of the call (the wrapper launches nothing else;
+    # matmul -> LN's staged route is the product and the row norm)
     'fused_matmul_ln_bf16': dict(
         source='imagen_tpu_torch/csrc/fused_ln_matmul.cu',
-        replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel='matmul_ln_kernel'),
+        replaces='imagen_tpu/ops/fused_norm.py:384', device_kernel=None),
     # the input's 8-channel copy and the stem itself (one launch of each a call)
     'cross_embed_stem_bf16': dict(
         source='imagen_tpu_torch/csrc/cross_embed_stem.cu',
@@ -194,12 +200,17 @@ UNWIRED = (*NORM_UNWIRED, CF_KERNEL)
 # nothing: the nearest final conv that the JAX gate admits; BaseUnet64's
 # Perceiver at batch 2 and 4 (b x 36 latents), which no path launches; the
 # feedforward's staged route (shapes the cluster kernel refuses), at the
-# 384-wide 32^2 stage of a default Unet at dim 48 (batch 8) and at k past 512
+# 384-wide 32^2 stage of a default Unet at dim 48 (batch 8) and at k past 512;
+# kernel 11 past the k + n <= 6144 of its first design, which the JAX gate
+# admits (matmul -> LN there on its staged route: n over 8 x 640)
 LOG_ONLY_SHAPES = {CF_KERNEL: ((2, 1024, 1024, 128, 3, 3),),
                    'fused_feedforward_bf16': ((72, 512, 2048, 1e-3), (144, 512, 2048, 1e-3),
-                                              (8192, 384, 768, 1e-3), (288, 1024, 1024, 1e-3))}
+                                              (8192, 384, 768, 1e-3), (288, 1024, 1024, 1e-3)),
+                   'fused_ln_matmul_bf16': ((8192, 256, 8192, 1e-3),),
+                   'fused_matmul_ln_bf16': ((1024, 256, 8192, 1e-3),)}
 # kernels whose result must be the same bits on a second call
-DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16')
+DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16', 'fused_ln_matmul_bf16',
+                 'fused_matmul_ln_bf16', CF_KERNEL)
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving')
 
 
@@ -1155,6 +1166,77 @@ def log_weight_copy(torch):
         f'{one:.4f} ms on the device; a zero pad then .contiguous() {two:.4f} ms')
 
 
+def measure_shape(torch, name, info, dims, counts, g, totals):
+    """Error, times and bound of kernel `name` at one shape, each time added
+    to `totals` weighted by the shape's count; returns (good, the worst
+    error, the library call's weighted time or None)."""
+    count = sum(counts.values())
+    kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
+        torch, name, dims, g)
+    with torch.no_grad():
+        truth = plain(*xf)
+        first = kernel(*xb)
+        errs_k = [(o.float() - t).abs().max().item() for o, t in zip(first, truth)]
+        errs_p = [(o.float() - t).abs().max().item() for o, t in zip(plain(*xb), truth)]
+        same = (name not in DETERMINISTIC
+                or all(torch.equal(a, b) for a, b in zip(first, kernel(*xb))))
+        del truth, first
+        # kernel and plain in turns: plain, kernel, kernel, plain
+        p1 = cuda_time_ms(lambda: plain(*xb))
+        k1 = cuda_time_ms(lambda: kernel(*xb))
+        k2 = cuda_time_ms(lambda: kernel(*xb))
+        p2 = cuda_time_ms(lambda: plain(*xb))
+        served_ms = cuda_time_ms(lambda: served(*xb)) if served else None
+        unfused_ms = cuda_time_ms(lambda: unfused(*xb)) if unfused else None
+        unfused_dev_ms = device_time_ms(lambda: unfused(*xb)) if unfused else None
+        dev_ms = (device_time_ms(lambda: kernel(*xb), info['device_kernel'],
+                                 info.get('device_kernels', 1))
+                  if 'device_kernel' in info else None)
+    lib_ms = cuda_time_ms(lambda: library(*xb)) if library else None
+    # every device kernel the library call launches
+    lib_dev_ms = (device_time_ms(lambda: library(*xb))
+                  if library and 'device_kernel' in info else None)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound = max(bound_ops, bound_bytes)
+    bounds = [max(2 * e, 1e-3) for e in errs_p]
+    good = same and all(e <= b for e, b in zip(errs_k, bounds))
+    # serving launches the flash forward without the LSE
+    trained = counts['training'] + counts['video_training']
+    totals['ms'] += (count * ms if served_ms is None else
+                     (count - trained) * served_ms + trained * ms)
+    totals['plain_ms'] += count * plain_ms
+    totals['operations'] += count * bound_ops if bound_ops >= bound_bytes else 0.
+    totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
+    if lib_dev_ms is not None:
+        totals['library_device_ms'] += count * lib_dev_ms
+    if unfused_ms is not None:
+        totals['unfused_route_ms'] += count * unfused_ms
+        totals['unfused_route_device_ms'] += count * unfused_dev_ms
+    if dev_ms is not None:
+        totals['device_ms'] += count * dev_ms
+    fmt = ', '.join(f'{e:.3e}' for e in errs_k)
+    fmt_p = ', '.join(f'{e:.3e}' for e in errs_p)
+    served_note = '' if served_ms is None else f' ({served_ms:.4f} ms as served)'
+    unfused_note = ('' if unfused_ms is None else
+                    f', the unfused route {unfused_ms:.4f} ms (device '
+                    f'{unfused_dev_ms:.4f} ms'
+                    + (f', {unfused_dev_ms / dev_ms:.2f}x the kernel\'s)' if dev_ms else ')'))
+    if dev_ms is not None:
+        share = f'{bound / dev_ms:.1%}' if dev_ms > 0 else 'n/a'
+        served_note += f' (device {dev_ms:.4f} ms, {share} of the bound)'
+    log(f'{name} {dims} x{count} {dict(counts)}: max_abs_err kernel [{fmt}] '
+        f'plain-bf16 [{fmt_p}]{"" if same else ", a second call differs"} -> '
+        f'{"ok" if good else "FAIL"}; {ms:.4f} ms'
+        f'{served_note} vs plain {plain_ms:.4f} ms{unfused_note}, '
+        f'library {"n/a" if lib_ms is None else f"{lib_ms:.4f} ms"}'
+        f'{"" if lib_dev_ms is None else f" (device {lib_dev_ms:.4f} ms)"}, bound '
+        f'{bound:.4f} ms by '
+        f'{"operations" if bound_ops >= bound_bytes else "bytes"} '
+        f'({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)')
+    return good, max(errs_k), None if lib_ms is None else count * lib_ms
+
+
 def phase_kernels(torch, results):
     g = torch.Generator(device='cuda').manual_seed(7)
     ok = True
@@ -1174,74 +1256,16 @@ def phase_kernels(torch, results):
         for dims in LOG_ONLY_SHAPES.get(name, ()):
             by_dims[dims]['log only'] += 0
         for dims, counts in sorted(by_dims.items()):
-            count = sum(counts.values())
-            kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
-                torch, name, dims, g)
-            with torch.no_grad():
-                truth = plain(*xf)
-                first = kernel(*xb)
-                errs_k = [(o.float() - t).abs().max().item() for o, t in zip(first, truth)]
-                errs_p = [(o.float() - t).abs().max().item() for o, t in zip(plain(*xb), truth)]
-                same = (name not in DETERMINISTIC
-                        or all(torch.equal(a, b) for a, b in zip(first, kernel(*xb))))
-                del truth, first
-                # kernel and plain in turns: plain, kernel, kernel, plain
-                p1 = cuda_time_ms(lambda: plain(*xb))
-                k1 = cuda_time_ms(lambda: kernel(*xb))
-                k2 = cuda_time_ms(lambda: kernel(*xb))
-                p2 = cuda_time_ms(lambda: plain(*xb))
-                served_ms = cuda_time_ms(lambda: served(*xb)) if served else None
-                unfused_ms = cuda_time_ms(lambda: unfused(*xb)) if unfused else None
-                unfused_dev_ms = device_time_ms(lambda: unfused(*xb)) if unfused else None
-                dev_ms = (device_time_ms(lambda: kernel(*xb), info['device_kernel'],
-                                         info.get('device_kernels', 1))
-                          if 'device_kernel' in info else None)
-            lib_ms = cuda_time_ms(lambda: library(*xb)) if library else None
-            # every device kernel the library call launches
-            lib_dev_ms = (device_time_ms(lambda: library(*xb))
-                          if library and 'device_kernel' in info else None)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-            bound = max(bound_ops, bound_bytes)
-            bounds = [max(2 * e, 1e-3) for e in errs_p]
-            good = same and all(e <= b for e, b in zip(errs_k, bounds))
+            try:
+                good, err, lib = measure_shape(torch, name, info, dims, counts, g, totals)
+            except Exception:  # the next shapes are still measured
+                traceback.print_exc(file=sys.stdout)
+                log(f'{name} {dims}: FAIL, the measurement raised')
+                good, err, lib = False, 0., None
             ok &= good
-            worst = max(worst, *errs_k)
-            # serving launches the flash forward without the LSE
-            trained = counts['training'] + counts['video_training']
-            totals['ms'] += (count * ms if served_ms is None else
-                             (count - trained) * served_ms + trained * ms)
-            totals['plain_ms'] += count * plain_ms
-            totals['operations'] += count * bound_ops if bound_ops >= bound_bytes else 0.
-            totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
-            if lib_ms is not None:
-                lib_total = (lib_total or 0.) + count * lib_ms
-            if lib_dev_ms is not None:
-                totals['library_device_ms'] += count * lib_dev_ms
-            if unfused_ms is not None:
-                totals['unfused_route_ms'] += count * unfused_ms
-                totals['unfused_route_device_ms'] += count * unfused_dev_ms
-            if dev_ms is not None:
-                totals['device_ms'] += count * dev_ms
-            fmt = ', '.join(f'{e:.3e}' for e in errs_k)
-            fmt_p = ', '.join(f'{e:.3e}' for e in errs_p)
-            served_note = '' if served_ms is None else f' ({served_ms:.4f} ms as served)'
-            unfused_note = ('' if unfused_ms is None else
-                            f', the unfused route {unfused_ms:.4f} ms (device '
-                            f'{unfused_dev_ms:.4f} ms'
-                            + (f', {unfused_dev_ms / dev_ms:.2f}x the kernel\'s)' if dev_ms else ')'))
-            if dev_ms is not None:
-                share = f'{bound / dev_ms:.1%}' if dev_ms > 0 else 'n/a'
-                served_note += f' (device {dev_ms:.4f} ms, {share} of the bound)'
-            log(f'{name} {dims} x{count} {dict(counts)}: max_abs_err kernel [{fmt}] '
-                f'plain-bf16 [{fmt_p}]{"" if same else ", a second call differs"} -> '
-                f'{"ok" if good else "FAIL"}; {ms:.4f} ms'
-                f'{served_note} vs plain {plain_ms:.4f} ms{unfused_note}, '
-                f'library {"n/a" if lib_ms is None else f"{lib_ms:.4f} ms"}'
-                f'{"" if lib_dev_ms is None else f" (device {lib_dev_ms:.4f} ms)"}, bound '
-                f'{bound:.4f} ms by '
-                f'{"operations" if bound_ops >= bound_bytes else "bytes"} '
-                f'({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)')
+            worst = max(worst, err)
+            if lib is not None:
+                lib_total = (lib_total or 0.) + lib
             free_cuda()
         launches = {path: c.get(name, 0) for path, c in results['counts'].items()}
         summary.append(dict(

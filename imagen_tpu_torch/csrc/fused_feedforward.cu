@@ -87,6 +87,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "row_norm.cuh"
 
 namespace {
 
@@ -94,7 +95,6 @@ constexpr int BM = 64;              // rows of a block: one m64 block
 constexpr int THREADS = 384;        // two consumer warpgroups and a producer warpgroup
 constexpr int CONSUMERS = 256;
 constexpr int KC = 32;              // K of a weight stage: 64-byte rows, 64-byte swizzle
-constexpr int MAX_CLUSTER = 8;
 constexpr int MAX_SMEM = 232448;    // shared memory a block may use on the H100
 
 // Shared memory, every region on a 1024-byte boundary (ops/fused_norm.py
@@ -229,47 +229,18 @@ fused_feedforward_kernel(const __grid_constant__ CUtensorMap tm_x,
   for (int row = ct / 8; row < BM; row += CONSUMERS / 8) {
     float s = 0.f;
 #pragma unroll
-    for (int c = part; c < K / 8; c += 8) {
-      const uint4 v = *reinterpret_cast<const uint4*>(smem + tile_offset<128, BM>(row, c));
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        s += f.x + f.y;
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o *= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / K;
+    for (int c = part; c < K / 8; c += 8)
+      s += sum8(*reinterpret_cast<const uint4*>(smem + tile_offset<128, BM>(row, c)));
+    const float mean = group_sum<8>(s) / K;
     float q = 0.f;
 #pragma unroll
-    for (int c = part; c < K / 8; c += 8) {
-      const uint4 v = *reinterpret_cast<const uint4*>(smem + tile_offset<128, BM>(row, c));
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        q += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o *= 2) q += __shfl_xor_sync(0xffffffffu, q, o);
-    const float rstd = rsqrtf(q / K + eps);
+    for (int c = part; c < K / 8; c += 8)
+      q += sqdev8(*reinterpret_cast<const uint4*>(smem + tile_offset<128, BM>(row, c)), mean);
+    const float rstd = rsqrtf(group_sum<8>(q) / K + eps);
 #pragma unroll
     for (int c = part; c < K / 8; c += 8) {
       uint4* at = reinterpret_cast<uint4*>(smem + tile_offset<128, BM>(row, c));
-      uint4 v = *at;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-      const float4 ga = *reinterpret_cast<const float4*>(g0 + c * 8);
-      const float4 gb = *reinterpret_cast<const float4*>(g0 + c * 8 + 4);
-      const float gs[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p[e]);
-        p[e] = __floats2bfloat162_rn((f.x - mean) * rstd * gs[2 * e],
-                                     (f.y - mean) * rstd * gs[2 * e + 1]);
-      }
-      *at = v;
+      *at = ln_chunk(*at, mean, rstd, g0 + c * 8);
     }
   }
   fence_proxy_async();
@@ -305,34 +276,9 @@ fused_feedforward_kernel(const __grid_constant__ CUtensorMap tm_x,
     else s0 += acc1[i];
   }
 
-  // A row statistic over the whole hidden row: this thread's sums (rows r, r
-  // + 8) over its columns -> the warpgroup's -> the block's (warpgroup 0, then
-  // 1) -> into every block's `stats[pass][rank]` -> summed in rank order.
-  auto row_total = [&](int pass, float& a, float& b) {
-    a += __shfl_xor_sync(0xffffffffu, a, 1);
-    a += __shfl_xor_sync(0xffffffffu, a, 2);
-    b += __shfl_xor_sync(0xffffffffu, b, 1);
-    b += __shfl_xor_sync(0xffffffffu, b, 2);
-    if (lane % 4 == 0) {
-      red[wg * BM + r] = a;
-      red[wg * BM + r + 8] = b;
-    }
-    named_sync(1, CONSUMERS);
-    if (ct < BM) {
-      const float part = red[ct] + red[BM + ct];
-      const uint32_t at = smem_u32(stats + (pass * MAX_CLUSTER + rank) * BM + ct);
-      for (int dst = 0; dst < cl; ++dst) st_cluster(map_rank(at, dst), part);
-    }
-    cluster_sync();  // every block's partials are in
-    const float* col = stats + pass * MAX_CLUSTER * BM;
-    a = col[r];
-    b = col[r + 8];
-    for (int src = 1; src < cl; ++src) {
-      a += col[src * BM + r];
-      b += col[src * BM + r + 8];
-    }
-  };
-  row_total(0, s0, s1);
+  // LN1's statistics over the whole hidden row, summed over the cluster in rank order
+  float* const stats1 = stats + MAX_CLUSTER * BM;
+  cluster_row_total<BM, true>(s0, s1, r, red, stats, rank, cl);
   const float m0 = s0 / hid, m1 = s1 / hid;
   float v0 = 0.f, v1 = 0.f;
 #pragma unroll
@@ -340,7 +286,7 @@ fused_feedforward_kernel(const __grid_constant__ CUtensorMap tm_x,
     if (i & 2) v1 += (acc1[i] - m1) * (acc1[i] - m1);
     else v0 += (acc1[i] - m0) * (acc1[i] - m0);
   }
-  row_total(1, v0, v1);
+  cluster_row_total<BM, true>(v0, v1, r, red, stats1, rank, cl);
   const float rs0 = rsqrtf(v0 / hid + eps), rs1 = rsqrtf(v1 / hid + eps);
 
   // the normalised slice, bf16, the A operand of product 2, over the x tile:
@@ -437,50 +383,8 @@ constexpr int GSMEM = GSTAGES * GSTAGE + 16 * GSTAGES + 1024;
 __global__ void __launch_bounds__(256)
 fused_feedforward_rownorm_kernel(const __nv_bfloat16* in, const float* __restrict__ g,
                                  __nv_bfloat16* out, int rows, int c, float eps) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const uint4* src = reinterpret_cast<const uint4*>(in + (size_t)row * c);
-  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)row * c);
-  float s = 0.f;
-  for (int i = lane; i < c / 8; i += 32) {
-    const uint4 v = src[i];
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      s += f.x + f.y;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float mean = s / c;
-  float q = 0.f;
-  for (int i = lane; i < c / 8; i += 32) {
-    const uint4 v = src[i];
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      q += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) q += __shfl_xor_sync(0xffffffffu, q, o);
-  const float rstd = rsqrtf(q / c + eps);
-  for (int i = lane; i < c / 8; i += 32) {
-    uint4 v = src[i];
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-    const float4 ga = *reinterpret_cast<const float4*>(g + i * 8);
-    const float4 gb = *reinterpret_cast<const float4*>(g + i * 8 + 4);
-    const float gs[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      p[e] = __floats2bfloat162_rn((f.x - mean) * rstd * gs[2 * e],
-                                   (f.y - mean) * rstd * gs[2 * e + 1]);
-    }
-    dst[i] = v;
-  }
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  if (row < rows) row_layernorm(in, g, out, row, c, eps, threadIdx.x % 32);
 }
 
 // out (m, n) = a (m, kd) b (n, kd)^T, both K-major, rounded to bf16 once (GELU:
@@ -558,16 +462,6 @@ fused_feedforward_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * (size_t)n + 8 * j) =
           __floats2bfloat162_rn(v[2], v[3]);
   }
-}
-
-// A contiguous bf16 (outer, inner) matrix as TMA boxes of box_inner x box_outer.
-inline bool matrix_map(CUtensorMap* map, const void* base, int inner, int outer, int box_inner,
-                       int box_outer, CUtensorMapSwizzle swizzle, CUtensorMapL2promotion l2) {
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box,
-                       swizzle, l2);
 }
 
 template <int N1, int N2>

@@ -664,6 +664,16 @@ inline bool rows_map(CUtensorMap* map, const void* base, int batch, int n, int d
                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
+// A contiguous bf16 (outer, inner) matrix as TMA boxes of box_inner x box_outer.
+inline bool matrix_map(CUtensorMap* map, const void* base, int inner, int outer, int box_inner,
+                       int box_outer, CUtensorMapSwizzle swizzle, CUtensorMapL2promotion l2) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box,
+                       swizzle, l2);
+}
+
 // A contiguous fp32 vector of n values as TMA boxes of `box` values.
 inline bool flat_map(CUtensorMap* map, const void* base, long long n, int box) {
   const cuuint64_t dims[1] = {(cuuint64_t)n};

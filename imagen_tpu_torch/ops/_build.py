@@ -10,7 +10,8 @@ the plain PyTorch versions.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, launches
 on that stream and returns `cudaGetLastError()`; `launch` raises when it is
-not 0. `LAUNCHES` counts the launches of each kernel by name.
+not 0. `LAUNCHES` counts the launches of each kernel by name. `plan` asks a
+C entry that computes its own tiling which one it takes.
 """
 from __future__ import annotations
 
@@ -80,6 +81,14 @@ SIGNATURES = {
     'conv2d_same_cf_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
+# The tiling queries of the kernels whose C entries compute their own (kernel
+# 11: ln_first, rows, k, n, sms; kernel 7: b, H, W, cin, cout, k, sms), each
+# writing its ints into an array; the tests hold the Python tilings to them.
+PLANS = {
+    'fused_ln_matmul_plan': ((_I, _I, _I, _I, _I, _P), 8),
+    'conv2d_same_cf_plan': ((_I, _I, _I, _I, _I, _I, _I, _P), 6),
+}
+
 _lock = threading.Lock()
 _lib = None
 
@@ -139,7 +148,8 @@ def library():
             if not target.exists():
                 _build(target)
             lib = ctypes.CDLL(str(target))
-            for name, argtypes in SIGNATURES.items():
+            for name, argtypes in (*SIGNATURES.items(),
+                                   *((n, a) for n, (a, _) in PLANS.items())):
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -155,6 +165,15 @@ def launch(name, *args):
     if err != 0:
         raise RuntimeError(f'CUDA kernel {name} failed to launch: cudaError {err}')
     LAUNCHES[name] += 1
+
+
+def plan(name, *args):
+    """The tiling a C entry computes for these sizes, as a tuple of ints."""
+    _, count = PLANS[name]
+    out = (ctypes.c_int * count)()
+    if getattr(library(), name)(*args, out) != 0:
+        raise ValueError(f'{name}: no plan for {args}')
+    return tuple(out)
 
 
 def reset_launches():

@@ -25,6 +25,7 @@ backward is the VJP of its plain version (`_bwd_cf`).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -210,14 +211,73 @@ def conv2d_same_cf_reference(x, w, bias):
     return conv2d_same_reference(x, w, bias).permute(0, 3, 1, 2)
 
 
+# The plan of csrc/conv2d_same_cf.cu (`plan` there computes the same; the C
+# entry takes none): strips of 128 output columns at most, 16 a pair of warps;
+# k up to 19; weight rows of CF_WKP values (16 channels and 8 of padding).
+CF_MAX_K, CF_WKP = 19, 24
+CF_SM_SMEM = 233472   # shared memory of an SM
+CF_MIN_RUN = 16       # strip-rows a block at least, where there are that many
+
+
+class CfPlan(NamedTuple):
+    strip_w: int    # output columns of a strip: 16 a pair of warps
+    chunks: int     # 16-channel chunks of a window group (all of cin, but without the ring)
+    staging: int    # rows in flight in the ring of bulk copies; 0: read straight from x
+    wsmem: bool     # the weights held in shared memory (else read through L1)
+    grid: int       # blocks, each one contiguous run of the strip-rows
+    smem: int       # bytes of shared memory a block asks for
+
+
+def cf_smem(sw, chunks, staging, wsmem, cin, k):
+    """Shared memory of a block, as csrc/conv2d_same_cf.cu lays it out: the
+    window of sw + 2p pixels x an odd number of 16-byte chunks, the staging
+    slots of one raw row segment each (16-byte multiples with 32 bytes of
+    slack), the weights where held, the output row (8 channels x sw), the
+    second warp of each tile's fp32 sums (512 bytes a 16-column tile) and the
+    mbarriers."""
+    pix, ch16 = sw + 2 * (k // 2), -(-cin // 16)
+    slot = (pix * cin * 2 + 32 + 15) // 16 * 16
+    weights = k * k * ch16 * CF_MAX_COUT * CF_WKP * 2 if wsmem else 0
+    return (pix * (2 * chunks + 1) * 16 + staging * slot + weights + CF_MAX_COUT * sw * 2
+            + sw // 16 * 512 + 8 * staging)
+
+
+@functools.lru_cache(maxsize=256)
+def cf_plan(b, H, W, cin, k, sms=SMS):
+    """The widest strip (128, 64, 32, 16 columns) whose window of all of
+    cin, ring of 3 (else 2) staging rows and output row fit in shared memory,
+    with the weights where they fit too; failing all, 16-column strips
+    without the ring, as many channel chunks a window group as fit. Then one
+    block for each run of at least CF_MIN_RUN strip-rows, at most as many as
+    the SMs hold at once."""
+    ch16 = -(-cin // 16)
+    plan = None
+    for sw in (128, 64, 32, 16):
+        for staging in (3, 2):
+            for wsmem in (True, False):
+                if plan is None and cf_smem(sw, ch16, staging, wsmem, cin, k) <= SMEM_LIMIT:
+                    plan = (sw, ch16, staging, wsmem)
+    if plan is None:
+        wsmem = cf_smem(16, 1, 0, True, cin, k) <= SMEM_LIMIT
+        chunks = 1
+        while chunks < ch16 and cf_smem(16, chunks + 1, 0, wsmem, cin, k) <= SMEM_LIMIT:
+            chunks += 1
+        plan = (16, chunks, 0, wsmem)
+    smem = cf_smem(*plan, cin, k)
+    per_sm = max(1, min(CF_SM_SMEM // (smem + 1024), 64 // (plan[0] // 8)))
+    rows = b * -(-W // plan[0]) * H
+    return CfPlan(*plan, max(1, min(rows // CF_MIN_RUN, sms * per_sm)), smem)
+
+
 def _packed_cf_weights(w):
-    """(k, k, cin, cout) as (ceil(cin / 16), k * k, 8, 16) bf16: per 16-channel
-    chunk and tap, each output's 16 channels, zero past cin and cout."""
+    """(k, k, cin, cout) as (k * k, ceil(cin / 16), 8, 24) bf16: per tap and
+    16-channel chunk, each output's 16 channels and 8 zeros (48-byte rows,
+    conflict-free fragment loads), zero past cin and cout."""
     k, _, cin, cout = w.shape
     cinp = -(-cin // 16) * 16
     wp = F.pad(w.to(torch.bfloat16), (0, CF_MAX_COUT - cout, 0, cinp - cin))
-    wp = wp.reshape(k * k, cinp // 16, 16, CF_MAX_COUT).permute(1, 0, 3, 2)
-    return wp.contiguous()
+    wp = wp.reshape(k * k, cinp // 16, 16, CF_MAX_COUT).permute(0, 1, 3, 2)
+    return F.pad(wp, (0, CF_WKP - 16)).contiguous()
 
 
 def _cf_forward(x, w, bias):
@@ -232,9 +292,10 @@ def _cf_forward(x, w, bias):
                          f'{tuple(w.shape)}')
     b, H, W, cin = x.shape
     k, kw, wcin, cout = w.shape
-    if kw != k or k % 2 == 0 or wcin != cin or not 1 <= cout <= CF_MAX_COUT:
+    if kw != k or k % 2 == 0 or k > CF_MAX_K or wcin != cin or not 1 <= cout <= CF_MAX_COUT:
         raise ValueError(f'conv2d_same_cf kernel takes an odd square (k, k, cin, cout <= 8) '
-                         f'weight; got {tuple(w.shape)} for input {tuple(x.shape)}')
+                         f'weight, k <= {CF_MAX_K}; got {tuple(w.shape)} for input '
+                         f'{tuple(x.shape)}')
     x = x.contiguous()
     wp = _packed_cf_weights(w)
     if bias is not None:

@@ -48,7 +48,6 @@ LNMM_KERNEL = 'fused_ln_matmul_bf16'
 MMLN_KERNEL = 'fused_matmul_ln_bf16'
 _FF_WEIGHT_BUDGET = 4 * 1024 * 1024
 ROW_MAX_C = 4096   # kernels 8 and 9: one warp holds a row, 16 vectors of 8 bf16 a lane
-LNMM_MAX_KN = 6144  # kernel 11: 16 rows of k and of n, and the weight stages, fit in shared memory
 
 
 # The tiling of csrc/fused_feedforward.cu's cluster kernel: a cluster of blocks shares FF_ROWS
@@ -125,6 +124,93 @@ def ff_staged_takes(k, hid):
     return k % FF_STAGED_TILE == 0 and hid % FF_STAGED_TILE == 0
 
 
+# The tiling of csrc/fused_ln_matmul.cu: a block is two consumer warpgroups of
+# 64 rows x WN columns, split by rows (BM 128) or by columns (BM 64); K streams in
+# LNMM_KC-column stages. (BM, WN) of the kernel's instantiations, by variant.
+LNMM_KC = 64
+LNMM_MAX_STAGES = 6
+LNMM_FIRST_TILES = ((128, 128), (128, 256), (128, 320), (64, 64), (64, 128))
+LNMM_AFTER_TILES = ((128, 128), (128, 192), (128, 256), (128, 320),
+                    (64, 128), (64, 192), (64, 256), (64, 320))
+LNMM_STAGED_TILE = (128, 128)
+
+
+class LnmmTiles(NamedTuple):
+    staged: bool     # matmul -> LN in two launches: the product, then a row LayerNorm
+    rows_tile: int   # BM: 128 (the warpgroups split rows) or 64 (they split columns)
+    wg_cols: int     # WN: columns of a warpgroup
+    col_tiles: int   # n / BN
+    cluster: int     # blocks of a cluster: column tiles of one row tile
+    stages: int      # K stages of LNMM_KC columns in the ring
+    grid: int        # blocks: row tiles x col_tiles
+    smem: int        # bytes of shared memory a block asks for
+
+
+def lnmm_smem(bm, bn, stages):
+    """Shared memory of a block, as csrc/fused_ln_matmul.cu lays it out: the
+    ring (the x stage of bm rows and W's of bn rows, 128 bytes a row each),
+    the row statistics (8 ranks, two passes), the warpgroups' row sums, the
+    gains of up to 640 columns, the mbarriers and 1024 bytes of alignment
+    slack."""
+    return (stages * (bm + bn) * LNMM_KC * 2 + 2 * FF_MAX_CLUSTER * bm * 4 + 128 * 4
+            + 640 * 4 + 16 * stages + 1024)
+
+
+def _lnmm_stages(bm, bn):
+    """As many stages as fit (at most LNMM_MAX_STAGES), at least 2 and enough
+    to hold the output tile, which takes the ring over; 0 if none fits."""
+    fits = [s for s in range(2, LNMM_MAX_STAGES + 1)
+            if lnmm_smem(bm, bn, s) <= SMEM_LIMIT and bm * bn * 2 <= s * (bm + bn) * LNMM_KC * 2]
+    return max(fits, default=0)
+
+
+def _lnmm_fill(staged, bm, wn, rows, n, cl):
+    bn = wn if bm == 128 else 2 * wn
+    stages = _lnmm_stages(bm, bn)
+    return LnmmTiles(staged, bm, wn, n // bn, cl, stages, -(-rows // bm) * (n // bn),
+                     lnmm_smem(bm, bn, stages))
+
+
+@functools.lru_cache(maxsize=256)
+def lnmm_tiles(rows, k, n, ln_first=True, sms=SMS):
+    """The tiling of kernel 11 for one call (`plan` in csrc/fused_ln_matmul.cu
+    computes the same; the C entry takes no tiling), or None for a shape the
+    kernel does not take (k % 64, n % 128, no rows).
+
+    Of the tiles whose BN divides n, the one of the fewest waves of blocks,
+    each block costed by the larger of its products (BM BN / 2048 a K column:
+    2048 bf16 FMAs a clock on an SM) and its loads (2 (BM + BN) bytes a K
+    column at 48 bytes a clock from L2), plus, for LN -> matmul, its share of
+    the row statistics (two passes over BM / cluster rows); all times 6144 to
+    stay in integers, the first of equal costs. LN -> matmul groups each row
+    tile's column tiles into clusters of up to 8 (they share the statistics);
+    matmul -> LN needs the whole row in one cluster (n / BN of 1, 2, 4 or 8
+    blocks) and takes the staged route where no tile gives one."""
+    if rows < 1 or k < LNMM_KC or k % LNMM_KC or n < 128 or n % 128:
+        return None
+    best, best_cost = None, None
+    for bm, wn in (LNMM_FIRST_TILES if ln_first else LNMM_AFTER_TILES):
+        bn = wn if bm == 128 else 2 * wn
+        if n % bn:
+            continue
+        col_tiles = n // bn
+        if ln_first:
+            cl = 1
+            while cl < FF_MAX_CLUSTER and col_tiles % (2 * cl) == 0:
+                cl *= 2
+        elif col_tiles in FF_CLUSTERS:
+            cl = col_tiles
+        else:
+            continue
+        if not _lnmm_stages(bm, bn):
+            continue
+        waves = -(-(-(-rows // bm) * col_tiles) // sms)
+        cost = waves * (max(3 * bm * bn, 256 * (bm + bn)) + (512 * bm // cl if ln_first else 0))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = _lnmm_fill(False, bm, wn, rows, n, cl), cost
+    return best or _lnmm_fill(True, *LNMM_STAGED_TILE, rows, n, 1)
+
+
 def _ff_rows_block(rows, k, hid):
     for bm in (512, 256, 128, 64, 32, 16, 8):
         if rows % bm == 0 and bm * (k + hid) * 4 <= 6 * 1024 * 1024:
@@ -179,12 +265,12 @@ def fused_layernorm_available(rows, c, dtype=torch.bfloat16, device_type='cuda')
 
 def fused_lnmm_available(rows, k, n, dtype=torch.bfloat16, device_type='cuda'):
     """`fused_lnmm_available` of the JAX package without its backend check,
-    plus the kernel's shared-memory limit (k + n <= 6144) and, on CUDA, bf16."""
+    plus, on CUDA, bf16: the kernel takes every shape it admits."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return (k % 128 == 0 and n % 128 == 0
             and k * n * itemsize <= _FF_WEIGHT_BUDGET
             and _ff_rows_block(rows, k, n) is not None
-            and k + n <= LNMM_MAX_KN and _on_cuda_takes(dtype, device_type))
+            and _on_cuda_takes(dtype, device_type))
 
 
 # --- plain versions ---------------------------------------------------------------------
@@ -358,10 +444,12 @@ def _rowblock_forward(name, x, w, g, eps):
     n = w.shape[0]
     if w.ndim != 2 or w.shape[1] != k:
         raise ValueError(f'{name}: weight {tuple(w.shape)} does not take k={k}')
-    if k % 32 or n % 128 or k + n > LNMM_MAX_KN:
-        raise ValueError(f'{name}: k={k}, n={n} outside the kernel (k % 32 == 0, '
-                         f'n % 128 == 0, k + n <= {LNMM_MAX_KN})')
+    if k < LNMM_KC or k % LNMM_KC or n < 128 or n % 128:
+        raise ValueError(f'{name}: k={k}, n={n} outside the kernel (k % {LNMM_KC} == 0, '
+                         f'n % 128 == 0)')
     x2 = aligned_contiguous(x.reshape(-1, k))
+    if x2.shape[0] == 0:
+        return x.new_empty((*x.shape[:-1], n))
     wc = aligned_contiguous(w.to(torch.bfloat16))
     gf = _gain(g, k if ln_first else n, name)
     y = torch.empty((x2.shape[0], n), dtype=x.dtype, device=x.device)

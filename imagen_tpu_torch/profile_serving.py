@@ -35,7 +35,7 @@ SR_STEPS = 8  # chip_smoke.py's SR-1024 steps, cut from the JAX bench's 32
 
 CATEGORIES = (
     ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn',
-                      'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul', 'matmul_ln',
+                      'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul',
                       'cross_embed_scale', 'conv2d_same_cf')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),

@@ -658,11 +658,20 @@ def test_layernorm_function_gradients_match_plain(cuda, stable):
                  lambda x, g: fn.layernorm_reference(x, g, stable, 1e-3), inputs, fn.LN_KERNEL)
 
 
-# (rows, k, n): the attention pre-norm into to_q + to_kv at 32^2 and 8^2
-# (BaseUnet64, batch 8), the out-projection into the out-norm at 32^2 and
-# 8^2, and ragged row counts
-LNMM_SHAPES = [(8192, 1024, 640), (512, 2048, 640), (300, 512, 512), (77, 256, 384)]
-MMLN_SHAPES = [(8192, 512, 1024), (512, 512, 2048), (300, 512, 384), (77, 1024, 128)]
+# (rows, k, n): the EDM path's sites (batch 8 with guidance: BaseUnet64's
+# attention pre-norm into to_q + to_kv (n 640) and cross-attention pre-norm
+# into to_q (n 512) at 32^2, 16^2 and 8^2, k 512-2048; SRUnet256's at 32^2,
+# k 1024; the out-projections into the out-norm, k 512, n 512-2048); ragged
+# row counts; the past-the-old-limit (k + n > 6144) shapes the JAX gate
+# admits; between them every cluster size (1, 2, 4, 8) and, for matmul -> LN,
+# the staged route (n 896, n 16384)
+LNMM_SHAPES = [(8192, 512, 640), (8192, 512, 512), (8192, 1024, 640), (8192, 1024, 512),
+               (2048, 1024, 640), (2048, 1024, 512), (2048, 1536, 640), (2048, 1536, 512),
+               (512, 1536, 640), (512, 1536, 512), (512, 2048, 640), (512, 2048, 512),
+               (77, 256, 384), (300, 512, 512), (1024, 256, 8192), (256, 128, 16384)]
+MMLN_SHAPES = [(8192, 512, 512), (8192, 512, 1024), (2048, 512, 1024), (2048, 512, 1536),
+               (512, 512, 1536), (512, 512, 2048), (300, 512, 384), (77, 1024, 128),
+               (512, 256, 4096), (300, 128, 896), (1024, 256, 8192), (256, 128, 16384)]
 
 
 def _rowblock_inputs(cuda, rows, k, n, seed):
@@ -677,9 +686,13 @@ def _rowblock_inputs(cuda, rows, k, n, seed):
 def test_ln_matmul_kernel_matches_plain(cuda, rows, k, n):
     x, w, r = _rowblock_inputs(cuda, rows, k, n, seed=24)
     g = t(1. + randn(r, k, scale=0.1)).to(cuda)
-    _check(lambda x, w: fn.fused_ln_matmul(x, g, w, 1e-3),
-           lambda x, w: fn.ln_matmul_reference(x, g, w, 1e-3), (x, w), (x.float(), w.float()),
-           fn.LNMM_KERNEL)
+
+    def run(x, w):
+        return fn.fused_ln_matmul(x, g, w, 1e-3)
+
+    _check(run, lambda x, w: fn.ln_matmul_reference(x, g, w, 1e-3), (x, w),
+           (x.float(), w.float()), fn.LNMM_KERNEL)
+    assert torch.equal(run(x, w), run(x, w))
 
 
 @pytest.mark.cuda
@@ -687,9 +700,29 @@ def test_ln_matmul_kernel_matches_plain(cuda, rows, k, n):
 def test_matmul_ln_kernel_matches_plain(cuda, rows, k, n):
     x, w, r = _rowblock_inputs(cuda, rows, k, n, seed=25)
     g = t(1. + randn(r, n, scale=0.1)).to(cuda)
-    _check(lambda x, w: fn.fused_matmul_ln(x, w, g, 1e-3),
-           lambda x, w: fn.matmul_ln_reference(x, w, g, 1e-3), (x, w), (x.float(), w.float()),
-           fn.MMLN_KERNEL)
+
+    def run(x, w):
+        return fn.fused_matmul_ln(x, w, g, 1e-3)
+
+    _check(run, lambda x, w: fn.matmul_ln_reference(x, w, g, 1e-3), (x, w),
+           (x.float(), w.float()), fn.MMLN_KERNEL)
+    assert torch.equal(run(x, w), run(x, w))
+
+
+@pytest.mark.cuda
+def test_ln_matmul_tiles_are_the_kernels(cuda):
+    """`lnmm_tiles` is the tiling the C entry computes for itself, at the
+    shapes above and at every (k, n) the gate admits, on this card's SMs."""
+    sms = _build.sm_count(0)
+    shapes = [(s, ln_first) for ln_first, table in ((True, LNMM_SHAPES), (False, MMLN_SHAPES))
+              for s in table]
+    shapes += [((rows, k, n), ln_first) for k in range(128, 16385, 128)
+               for n in range(128, 16385, 128) if k * n <= 2 ** 21
+               for rows in (8, 8192) for ln_first in (True, False)]
+    for (rows, k, n), ln_first in shapes:
+        want = tuple(int(v) for v in fn.lnmm_tiles(rows, k, n, ln_first, sms))
+        assert _build.plan('fused_ln_matmul_plan', int(ln_first), rows, k, n, sms) == want, \
+            (rows, k, n, ln_first)
 
 
 @pytest.mark.cuda
@@ -723,10 +756,20 @@ def test_fused_norm_wrappers_raise_outside_their_limits(cuda):
     with pytest.raises(ValueError):   # k does not match
         fn.fused_ln_matmul(torch.zeros(16, 256, device=cuda, dtype=BF16),
                            torch.ones(256, device=cuda), w, 1e-3)
-    with pytest.raises(ValueError):   # k + n past shared memory
-        fn.fused_matmul_ln(torch.zeros(16, 4096, device=cuda, dtype=BF16),
-                           torch.zeros(4096, 4096, device=cuda, dtype=BF16),
-                           torch.ones(4096, device=cuda), 1e-3)
+    with pytest.raises(ValueError):   # n not a multiple of 128
+        fn.fused_matmul_ln(torch.zeros(16, 512, device=cuda, dtype=BF16),
+                           torch.zeros(320, 512, device=cuda, dtype=BF16),
+                           torch.ones(320, device=cuda), 1e-3)
+    with pytest.raises(ValueError):   # k not a multiple of 64
+        fn.fused_ln_matmul(torch.zeros(16, 96, device=cuda, dtype=BF16),
+                           torch.ones(96, device=cuda), torch.zeros(128, 96, device=cuda,
+                                                                    dtype=BF16), 1e-3)
+    with pytest.raises(TypeError):
+        fn.fused_ln_matmul(torch.zeros(16, 512, device=cuda), torch.ones(512, device=cuda),
+                           w.float(), 1e-3)
+    with pytest.raises(ValueError):
+        fn.fused_matmul_ln(torch.zeros(16, 512, device=cuda, dtype=BF16), w.cpu(),
+                           torch.ones(640, device=cuda), 1e-3)
 
 
 @pytest.mark.cuda
@@ -799,8 +842,15 @@ def test_stem_kernel_matches_plain(cuda, shape, ks, ds):
     assert torch.equal(_stem_run(*inputs), _stem_run(*inputs))
 
 
+# (x shape, cout, k): the SR-1024 final conv and the JAX gate's cin 128; ragged
+# W (100, 30, 300: not multiples of 8 or of the strip) and H; runs of rows that
+# cross from one strip into the next (300 columns, 2 images); cin 1, 40, 257;
+# k 1, 3, 5, 7; cout 1 to 8; cin 4096 read straight from x (no staging ring)
+# and cin 8000 in two channel groups
 CF_CASES = [((2, 1024, 1024, 131), 3, 3), ((2, 1024, 1024, 128), 3, 3),
-            ((1, 37, 100, 131), 5, 3), ((1, 20, 30, 40), 8, 5)]
+            ((1, 37, 100, 131), 5, 3), ((1, 20, 30, 40), 8, 5), ((2, 64, 300, 131), 3, 3),
+            ((1, 33, 70, 1), 1, 3), ((1, 19, 52, 257), 4, 7), ((2, 24, 40, 16), 2, 1),
+            ((1, 9, 40, 4096), 3, 3), ((1, 6, 20, 8000), 3, 3)]
 
 
 def _cf_inputs(cuda, shape, cout, k, seed=21):
@@ -817,10 +867,25 @@ def test_cf_conv_kernel_matches_plain(cuda, shape, cout, k):
     inputs = _cf_inputs(cuda, shape, cout, k)
     _check(c2d.conv2d_same_cf, c2d.conv2d_same_cf_reference, inputs,
            [x.float() for x in inputs], c2d.CF_KERNEL)
+    assert torch.equal(c2d.conv2d_same_cf(*inputs), c2d.conv2d_same_cf(*inputs))
     x, w, _ = inputs   # no bias
     _check(lambda x, w: c2d.conv2d_same_cf(x, w, None),
            lambda x, w: c2d.conv2d_same_cf_reference(x, w, None), (x, w),
            (x.float(), w.float()), c2d.CF_KERNEL)
+
+
+@pytest.mark.cuda
+def test_cf_plans_are_the_kernels(cuda):
+    """`cf_plan` is the plan the C entry computes for itself, at the shapes
+    above and the SR cascades' final convs, on this card's SMs."""
+    sms = _build.sm_count(0)
+    shapes = [(*shape, cout, k) for shape, cout, k in CF_CASES]
+    shapes += [(b, s, s, cin, 3, 3) for b in (1, 2, 8) for s in (64, 256, 1024)
+               for cin in (131, 259)]
+    for b, H, W, cin, cout, k in shapes:
+        want = tuple(int(v) for v in c2d.cf_plan(b, H, W, cin, k, sms))
+        assert _build.plan('conv2d_same_cf_plan', b, H, W, cin, cout, k, sms) == want, \
+            (b, H, W, cin, k)
 
 
 @pytest.mark.cuda
@@ -848,6 +913,8 @@ def test_stem_and_cf_wrappers_raise_on_wrong_dtype_or_device(cuda):
         c2d.conv2d_same_cf(x, w.cpu(), b)
     with pytest.raises(ValueError):   # cout past 8
         c2d.conv2d_same_cf(x, torch.zeros((3, 3, 32, 9), device=cuda, dtype=BF16), None)
+    with pytest.raises(ValueError):   # k past 19
+        c2d.conv2d_same_cf(x, torch.zeros((21, 21, 32, 3), device=cuda, dtype=BF16), None)
 
 
 @pytest.mark.cuda

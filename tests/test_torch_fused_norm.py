@@ -149,13 +149,14 @@ def test_layernorm_gate():
 
 
 def test_ln_matmul_gate(monkeypatch):
-    """`fused_lnmm_available` without its backend check, plus k + n <= 6144."""
+    """`fused_lnmm_available` is the JAX gate without its backend check: the
+    kernel takes every shape it admits (k + n past 6144 too)."""
     monkeypatch.setattr(jax, 'default_backend', lambda: 'tpu')
-    for rows, k, n in itertools.product((8, 100, 512, 8192), (128, 512, 1024, 2048, 4096),
-                                        (128, 640, 2048)):
+    for rows, k, n in itertools.product((8, 100, 512, 8192), (128, 256, 512, 1024, 2048, 4096),
+                                        (128, 640, 2048, 8192, 16384)):
         jax_gate = jfn.fused_lnmm_available(rows, k, n, jnp.bfloat16)
-        got = fn.fused_lnmm_available(rows, k, n, torch.bfloat16, 'cpu')
-        assert got == (jax_gate and k + n <= fn.LNMM_MAX_KN), (rows, k, n)
+        assert fn.fused_lnmm_available(rows, k, n, torch.bfloat16, 'cpu') == jax_gate, (rows, k, n)
+    assert fn.fused_lnmm_available(512, 256, 8192) and fn.fused_lnmm_available(512, 128, 16384)
     assert not fn.fused_lnmm_available(512, 1024, 640, torch.float32)
 
 
