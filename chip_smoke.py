@@ -5,13 +5,25 @@ Drives imagen_tpu_torch's paths at full width, with bf16 compute over fp32
 parameters and random weights from a seed:
 - serving: BaseUnet64 -> SRUnet256, an `ImagenServer` that warms up and
   answers three requests;
+- inpainting: the same cascade built anew, an `ImagenServer` warmed at
+  cond_scales (3, 5) with a per-server `lowres_sample_noise_level`; then,
+  batch 4 (8 with CFG), cond_scale 3: a plain `Imagen.sample` request, two
+  inpainting requests (a seeded 256 px image, its left half known,
+  RESAMPLE_TIMES RePaint resamples a step), one from `init_images` with
+  half of each stage's steps skipped, one with `return_all_unet_outputs`
+  and a per-call `lowres_sample_noise_level`, and two server requests, at
+  cond_scale 5 and at the server's default;
+- self_cond: BaseUnet64 with `self_cond=True, cond_images_channels=3`, one
+  64 px stage, batch 4, guided, seeded uint8 cond images; its stem takes 9
+  channels, past the stem gate, so kernel 14 must not launch there;
 - training: `ImagenTrainer.step_with_batch` for 3 steps of each of the two
   configurations the JAX bench trains, unet 1 (BaseUnet64 alone, batch 8)
   and unet 2 (NullUnet + SRUnet256 with the low-res conditioning loss,
   batch 4), with Adam, clipping and EMA;
 - video: the `Unet3D` of the JAX bench's video mode (dim 64, mults 1-2-4,
   16 frames at 64 px), an `ImagenServer(video_frames=16)` that warms up and
-  answers three requests of one prompt;
+  answers three requests of one prompt; then (path video_inpainting) one
+  `inpaint_videos` request with one (b, h, w) mask for every frame;
 - video training: the same `Unet3D` with its fused temporal norms on
   (`temporal_fused_ln=True`, so kernels 12 and 13 lie on the path),
   `ImagenTrainer.step_with_batch` for 3 steps on batch 4 clips of 16 frames
@@ -24,7 +36,9 @@ parameters and random weights from a seed:
   of the LayerNorm and attention-projection sites, where kernels 9 and 11
   (wired nowhere, as in the JAX package) would run; then three requests
   each with kernel 8 on and off on the same weights, in turns, and two
-  each with kernel 14 on and off (its gate closed);
+  each with kernel 14 on and off (its gate closed); then (path
+  edm_inpainting) one inpainting request with 2 RePaint resamples a step,
+  from `init_images` with half of each stage's steps skipped;
 - SR-1024 serving: the JAX bench's `sr1024_paper` (BASELINE config 4),
   `NullUnet` + `SRUnet1024` at 256 -> 1024, `Imagen.sample` from `start_at_unet_number=2`
   with a seeded 256 px start image, batch 1 (2 with CFG), cond_scale 3,
@@ -42,7 +56,8 @@ parameters and random weights from a seed:
   kernel 6 in it.
 Every path's cross-embed stem runs kernel 14: its gate admits the stem of
 every U-Net above.
-The launch counts are set to 0 just before each path and read just after.
+The launch counts are set to 0 just before each path and read just after;
+each path checks that the kernels it must run were launched.
 Then it holds each hand-written kernel, at every shape the paths launched
 it at (kernels 9, 11 and 7 at every recorded site shape; kernel 7 also at
 the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, kernel
@@ -55,10 +70,16 @@ every kernel of the paths against the same nets on the plain path, outputs
 and gradients, both measured against fp32.
 
 Prints, in order: the card (nvidia-smi name and power limit) and CUDA
-version; the kernel build time; per request latency, shape, finiteness and
-range; per training step loss, time and peak memory; launch counts per path;
-per video request latency, shape, finiteness, range and peak memory; per
-video training step loss, time and peak memory; per EDM request latency,
+version; the kernel build time; after each of the phases before the
+kernel phase, its wall time; per request latency, shape, finiteness and
+range; for each request of the inpainting, self_cond, video_inpainting and
+edm_inpainting paths its latency, shapes, finiteness, range, the unet
+forwards it made per stage and, for inpainting, the worst difference of
+the known pixels from the input (1e-6 or FAIL), then the plain and
+inpainting latencies side by side and whether the 9-channel stem stayed
+off kernel 14; per training step loss, time and peak memory; launch counts
+per path; per video request latency, shape, finiteness, range and peak
+memory; per video training step loss, time and peak memory; per EDM request latency,
 shape, finiteness, range and peak memory, kernel 8's sites per forward, the
 sites of kernels 9 and 11, the on/off latencies and output difference;
 per SR-1024 request latency, shape, finiteness, range and peak memory, the
@@ -211,7 +232,9 @@ LOG_ONLY_SHAPES = {CF_KERNEL: ((2, 1024, 1024, 128, 3, 3),),
 # kernels whose result must be the same bits on a second call
 DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16', 'fused_ln_matmul_bf16',
                  'fused_matmul_ln_bf16', CF_KERNEL)
-PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving')
+PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving',
+         'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting')
+RESAMPLE_TIMES = 5           # RePaint resamples a step: the JAX default
 
 
 def log(msg):
@@ -312,6 +335,54 @@ def check_launched(counts, names, path):
     return ok
 
 
+def forward_calls(imagen):
+    """Forward pre-hooks that count the calls of each unet of `imagen` (a
+    guided call, one doubled batch, counts once). Returns (calls, handles)."""
+    calls = Counter()
+    handles = [u.register_forward_pre_hook(lambda *_, i=i: calls.update([i]))
+               for i, u in enumerate(imagen.unets)]
+    return calls, handles
+
+
+def half_mask(torch, b, size):
+    """(b, size, size) bool, True over the left half: the known pixels."""
+    mask = torch.zeros((b, size, size), dtype=torch.bool, device='cuda')
+    mask[:, :, :size // 2] = True
+    return mask
+
+
+def sampled(torch, label, fn, shapes, calls=None, known=None):
+    """Run one sampling request `fn` (returning a tensor, or a list of them,
+    one per stage) and log its latency, shapes, finiteness and range, the
+    unet forwards it made (`calls`, from `forward_calls`) and, given `known`
+    (the mask and the input images), the worst difference of the known
+    pixels from the input after normalize and unnormalize in fp32, which
+    must be 1e-6 or less. Returns (good, latency)."""
+    if calls is not None:
+        calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    lat = time.perf_counter() - t0
+    outs = out if isinstance(out, list) else [out]
+    got = [tuple(o.shape) for o in outs]
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    in_range = all(float(o.min()) >= 0. and float(o.max()) <= 1. for o in outs)
+    good = got == [tuple(sh) for sh in shapes] and finite and in_range
+    note = '' if calls is None else f' forwards {dict(sorted(calls.items()))}'
+    if known is not None:
+        mask, images = known
+        expected = (images.float() * 2. - 1. + 1.) * 0.5
+        err = float((outs[-1].float() - expected).abs()[mask.expand(outs[-1].shape[:-1])].max())
+        good &= err <= 1e-6
+        note += f' known pixels max |out - input| {err:.3e} (<= 1e-6)'
+    log(f'{label}: latency {lat:.3f} s shapes {got} finite {finite} in [0,1] {in_range}'
+        f'{note} peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+        f'-> {"ok" if good else "FAIL"}')
+    return good, lat
+
+
 # --- serving --------------------------------------------------------------------------
 
 def phase_serving(torch, it, build, results):
@@ -356,6 +427,128 @@ def phase_serving(torch, it, build, results):
     log(f'serving: peak memory allocated during the requests: '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     results['counts']['serving'] = counts
+    return ok
+
+
+# --- inpainting, init images and the server's keywords ------------------------------------
+
+def phase_inpainting(torch, it, build, results):
+    """BaseUnet64 -> SRUnet256 as `phase_serving` builds it, an `ImagenServer`
+    warmed at cond_scales (3, 5) with a per-server low-res noise level; then,
+    at TIMESTEPS, batch 4, cond_scale 3: a plain `Imagen.sample` request,
+    two inpainting requests (a seeded 256 px image, the left half known,
+    RESAMPLE_TIMES RePaint resamples a step), one from `init_images` with
+    half of each stage's steps skipped, one with `return_all_unet_outputs`
+    and a per-call `lowres_sample_noise_level`, and two server requests, at
+    cond_scale 5 and at the server's default."""
+    bf16 = torch.bfloat16
+    torch.manual_seed(70)
+    t0 = time.perf_counter()
+    base = it.BaseUnet64(dtype=bf16, text_embed_dim=768, max_text_len=256)
+    sr = it.SRUnet256(dtype=bf16, text_embed_dim=768, max_text_len=256, lowres_cond=True)
+    randomize_final_conv(base, 71)
+    randomize_final_conv(sr, 72)
+    imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=TIMESTEPS,
+                       cond_drop_prob=0.1).eval()
+    server = it.ImagenServer(imagen, batch_size=4, cond_scale=3., cond_scales=(3., 5.),
+                             lowres_sample_noise_level=0.3, seed=0)
+    log(f'inpainting: cascade built and server warmed at cond_scales {server.cond_scales} in '
+        f'{time.perf_counter() - t0:.1f} s (timesteps {TIMESTEPS}, batch 4, R '
+        f'{RESAMPLE_TIMES}, server lowres_sample_noise_level 0.3)')
+
+    g = torch.Generator(device='cuda').manual_seed(7070)
+    emb, mask = text_batch(torch, g, 4)
+    images = torch.rand((4, 256, 256, 3), generator=g, device='cuda')
+    known = half_mask(torch, 4, 256)
+    final = [(4, 256, 256, 3)]
+
+    def sample(**kw):
+        return imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
+                             generator=torch.Generator(device='cuda').manual_seed(71), **kw)
+
+    counts = Counter()
+    calls, handles = forward_calls(imagen)
+    ok = True
+    lats = defaultdict(list)
+    try:
+        with counting_path(build, results['shapes']['inpainting'], counts):
+            good, lat = sampled(torch, 'inpainting: plain request', sample, final, calls)
+            ok &= good
+            lats['plain'].append(lat)
+            for i in range(2):
+                good, lat = sampled(
+                    torch, f'inpainting request {i}',
+                    lambda: sample(inpaint_images=images, inpaint_masks=known,
+                                   inpaint_resample_times=RESAMPLE_TIMES),
+                    final, calls, known=(known, images))
+                ok &= good
+                lats['inpaint'].append(lat)
+            skip = tuple(n // 2 for n in TIMESTEPS)
+            ok &= sampled(torch, f'inpainting: init_images, skip_steps {skip}',
+                          lambda: sample(init_images=images, skip_steps=skip), final, calls)[0]
+            ok &= sampled(torch, 'inpainting: return_all_unet_outputs, '
+                          'lowres_sample_noise_level 0.1',
+                          lambda: sample(return_all_unet_outputs=True,
+                                         lowres_sample_noise_level=0.1),
+                          [(4, 64, 64, 3), (4, 256, 256, 3)], calls)[0]
+            for scale in (5., None):
+                ok &= sampled(torch, f'inpainting: server request at cond_scale '
+                              f'{scale or server.cond_scale} (server lowres level 0.3)',
+                              lambda: torch.from_numpy(server.generate(
+                                  text_embeds=emb, text_masks=mask, cond_scale=scale)),
+                              final, calls)[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
+                                  'fused_feedforward_bf16', STEM_KERNEL], 'inpainting')
+    log(f'inpainting: plain request {[round(v, 3) for v in lats["plain"]]} s, inpainting '
+        f'requests {[round(v, 3) for v in lats["inpaint"]]} s (R {RESAMPLE_TIMES})')
+    results['counts']['inpainting'] = counts
+    return ok
+
+
+def phase_self_cond(torch, it, build, results):
+    """BaseUnet64 at full width with `self_cond=True, cond_images_channels=3`
+    (9 input channels, past the stem gate's 8: the stem runs cuDNN's
+    convs, as in JAX), one 64 px stage at TIMESTEPS[0] steps, batch 4,
+    cond_scale 3, seeded uint8 cond images; a warm-up, then one request."""
+    from imagen_tpu_torch.ops.stem_conv import stem_available
+    torch.manual_seed(80)
+    t0 = time.perf_counter()
+    base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
+                         self_cond=True, cond_images_channels=3)
+    randomize_final_conv(base, 81)
+    imagen = it.Imagen((base,), image_sizes=(64,), timesteps=TIMESTEPS[0],
+                       cond_drop_prob=0.1).eval()
+    stem_in = (8, 64, 64, 9)
+    log(f'self_cond: BaseUnet64 (self_cond, cond_images_channels 3) built in '
+        f'{time.perf_counter() - t0:.1f} s; the stem takes {stem_in}, stem gate '
+        f'{stem_available(stem_in, base.init_conv.kernel_sizes)}')
+    g = torch.Generator(device='cuda').manual_seed(8080)
+    emb, mask = text_batch(torch, g, 4)
+    cond = torch.randint(0, 256, (4, 64, 64, 3), generator=g, device='cuda').to(torch.uint8)
+
+    def sample():
+        return imagen.sample(text_embeds=emb, text_masks=mask, cond_images=cond, cond_scale=3.,
+                             generator=torch.Generator(device='cuda').manual_seed(81))
+
+    ok = sampled(torch, 'self_cond warm-up', sample, [(4, 64, 64, 3)])[0]
+    counts = Counter()
+    calls, handles = forward_calls(imagen)
+    try:
+        with counting_path(build, results['shapes']['self_cond'], counts):
+            ok &= sampled(torch, 'self_cond request', sample, [(4, 64, 64, 3)], calls)[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
+                                  'fused_feedforward_bf16'], 'self_cond')
+    unfused = counts[STEM_KERNEL] == 0
+    ok &= unfused
+    log(f'self_cond: {STEM_KERNEL} launches {counts[STEM_KERNEL]}: the stem ran the unfused '
+        f'route (9 input channels, gate c * 16 <= 128) -> {"ok" if unfused else "FAIL"}')
+    results['counts']['self_cond'] = counts
     return ok
 
 
@@ -509,6 +702,27 @@ def phase_video(torch, it, build, results):
         f'{VIDEO_TEMPORAL_SITES} per step x {VIDEO_STEPS} steps x {len(requests)} requests = '
         f'{expected} -> {"ok" if per_step else "FAIL"}')
     results['counts']['video'] = counts
+
+    # one inpainting request: a seeded clip, one (b, h, w) mask for every frame
+    emb, mask = requests[0]
+    clip = torch.rand((1, VIDEO_FRAMES, 64, 64, 3), generator=g, device='cuda')
+    known = half_mask(torch, 1, 64)
+    counts = Counter()
+    calls, handles = forward_calls(imagen)
+    try:
+        with counting_path(build, results['shapes']['video_inpainting'], counts):
+            ok &= sampled(
+                torch, f'video inpainting request (R {RESAMPLE_TIMES})',
+                lambda: imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
+                                      inpaint_videos=clip, inpaint_masks=known,
+                                      inpaint_resample_times=RESAMPLE_TIMES,
+                                      generator=torch.Generator(device='cuda').manual_seed(31)),
+                [(1, VIDEO_FRAMES, 64, 64, 3)], calls, known=(known[:, None], clip))[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, ['temporal_attn_fwd_bf16'], 'video_inpainting')
+    results['counts']['video_inpainting'] = counts
     return ok
 
 
@@ -729,6 +943,33 @@ def phase_edm_serving(torch, it, build, results):
     log(f'edm_serving A/B: stem kernel on {[round(x, 3) for x in lats[True]]} s, off '
         f'{[round(x, 3) for x in lats[False]]} s per request of {emb.shape[0]}; max |on - off| '
         f'of the images {float(abs(outputs[True] - outputs[False]).max()):.3e}')
+
+    # one inpainting request, 2 RePaint resamples a step, from init images with
+    # half of each stage's steps skipped, kernel 8 on
+    for unet in imagen.unets:
+        film_norms(unet, True)
+    images = torch.rand((4, 256, 256, 3), generator=g, device='cuda')
+    init = torch.rand((4, 256, 256, 3), generator=g, device='cuda')
+    known = half_mask(torch, 4, 256)
+    skip = tuple(n // 2 for n in EDM_STEPS)
+    counts = Counter()
+    calls, handles = forward_calls(imagen)
+    try:
+        with counting_path(build, results['shapes']['edm_inpainting'], counts):
+            ok &= sampled(
+                torch, f'edm inpainting request (R 2, init_images, skip_steps {skip})',
+                lambda: imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
+                                      inpaint_images=images, inpaint_masks=known,
+                                      inpaint_resample_times=2, init_images=init,
+                                      skip_steps=skip,
+                                      generator=torch.Generator(device='cuda').manual_seed(53)),
+                [(4, 256, 256, 3)], calls, known=(known, images))[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, [FILM_KERNEL, 'flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
+                                  'fused_feedforward_bf16', STEM_KERNEL], 'edm_inpainting')
+    results['counts']['edm_inpainting'] = counts
     return ok
 
 
@@ -1434,18 +1675,13 @@ def main():
         t0 = time.perf_counter()
         _build.library()
         log(f'kernel build: {time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})')
-        ok &= phase_serving(torch, it, _build, results)
-        free_cuda()
-        ok &= phase_training(torch, it, _build, results)
-        free_cuda()
-        ok &= phase_video(torch, it, _build, results)
-        free_cuda()
-        ok &= phase_video_training(torch, it, _build, results)
-        free_cuda()
-        ok &= phase_edm_serving(torch, it, _build, results)
-        free_cuda()
-        ok &= phase_sr1024_serving(torch, it, _build, results)
-        free_cuda()
+        for phase in (phase_serving, phase_inpainting, phase_self_cond, phase_training,
+                      phase_video, phase_video_training, phase_edm_serving,
+                      phase_sr1024_serving):
+            t0 = time.perf_counter()
+            ok &= phase(torch, it, _build, results)
+            free_cuda()
+            log(f'{phase.__name__}: {time.perf_counter() - t0:.1f} s of wall time')
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)
         ok &= phase_small_unet3d(torch, it)

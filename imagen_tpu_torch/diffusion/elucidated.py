@@ -12,11 +12,13 @@ The class is an `Imagen` whose sampler is EDM's: it shares the cascade's
 plumbing (the unets' conditioning configs, the device, resizing, dynamic
 thresholding, the low-res noise augmentation and the stage loop of
 `sample`), as the JAX class borrows `Imagen`'s methods. `sample` runs the
-EDM sampler; the DDPM training loss is not EDM's, and `forward` raises.
+EDM sampler, with the DDPM sampler's surface: inpainting with RePaint
+resampling, `init_images` and `skip_steps`, `cond_images`, self-conditioned
+unets, a per-call low-res noise level, every stage's output and PIL images.
+The DDPM training loss is not EDM's, and `forward` raises.
 
-Not ported yet (they raise NotImplementedError): EDM training, inpainting
-and RePaint, `init_images` and `skip_steps`, `cond_images`, video, `texts=`
-(T5), `return_pil_images`.
+Not ported yet (they raise NotImplementedError): EDM training, video and
+`texts=` (T5).
 """
 from __future__ import annotations
 
@@ -25,13 +27,18 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from imagen_tpu_torch.diffusion.imagen import Imagen, unet_forward_with_cond_scale
+from imagen_tpu_torch.diffusion.imagen import (
+    Imagen,
+    check_draw_shapes,
+    override_draws,
+    unet_forward_with_cond_scale,
+)
 from imagen_tpu_torch.ops import edm_math
 from imagen_tpu_torch.ops.edm_math import Hparams
 from imagen_tpu_torch.ops.tensor_utils import right_pad_dims_to
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
-_OVERRIDE_KEYS = ('init', 'eps', 'lowres')
+_OVERRIDE_KEYS = ('init', 'eps', 'repaint', 'lowres')
 
 
 class ElucidatedImagen(Imagen):
@@ -114,24 +121,32 @@ class ElucidatedImagen(Imagen):
 
     # --- one cascade stage ---------------------------------------------------------------
 
-    def _sample_stage(self, index, *, batch_size, frames, cond_scale, unet_kwargs, init_noise,
-                      step_noises, generator, sigma_min, sigma_max):
-        """The churn + Heun sampler of one stage; `step_noises` are the churn
-        draws, (num_sample_steps, 1, b, s, s, c) as the JAX override."""
+    def _sample_stage(self, index, *, batch_size, frames, cond_scale, unet_kwargs, noise,
+                      generator, sigma_min, sigma_max, inpaint_images=None, inpaint_masks=None,
+                      resample_times=1, init_images=None, skip_steps=0):
+        """The churn + Heun sampler of one stage. The images start at
+        sigmas[0] times the noise, plus `init_images`, whatever `skip_steps`
+        drops of the schedule. Each (step, r) adds the churn; inpainting pastes
+        the known region plus the same churn noise (even when the churn is
+        0) before the denoiser and, unless r or the step is the last, RePaint
+        renoises by (sigma - sigma_next) times a draw; the known pixels are
+        pasted exactly at the end. A unet with `self_cond` sees the previous
+        denoised output, the Heun call the Euler step's. `noise` may hold the
+        JAX draws 'init' (b, s, s, c), 'eps' (the churn draws before S_noise)
+        and 'repaint', each (steps - skip_steps, R, b, s, s, c)."""
         unet = self.unets[index]
         hp = self.hparams[index]
         size = self.image_sizes[index]
         shape = (batch_size, size, size, self.channels)
         device = self.device
         steps = hp.num_sample_steps
-        if exists(init_noise) and tuple(init_noise.shape) != shape:
-            raise ValueError(f'init noise of stage {index + 1} is {tuple(init_noise.shape)}, '
-                             f'expected {shape}')
-        if exists(step_noises) and tuple(step_noises.shape) != (steps, 1, *shape):
-            raise ValueError(f'churn noise of stage {index + 1} is {tuple(step_noises.shape)}, '
-                             f'expected {(steps, 1, *shape)}')
+        inpainting = exists(inpaint_images)
+        per_step = (steps - skip_steps, resample_times, *shape)
+        check_draw_shapes(noise, index, init=shape, eps=per_step, repaint=per_step)
 
-        def randn():
+        def draw(name, *at):
+            if name in noise:
+                return noise[name][at].to(device)
             return torch.randn(shape, generator=generator, device=device)
 
         sigmas = edm_math.sample_schedule(steps, hp.rho, default(sigma_min[index], hp.sigma_min),
@@ -142,96 +157,98 @@ class ElucidatedImagen(Imagen):
         f = sigmas.dtype.type
         s_noise = f(hp.S_noise)
 
-        images = float(sigmas[0]) * (init_noise.to(device) if exists(init_noise) else randn())
-        for i in range(steps):
+        images = float(sigmas[0]) * draw('init')
+        if exists(init_images):
+            images = images + init_images
+        x_start = torch.zeros_like(images)
+        for i in range(skip_steps, steps):
             sigma, sigma_next = sigmas[i], sigmas[i + 1]
             sigma_hat = sigma + gammas[i] * sigma
             churn = np.sqrt(np.maximum(sigma_hat ** 2 - sigma ** 2, f(0.)))
-            images_hat = images
-            if churn > 0:   # the stochastic churn: sigma_hat > sigma only where gamma > 0
-                eps = step_noises[i, 0].to(device) if exists(step_noises) else randn()
-                images_hat = images + float(churn) * (float(s_noise) * eps)
+            for r in range(resample_times):
+                images_hat, known = images, inpaint_images
+                if churn > 0:   # the stochastic churn: sigma_hat > sigma only where gamma > 0
+                    added = float(churn) * (float(s_noise) * draw('eps', i - skip_steps, r))
+                    images_hat = images + added
+                    known = inpaint_images + added if inpainting else None
+                if inpainting:
+                    images_hat = torch.where(inpaint_masks, known, images_hat)
 
-            model_output = self.preconditioned_network_forward(
-                unet, images_hat, sigma_hat, **kwargs)
-            denoised_over_sigma = (images_hat - model_output) / float(sigma_hat)
-            images_next = images_hat + float(sigma_next - sigma_hat) * denoised_over_sigma
+                self_cond = dict(self_cond=x_start) if unet.self_cond else {}
+                model_output = self.preconditioned_network_forward(
+                    unet, images_hat, sigma_hat, **self_cond, **kwargs)
+                denoised_over_sigma = (images_hat - model_output) / float(sigma_hat)
+                images_next = images_hat + float(sigma_next - sigma_hat) * denoised_over_sigma
 
-            if sigma_next != 0:   # the Heun correction
-                model_output_next = self.preconditioned_network_forward(
-                    unet, images_next, sigma_next, **kwargs)
-                denoised_prime = (images_next - model_output_next) / float(sigma_next)
-                images = images_hat + float(f(0.5) * (sigma_next - sigma_hat)) * (
-                    denoised_over_sigma + denoised_prime)
-            else:
-                images = images_next
-        return self.unnormalize_img(images.clamp(-1., 1.))
+                if sigma_next != 0:   # the Heun correction
+                    self_cond = dict(self_cond=model_output) if unet.self_cond else {}
+                    x_start = self.preconditioned_network_forward(
+                        unet, images_next, sigma_next, **self_cond, **kwargs)
+                    denoised_prime = (images_next - x_start) / float(sigma_next)
+                    images = images_hat + float(f(0.5) * (sigma_next - sigma_hat)) * (
+                        denoised_over_sigma + denoised_prime)
+                else:
+                    images, x_start = images_next, model_output
+
+                if inpainting and r < resample_times - 1 and i < steps - 1:
+                    images = images + float(sigma - sigma_next) * draw('repaint',
+                                                                       i - skip_steps, r)
+        images = images.clamp(-1., 1.)
+        if inpainting:
+            images = torch.where(inpaint_masks, inpaint_images, images)
+        return self.unnormalize_img(images)
 
     # --- public sampling API -------------------------------------------------------------
 
     @staticmethod
-    def _override_triple(entry):
-        """A stage's `noise_override` entry as (init, eps, lowres)."""
+    def _override_dict(entry):
+        """A stage's `noise_override` entry as a dict of `_OVERRIDE_KEYS`."""
         if entry is None:
-            return None
+            return {}
         if isinstance(entry, torch.Tensor):
-            return entry, None, None
+            return {'init': entry}
         if not isinstance(entry, dict):
             raise ValueError(f'a noise_override entry is None, a tensor or a dict, '
                              f'got {type(entry).__name__}')
-        if 'repaint' in entry:
-            raise NotImplementedError('RePaint is not ported to the EDM sampler yet')
-        unknown = set(entry) - set(_OVERRIDE_KEYS)
-        if unknown:
-            raise ValueError(f'unknown noise_override keys {sorted(unknown)}; '
-                             f'expected {_OVERRIDE_KEYS}')
-        return tuple(entry.get(k) for k in _OVERRIDE_KEYS)
+        return override_draws(entry, _OVERRIDE_KEYS)
 
     @torch.no_grad()
     def sample(self, *, texts=None, text_masks=None, text_embeds=None, cond_images=None,
                cond_video_frames=None, post_cond_video_frames=None, inpaint_videos=None,
-               inpaint_images=None, inpaint_masks=None, init_images=None, skip_steps=None,
-               sigma_min=None, sigma_max=None,
+               inpaint_images=None, inpaint_masks=None, inpaint_resample_times=5,
+               init_images=None, skip_steps=None, sigma_min=None, sigma_max=None,
                video_frames=None, batch_size=1, cond_scale=1., lowres_sample_noise_level=None,
                start_at_unet_number=1, start_image_or_video=None, stop_at_unet_number=None,
                return_all_unet_outputs=False, return_pil_images=False,
                noise_override: Optional[Sequence] = None, offload_inactive_unets=False,
                generator: Optional[torch.Generator] = None):
         """Run the cascade with EDM; returns the last stage's NHWC images in
-        [0, 1] (every stage's with `return_all_unet_outputs`).
+        [0, 1] (every stage's with `return_all_unet_outputs`, PIL images with
+        `return_pil_images`). The keywords are `Imagen.sample`'s.
 
         `sigma_min` / `sigma_max` override each stage's schedule ends (one
         value or one per unet). `noise_override`: per-stage list (entries may
         be None) of draws used instead of `generator`'s. An entry is the init
         noise (b, s, s, c), or a dict with the JAX keys 'init' (b, s, s, c),
-        'eps' (num_sample_steps, 1, b, s, s, c), the churn draws before
-        S_noise, and 'lowres' (b, s, s, c), the low-res noise augmentation's
-        draw for stages after the first. `offload_inactive_unets` as in
-        `Imagen.sample`.
+        'eps' (num_sample_steps - skip_steps, R, b, s, s, c), the churn draws
+        before S_noise per (step, r), 'repaint' (the same shape), RePaint's
+        renoise draws (the last r's and the last step's unused), and 'lowres'
+        (b, s, s, c), the low-res noise augmentation's draw for stages after
+        the first; R is `inpaint_resample_times` when inpainting, else 1.
+        `offload_inactive_unets` as in `Imagen.sample`.
         """
-        unported = dict(texts=texts, cond_images=cond_images, video_frames=video_frames,
-                        cond_video_frames=cond_video_frames,
-                        post_cond_video_frames=post_cond_video_frames,
-                        inpaint_videos=inpaint_videos, inpaint_images=inpaint_images,
-                        inpaint_masks=inpaint_masks, init_images=init_images,
-                        skip_steps=skip_steps)
-        named = [k for k, v in unported.items() if exists(v)]
-        if return_pil_images:
-            named.append('return_pil_images')
-        if named:
-            raise NotImplementedError(f'not ported to the EDM sampler yet: {", ".join(named)}')
         num_unets = self.num_unets
-        noise_override = default(noise_override, (None,) * num_unets)
-        if len(noise_override) != num_unets:
-            raise ValueError('noise_override must be a per-stage list (entries may be None)')
         return self._sample_cascade(
-            text_embeds=text_embeds, text_masks=text_masks, batch_size=batch_size, frames=None,
-            cond_video_frames=None, post_cond_video_frames=None, cond_scale=cond_scale,
+            texts=texts, text_embeds=text_embeds, text_masks=text_masks, batch_size=batch_size,
+            video_frames=video_frames, cond_images=cond_images,
+            cond_video_frames=cond_video_frames, post_cond_video_frames=post_cond_video_frames,
+            inpaint_images=default(inpaint_videos, inpaint_images), inpaint_masks=inpaint_masks,
+            inpaint_resample_times=inpaint_resample_times, init_images=init_images,
+            skip_steps=skip_steps, cond_scale=cond_scale,
+            lowres_sample_noise_level=lowres_sample_noise_level,
             start_at_unet_number=start_at_unet_number,
             start_image_or_video=start_image_or_video, stop_at_unet_number=stop_at_unet_number,
-            noise_override=[self._override_triple(e) for e in noise_override],
-            lowres_sample_noise_level=default(lowres_sample_noise_level,
-                                              self.lowres_sample_noise_level),
-            generator=generator, return_all_unet_outputs=return_all_unet_outputs,
-            offload_inactive_unets=offload_inactive_unets,
+            noise_override=noise_override, generator=generator,
+            return_all_unet_outputs=return_all_unet_outputs,
+            return_pil_images=return_pil_images, offload_inactive_unets=offload_inactive_unets,
             sigma_min=cast_tuple(sigma_min, num_unets), sigma_max=cast_tuple(sigma_max, num_unets))

@@ -7,14 +7,17 @@ noise-aug conditioning, and the stage loop as a plain Python loop over steps;
 for a cascade of video unets (`Unet3D`) every stage samples NFHWC video of
 `video_frames` frames (fewer where `temporal_downsample_factor` says so).
 Prompt frames (`cond_video_frames`, `post_cond_video_frames`) are scaled in
-time by each stage's `temporal_downsample_factor`. Training (`forward` ->
-`p_losses`): random times, the degraded low-res condition with its noise
-augmentation (resized in space and, for video, in time), the paired random
-crop (per frame for video), the three objectives and min-SNR weighting;
-still images train a video cascade as one-frame clips with `ignore_time`.
-Every draw comes from a `torch.Generator`
-(or is passed in: `noise_override` when sampling, `noise` and
-`lowres_aug_noise` in `p_losses`).
+time by each stage's `temporal_downsample_factor`. The sampler also takes
+inpainting with RePaint resampling, `init_images` with `skip_steps`,
+`cond_images`, self-conditioned unets and a per-call low-res noise level.
+Training (`forward` -> `p_losses`): random times, the degraded low-res
+condition with its noise augmentation (resized in space and, for video, in
+time), the paired random crop (per frame for video), `cond_images`, the
+self-conditioning pass half of the time, the three objectives and min-SNR
+weighting; still images train a video cascade as one-frame clips with
+`ignore_time`. Every draw comes from a `torch.Generator` (or is passed in:
+`noise_override` when sampling, `noise`, `lowres_aug_noise` and
+`self_cond_flip` in `p_losses`).
 """
 from __future__ import annotations
 
@@ -88,8 +91,41 @@ def _huber_loss(pred, target, beta: float = 1.0):
 
 LOSS_FNS = {'l1': _l1_loss, 'l2': _l2_loss, 'huber': _huber_loss}
 
-_CFG_BATCHED_KWARGS = ('text_embeds', 'text_mask', 'lowres_cond_img', 'lowres_noise_times',
-                       'cond_video_frames', 'post_cond_video_frames')
+_CFG_BATCHED_KWARGS = ('text_embeds', 'text_mask', 'cond_images', 'lowres_cond_img',
+                       'lowres_noise_times', 'self_cond', 'cond_video_frames',
+                       'post_cond_video_frames')
+
+# a DDPM stage's noise_override draws (see `Imagen.sample`)
+_OVERRIDE_KEYS = ('init', 'inpaint', 'steps', 'renoise', 'lowres')
+
+
+def override_draws(entry, keys):
+    """`entry` without its None values; raises on a key outside `keys`."""
+    unknown = set(entry) - set(keys)
+    if unknown:
+        raise ValueError(f'unknown noise_override keys {sorted(unknown)}; expected {keys}')
+    return {k: v for k, v in entry.items() if v is not None}
+
+
+def check_draw_shapes(noise, index, **shapes):
+    """Each draw in `noise` has the shape `shapes` names for it."""
+    for name, shape in shapes.items():
+        if name in noise and tuple(noise[name].shape) != tuple(shape):
+            raise ValueError(f'{name!r} noise of stage {index + 1} is '
+                             f'{tuple(noise[name].shape)}, expected {tuple(shape)}')
+
+
+def to_pil_images(out, is_video):
+    """A batch of samples in [0, 1] as PIL images, or per clip a list of
+    per-frame PIL images; PIL is imported only when asked for."""
+    from PIL import Image
+    out = out.detach().float().cpu()
+    if not is_video:
+        return [Image.fromarray((im * 255).clamp(0, 255).to(torch.uint8).numpy()) for im in out]
+    clips = (out.clamp(0., 1.) * 255).round().to(torch.uint8)
+    if clips.shape[-1] == 1:
+        clips = clips[..., 0]
+    return [[Image.fromarray(frame.numpy()) for frame in clip] for clip in clips]
 
 
 def unet_forward_with_cond_scale(unet, x, time, *, cond_scale=1., **kwargs):
@@ -307,38 +343,88 @@ class Imagen(nn.Module):
 
     # --- one cascade stage ---------------------------------------------------------------
 
-    def _sample_stage(self, index, *, batch_size, frames, cond_scale, unet_kwargs, init_noise,
-                      step_noises, generator):
+    def _sample_stage(self, index, *, batch_size, frames, cond_scale, unet_kwargs, noise,
+                      generator, inpaint_images=None, inpaint_masks=None, resample_times=1,
+                      init_images=None, skip_steps=0):
+        """The ancestral sampler of one stage: (t, t_next) from the schedule,
+        the first `skip_steps` pairs skipped, the initial noise plus
+        `init_images`. Inpainting (RePaint): at each (t, r) the known region
+        is pasted as `q_sample(inpaint_images, t)`, the step is taken, and
+        unless r or t is the last, the image is renoised from t_next back to
+        t; the known pixels are pasted exactly at the end. A unet with
+        `self_cond` sees the previous step's x_start (zeros at the first).
+        `noise` holds the draws that override `generator`'s (see `sample`)."""
         unet = self.unets[index]
         noise_scheduler = self.noise_schedulers[index]
         size = self.image_sizes[index]
         shape = (batch_size, *((frames,) if exists(frames) else ()), size, size, self.channels)
         device = self.device
+        inpainting = exists(inpaint_images)
+        t_arr, t_next_arr = noise_scheduler.get_sampling_timesteps(batch_size, device=device)
+        t_arr, t_next_arr = t_arr[skip_steps:], t_next_arr[skip_steps:]
+        steps = t_arr.shape[0]
+        per_step = (steps, resample_times, *shape) if inpainting else (steps, *shape)
+        check_draw_shapes(noise, index, init=shape, steps=per_step,
+                        inpaint=(steps, resample_times, *shape),
+                        renoise=(steps, resample_times, *shape))
 
-        def randn():
+        def draw(name, *at):
+            if name in noise:
+                return noise[name][at].to(device)
             return torch.randn(shape, generator=generator, device=device)
 
-        img = init_noise.to(device) if exists(init_noise) else randn()
-        t_arr, t_next_arr = noise_scheduler.get_sampling_timesteps(batch_size, device=device)
-        for i in range(t_arr.shape[0]):
-            noise = step_noises[i].to(device) if exists(step_noises) else randn()
-            img, _ = self.p_sample(
-                unet, img, t_arr[i], noise=noise, t_next=t_next_arr[i],
-                noise_scheduler=noise_scheduler, cond_scale=cond_scale,
-                pred_objective=self.pred_objectives[index],
-                dynamic_threshold=self.dynamic_thresholding[index], **unet_kwargs)
-        return self.unnormalize_img(img.clamp(-1., 1.))
+        img = draw('init')
+        if exists(init_images):
+            img = img + init_images
+        x_start = torch.zeros_like(img)
+        for i in range(steps):
+            t, t_next = t_arr[i], t_next_arr[i]
+            for r in range(resample_times):
+                if inpainting:
+                    known, *_ = noise_scheduler.q_sample(inpaint_images, t, draw('inpaint', i, r))
+                    img = torch.where(inpaint_masks, known, img)
+                self_cond = dict(self_cond=x_start) if unet.self_cond else {}
+                img, x_start = self.p_sample(
+                    unet, img, t, noise=draw('steps', *((i, r) if inpainting else (i,))),
+                    t_next=t_next, noise_scheduler=noise_scheduler, cond_scale=cond_scale,
+                    pred_objective=self.pred_objectives[index],
+                    dynamic_threshold=self.dynamic_thresholding[index], **self_cond,
+                    **unet_kwargs)
+                if inpainting and r < resample_times - 1 and i < steps - 1:
+                    img = noise_scheduler.q_sample_from_to(img, t_next, t, draw('renoise', i, r))
+        img = img.clamp(-1., 1.)
+        if inpainting:
+            img = torch.where(inpaint_masks, inpaint_images, img)
+        return self.unnormalize_img(img)
 
     # --- public sampling API -------------------------------------------------------------
 
+    @staticmethod
+    def _override_dict(entry):
+        """A stage's `noise_override` entry as a dict of `_OVERRIDE_KEYS`."""
+        if entry is None:
+            return {}
+        if isinstance(entry, (tuple, list)) and len(entry) == 3:
+            entry = dict(zip(('init', 'steps', 'lowres'), entry))
+        if not isinstance(entry, dict):
+            raise ValueError('a noise_override entry is None, an (init, steps, lowres) tuple '
+                             f'or a dict, got {type(entry).__name__}')
+        return override_draws(entry, _OVERRIDE_KEYS)
+
     @torch.no_grad()
     def sample(self, *, texts=None, text_masks=None, text_embeds=None, batch_size=1,
-               video_frames=None, cond_video_frames=None, post_cond_video_frames=None,
-               cond_scale=1., start_at_unet_number=1, start_image_or_video=None,
-               stop_at_unet_number=None, noise_override: Optional[Sequence] = None,
-               offload_inactive_unets=False, generator: Optional[torch.Generator] = None):
+               video_frames=None, cond_images=None, cond_video_frames=None,
+               post_cond_video_frames=None, inpaint_videos=None, inpaint_images=None,
+               inpaint_masks=None, inpaint_resample_times=5, init_images=None, skip_steps=None,
+               cond_scale=1., lowres_sample_noise_level=None, start_at_unet_number=1,
+               start_image_or_video=None, stop_at_unet_number=None,
+               return_all_unet_outputs=False, return_pil_images=False,
+               noise_override: Optional[Sequence] = None, offload_inactive_unets=False,
+               generator: Optional[torch.Generator] = None):
         """Run the cascade; returns the last stage's NHWC images, or NFHWC
-        video of a video cascade, in [0, 1].
+        video of a video cascade, in [0, 1] (every stage's, a list, with
+        `return_all_unet_outputs`; PIL images with `return_pil_images`, a
+        list of frames per clip for video).
 
         `offload_inactive_unets`: a unet parked off `self.device` (e.g.
         `imagen.unets[i].to('cpu')`) is copied to the device for its stage
@@ -349,36 +435,61 @@ class Imagen(nn.Module):
         prompt frames that every stage's unet sees before / after the frames
         it samples, scaled in time by the stage's temporal downsample factor.
 
+        `cond_images` (b, h, w, c'), uint8 or float, go to every stage's unet
+        (each built with `cond_images_channels`), which resizes them.
+        `inpaint_images` (b, s, s, c) in the input range and `inpaint_masks`
+        (b, s, s) bool, True where the pixels are known, inpaint with
+        `inpaint_resample_times` RePaint resamples a step; a video cascade
+        takes `inpaint_videos` (b, f, s, s, c) and a (b, s, s) mask repeats
+        over the frames. Both are resized to each stage (the mask by
+        nearest). `init_images` (one, or one per unet; None skips a stage)
+        start the stage from noise + the normalised image, and `skip_steps`
+        (one, or one per unet) drops the first steps of the schedule.
+        `lowres_sample_noise_level` overrides the cascade's for this call.
+
         `noise_override`: per-stage list (len == num_unets, entries may be None)
-        of (init_noise, step_noises, lowres_aug_noise) used instead of draws
-        from `generator`: init_noise (b, s, s, c), step_noises (T, b, s, s, c),
-        lowres_aug_noise (b, s, s, c) for stages after the first, else None;
-        each with a frame axis after the batch, (b, f, s, s, c), for video.
+        of draws used instead of `generator`'s; each with a frame axis after
+        the batch, (b, f, s, s, c), for video. An entry is a tuple
+        (init, steps, lowres), or a dict with any of the JAX draws:
+        'init' (b, s, s, c), the initial noise; 'steps' (T, b, s, s, c), the
+        ancestral step noise, or (T, R, b, s, s, c) when inpainting;
+        'inpaint' (T, R, b, s, s, c), the noise of the pasted known region;
+        'renoise' (T, R, b, s, s, c), RePaint's renoise from t_next to t
+        (its last r and last step unused); 'lowres' (b, s, s, c), the low-res
+        noise augmentation of stages after the first. The (T, R) draws are
+        indexed [t, r] in JAX's draw order; T counts the steps left after
+        `skip_steps` and R is `inpaint_resample_times`.
         """
-        if exists(texts):
-            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
-        if self.is_video and not exists(video_frames):
-            raise ValueError('video_frames must be passed for a video imagen')
         return self._sample_cascade(
-            text_embeds=text_embeds, text_masks=text_masks, batch_size=batch_size,
-            frames=video_frames if self.is_video else None,
+            texts=texts, text_embeds=text_embeds, text_masks=text_masks, batch_size=batch_size,
+            video_frames=video_frames, cond_images=cond_images,
             cond_video_frames=cond_video_frames, post_cond_video_frames=post_cond_video_frames,
-            cond_scale=cond_scale, start_at_unet_number=start_at_unet_number,
+            inpaint_images=default(inpaint_videos, inpaint_images), inpaint_masks=inpaint_masks,
+            inpaint_resample_times=inpaint_resample_times, init_images=init_images,
+            skip_steps=skip_steps, cond_scale=cond_scale,
+            lowres_sample_noise_level=lowres_sample_noise_level,
+            start_at_unet_number=start_at_unet_number,
             start_image_or_video=start_image_or_video, stop_at_unet_number=stop_at_unet_number,
             noise_override=noise_override, offload_inactive_unets=offload_inactive_unets,
-            lowres_sample_noise_level=self.lowres_sample_noise_level, generator=generator)
+            return_all_unet_outputs=return_all_unet_outputs,
+            return_pil_images=return_pil_images, generator=generator)
 
-    def _sample_cascade(self, *, text_embeds, text_masks, batch_size, frames, cond_video_frames,
-                        post_cond_video_frames, cond_scale, start_at_unet_number,
-                        start_image_or_video, stop_at_unet_number, noise_override,
-                        lowres_sample_noise_level, generator, return_all_unet_outputs=False,
+    def _sample_cascade(self, *, texts, text_embeds, text_masks, batch_size, video_frames,
+                        cond_images, cond_video_frames, post_cond_video_frames, inpaint_images,
+                        inpaint_masks, inpaint_resample_times, init_images, skip_steps,
+                        cond_scale, lowres_sample_noise_level, start_at_unet_number,
+                        start_image_or_video, stop_at_unet_number, noise_override, generator,
+                        return_all_unet_outputs=False, return_pil_images=False,
                         offload_inactive_unets=False, **stage_options):
         """The stage loop of `sample`, which the EDM sampler shares: checks the
-        text, then for each stage builds the unet's conditioning (text, prompt
-        frames, the noised low-res image of the stage before) and calls
-        `self._sample_stage`, with `noise_override[index]` as (init, steps,
-        lowres) and `stage_options` passed through. Returns the last stage's
-        output, or every stage's with `return_all_unet_outputs`."""
+        text, the inpainting inputs and the frames, then for each stage builds
+        the unet's conditioning (text, cond images, prompt frames, the noised
+        low-res image of the stage before), resizes the init and inpainting
+        images and the masks to it and calls `self._sample_stage`, with
+        `noise_override[index]` (made a dict by `self._override_dict`) less
+        its 'lowres' draw as `noise` and `stage_options` passed through."""
+        if exists(texts):
+            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
         device = self.device
         if not self.unconditional:
             if not exists(text_embeds):
@@ -393,9 +504,34 @@ class Imagen(nn.Module):
         elif exists(text_embeds):
             raise ValueError('unconditional imagen cannot take text embeddings')
 
-        all_frame_dims = self._calc_all_frame_dims(frames)
+        inpainting = exists(inpaint_images)
+        if inpainting != exists(inpaint_masks):
+            raise ValueError('inpaint_images and inpaint_masks go together')
+        resample_times = inpaint_resample_times if inpainting else 1
+        if inpainting:
+            inpaint_images, inpaint_masks = inpaint_images.to(device), inpaint_masks.to(device)
+            if self.unconditional and batch_size == 1:
+                batch_size = inpaint_images.shape[0]
+            if self.is_video:
+                video_frames = inpaint_images.shape[1]
+                if inpaint_masks.ndim == 3:   # one mask for every frame
+                    inpaint_masks = inpaint_masks[:, None].expand(-1, video_frames, -1, -1)
+                if inpaint_masks.shape[1] != video_frames:
+                    raise ValueError(f'inpaint masks of {inpaint_masks.shape[1]} frames for '
+                                     f'{video_frames} frames of video')
+        if self.is_video and not exists(video_frames):
+            raise ValueError('video_frames must be passed for a video imagen')
+        if exists(cond_images):
+            cond_images = cast_uint8_images_to_float(cond_images.to(device))
+
+        all_frame_dims = self._calc_all_frame_dims(video_frames if self.is_video else None)
         num_unets = self.num_unets
         cond_scale = cast_tuple(cond_scale, num_unets)
+        init_images = [None if im is None else self.normalize_img(im.to(device))
+                       for im in cast_tuple(init_images, num_unets)]
+        skip_steps = cast_tuple(default(skip_steps, 0), num_unets)
+        lowres_sample_noise_level = default(lowres_sample_noise_level,
+                                            self.lowres_sample_noise_level)
         noise_override = default(noise_override, (None,) * num_unets)
         if len(noise_override) != num_unets:
             raise ValueError('noise_override must be a per-stage list (entries may be None)')
@@ -415,17 +551,20 @@ class Imagen(nn.Module):
             if isinstance(unet, NullUnet):
                 raise ValueError('cannot sample from a NullUnet')
             image_size = self.image_sizes[index]
-            init_noise, step_noises, lowres_noise = default(
-                noise_override[index], (None, None, None))
+            frames = all_frame_dims[index]
+            noise = self._override_dict(noise_override[index])
+            lowres_noise = noise.pop('lowres', None)
 
             unet_kwargs = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
             if not self.unconditional:
                 unet_kwargs.update(text_embeds=text_embeds, text_mask=text_masks)
+            if exists(cond_images):
+                unet_kwargs.update(cond_images=cond_images)
             if unet.lowres_cond:
                 lowres_noise_times = self.lowres_noise_schedule.get_times(
                     batch_size, lowres_sample_noise_level, device=device)
                 lowres_cond_img = self.normalize_img(self.resize_to(
-                    img, image_size, target_frames=all_frame_dims[index]))
+                    img, image_size, target_frames=frames))
                 if exists(lowres_noise):
                     if lowres_noise.shape != lowres_cond_img.shape:
                         raise ValueError(f'low-res noise of stage {unet_number} is '
@@ -442,33 +581,50 @@ class Imagen(nn.Module):
                     lowres_noise_times=self.lowres_noise_schedule.get_condition(
                         lowres_noise_times))
 
+            stage_init = init_images[index]
+            if exists(stage_init):
+                stage_init = self.resize_to(stage_init, image_size, target_frames=frames)
+            stage_inpaint = stage_masks = None
+            if inpainting:
+                stage_inpaint = self.normalize_img(
+                    self.resize_to(inpaint_images, image_size, target_frames=frames))
+                stage_masks = self.resize_to(inpaint_masks[..., None].float(), image_size,
+                                             target_frames=frames).bool()
+
             with on_device(unet, device) if offload_inactive_unets else nullcontext():
                 img = self._sample_stage(
-                    index, batch_size=batch_size, frames=all_frame_dims[index],
-                    cond_scale=cond_scale[index],
-                    unet_kwargs=unet_kwargs, init_noise=init_noise, step_noises=step_noises,
-                    generator=generator, **stage_options)
+                    index, batch_size=batch_size, frames=frames, cond_scale=cond_scale[index],
+                    unet_kwargs=unet_kwargs, noise=noise, generator=generator,
+                    inpaint_images=stage_inpaint, inpaint_masks=stage_masks,
+                    resample_times=resample_times, init_images=stage_init,
+                    skip_steps=skip_steps[index], **stage_options)
             outputs.append(img)
 
             if exists(stop_at_unet_number) and stop_at_unet_number == unet_number:
                 break
 
-        return outputs if return_all_unet_outputs else img
+        if return_pil_images:
+            outputs = [to_pil_images(out, self.is_video) for out in outputs]
+        return outputs if return_all_unet_outputs else outputs[-1]
 
     # --- training loss ---------------------------------------------------------------------
 
     def p_losses(self, unet, x_start, times, *, noise_scheduler, lowres_cond_img=None,
-                 lowres_aug_times=None, text_embeds=None, text_mask=None, noise=None,
-                 lowres_aug_noise=None, pred_objective='noise', min_snr_gamma=None,
-                 random_crop_size=None, generator=None, **unet_kwargs):
+                 lowres_aug_times=None, text_embeds=None, text_mask=None, cond_images=None,
+                 noise=None, lowres_aug_noise=None, self_cond_flip=None, pred_objective='noise',
+                 min_snr_gamma=None, random_crop_size=None, generator=None, **unet_kwargs):
         """Denoising loss of one unet on a batch of images (NHWC) or clips
         (NFHWC) in the input range.
 
         `noise` and `lowres_aug_noise` (the low-res condition's augmentation
         noise, after any crop) are drawn from `generator` when not given, as
         are the crop offsets and the text drop of classifier-free guidance.
-        `unet_kwargs` (a video unet's `ignore_time`, `cond_video_frames`,
-        `post_cond_video_frames`) pass through to the unet.
+        `cond_images` go to the unet uncropped, as in the JAX package. A unet
+        with `self_cond` is given, half of the time (a fair coin from
+        `generator`, or `self_cond_flip`), the x_start of a first forward
+        without gradient, else zeros. `unet_kwargs` (a video unet's
+        `ignore_time`, `cond_video_frames`, `post_cond_video_frames`) pass
+        through to the unet.
         """
         def randn(shape, dtype):
             return torch.randn(shape, generator=generator, device=x_start.device, dtype=dtype)
@@ -494,11 +650,27 @@ class Imagen(nn.Module):
             lowres_cond_img_noisy, *_ = self.lowres_noise_schedule.q_sample(
                 lowres_cond_img, lowres_aug_times, lowres_aug_noise)
 
-        pred = unet(x_noisy, noise_scheduler.get_condition(times), text_embeds=text_embeds,
-                    text_mask=text_mask, lowres_cond_img=lowres_cond_img_noisy,
-                    lowres_noise_times=self.lowres_noise_schedule.get_condition(
-                        lowres_aug_times),
-                    cond_drop_prob=self.cond_drop_prob, generator=generator, **unet_kwargs)
+        noise_cond = noise_scheduler.get_condition(times)
+        unet_kwargs.update(
+            text_embeds=text_embeds, text_mask=text_mask, lowres_cond_img=lowres_cond_img_noisy,
+            lowres_noise_times=self.lowres_noise_schedule.get_condition(lowres_aug_times),
+            cond_drop_prob=self.cond_drop_prob, generator=generator)
+        if exists(cond_images):
+            unet_kwargs['cond_images'] = cond_images
+        if unet.self_cond:
+            if self_cond_flip is None:
+                self_cond_flip = bool(torch.rand((), generator=generator,
+                                                 device=x_start.device) < 0.5)
+            self_cond = torch.zeros_like(x_noisy)
+            if self_cond_flip:
+                with torch.no_grad():
+                    first = unet(x_noisy, noise_cond, **unet_kwargs)
+                    # x_start for the noise objective, else the prediction, as in JAX
+                    self_cond = (noise_scheduler.predict_start_from_noise(x_noisy, times, first)
+                                 if pred_objective == 'noise' else first).detach()
+            unet_kwargs['self_cond'] = self_cond
+
+        pred = unet(x_noisy, noise_cond, **unet_kwargs)
 
         if pred_objective == 'noise':
             target = noise
@@ -524,11 +696,12 @@ class Imagen(nn.Module):
         return (losses * loss_weight).mean()
 
     def forward(self, images, *, unet_number=None, texts=None, text_embeds=None,
-                text_masks=None, cond_video_frames=None, post_cond_video_frames=None,
-                ignore_time=False, generator=None):
+                text_masks=None, cond_images=None, cond_video_frames=None,
+                post_cond_video_frames=None, ignore_time=False, generator=None):
         """Training loss of unet `unet_number` on a batch of NHWC images, or
         of NFHWC clips for a video cascade, in [0, 1] (or uint8), drawing
-        every random value from `generator`.
+        every random value from `generator`. `cond_images` (uint8 or float)
+        go to the unet as they are (it resizes them).
 
         A video cascade trains stage i on clips resized to its frame count
         (`video_frames // temporal_downsample_factor[i]`); still images
@@ -549,6 +722,8 @@ class Imagen(nn.Module):
 
         device = self.device
         images = cast_uint8_images_to_float(images.to(device))
+        if exists(cond_images):
+            cond_images = cast_uint8_images_to_float(cond_images.to(device))
         if self.is_video and images.ndim == 4:   # still images: one-frame clips
             images, ignore_time = images[:, None], True
         if images.ndim != (5 if self.is_video else 4) or images.shape[-2] != images.shape[-3] \
@@ -601,7 +776,7 @@ class Imagen(nn.Module):
         images = self.resize_to(images, target_size, target_frames=frame_dims[index])
         return self.p_losses(
             unet, images, times, noise_scheduler=noise_scheduler, text_embeds=text_embeds,
-            text_mask=text_masks, lowres_cond_img=lowres_cond_img,
+            text_mask=text_masks, cond_images=cond_images, lowres_cond_img=lowres_cond_img,
             lowres_aug_times=lowres_aug_times, pred_objective=self.pred_objectives[index],
             min_snr_gamma=self.min_snr_gamma[index],
             random_crop_size=self.random_crop_sizes[index], generator=generator,

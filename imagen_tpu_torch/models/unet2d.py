@@ -28,7 +28,7 @@ from imagen_tpu_torch.models.blocks import (
     Upsample,
     UpsampleCombiner,
 )
-from imagen_tpu_torch.ops.tensor_utils import prob_mask_like
+from imagen_tpu_torch.ops.tensor_utils import prob_mask_like, resize_image_to
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
 
 DEFAULT_TEXT_EMBED_DIM = 768  # t5-v1_1-base d_model
@@ -45,12 +45,39 @@ class _Rearrange(nn.Module):
         return x.reshape(x.shape[0], self.r, -1)
 
 
+def input_channels(channels, lowres_cond, self_cond, cond_images_channels):
+    """Channels into the init conv: the cond images, then x, the
+    self-conditioning x_start and the low-res image, the JAX package's order,
+    so one set of weights serves both."""
+    return cond_images_channels + channels * (1 + int(self_cond) + int(lowres_cond))
+
+
 class ConditionedUnet(nn.Module):
     """What the 2D and the video U-Net share: the time and text conditioning
-    heads and their forward, the cascade's config correction, the device and
-    the compute dtype. A subclass keeps its constructor arguments in
-    `_config` and sets `channels`, `channels_out`, `lowres_cond`,
-    `cond_on_text`, `text_embed_dim`, `max_text_len` and `dtype`."""
+    heads and their forward, the input channels of self-conditioning and
+    cond images, the cascade's config correction, the device and the compute
+    dtype. A subclass keeps its constructor arguments in `_config` and sets
+    `channels`, `channels_out`, `lowres_cond`, `cond_on_text`,
+    `text_embed_dim`, `max_text_len`, `self_cond`, `cond_images_channels`
+    and `dtype`."""
+
+    def _append_self_cond(self, x, self_cond):
+        """x with the self-conditioning x_start (zeros when None) appended on
+        the channel axis, for a unet built with `self_cond`; a unet without
+        ignores it, as the JAX one does."""
+        if not self.self_cond:
+            return x
+        self_cond = torch.zeros_like(x) if self_cond is None else self_cond.to(x.dtype)
+        return torch.cat((x, self_cond), dim=-1)
+
+    def _check_cond_images(self, cond_images, ndim):
+        if (self.cond_images_channels > 0) != exists(cond_images):
+            raise ValueError('cond_images must be given if and only if the unet was built '
+                             'with cond_images_channels')
+        if exists(cond_images) and (cond_images.ndim != ndim
+                                    or cond_images.shape[-1] != self.cond_images_channels):
+            raise ValueError(f'cond_images of shape {tuple(cond_images.shape)}: expected '
+                             f'{ndim} dims ending in {self.cond_images_channels} channels')
 
     def _build_conditioning(self, *, cond_dim, time_cond_dim, learned_sinu_pos_emb_dim,
                             num_time_tokens, attn_pool_text, attn_pool_num_latents,
@@ -244,9 +271,10 @@ class Unet(ConditionedUnet):
                 raise ValueError('you need more than 1 attention head')
             if any(cast_tuple(use_linear_attn)) or any(cast_tuple(use_linear_cross_attn)):
                 raise NotImplementedError('linear attention is not ported yet')
-            if cross_embed_downsample or self_cond or cond_images_channels > 0:
-                raise NotImplementedError(
-                    'cross-embed downsample, self-conditioning and cond images are not ported yet')
+            if cross_embed_downsample:
+                raise NotImplementedError('cross-embed downsample is not ported yet')
+            if cond_images_channels > 0 and resize_mode != 'nearest':
+                raise NotImplementedError(f'resize_mode {resize_mode!r}: only nearest')
 
             # constructor arguments, for cast_model_parameters
             self._config = {k: v for k, v in locals().items()
@@ -259,6 +287,8 @@ class Unet(ConditionedUnet):
             self.text_embed_dim = text_embed_dim
             self.max_text_len = max_text_len
             self.dtype = dtype
+            self.self_cond = self_cond
+            self.cond_images_channels = cond_images_channels
 
             num_layers = len(dim_mults)
             init_dim = default(init_dim, dim)
@@ -277,8 +307,7 @@ class Unet(ConditionedUnet):
             resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads, dtype=dtype,
                                  fused_film=fused_film)
 
-            # input channels: image + lowres conditioning image
-            init_channels = channels * (1 + int(lowres_cond))
+            init_channels = input_channels(channels, lowres_cond, self_cond, cond_images_channels)
             if init_cross_embed:
                 self.init_conv = CrossEmbedLayer(init_channels, init_cross_embed_kernel_sizes,
                                                  dim_out=init_dim, stride=1, dtype=dtype)
@@ -388,17 +417,23 @@ class Unet(ConditionedUnet):
             nn.init.zeros_(self.final_conv.bias)
 
     def forward(self, x, time, *, lowres_cond_img=None, lowres_noise_times=None,
-                text_embeds=None, text_mask=None, cond_drop_prob=0.,
-                force_text_drop_mask=None, generator=None):
+                text_embeds=None, text_mask=None, cond_images=None, self_cond=None,
+                cond_drop_prob=0., force_text_drop_mask=None, generator=None):
         """x (b, H, W, c) NHWC. The text is dropped to the null embeddings with
         probability `cond_drop_prob`, drawn from `generator`.
         `force_text_drop_mask` (b,) bool overrides that draw, True dropping:
         classifier-free guidance runs the conditional and null halves as one
-        doubled-batch forward."""
+        doubled-batch forward. `cond_images` (b, h, w, cond_images_channels),
+        resized to x, and `self_cond` (b, H, W, c), the previous x_start, go
+        in on the channel axis."""
         if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
             raise ValueError('low resolution conditioning image and noise times must be present')
+        self._check_cond_images(cond_images, 4)
+        x = self._append_self_cond(x, self_cond)
         if exists(lowres_cond_img):
             x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+        if exists(cond_images):
+            x = torch.cat((resize_image_to(cond_images, x.shape[-2]).to(x.dtype), x), dim=-1)
 
         x = self.init_conv(x)
         init_conv_residual = x if self.init_conv_to_final_conv_residual else None
@@ -460,6 +495,9 @@ class Unet(ConditionedUnet):
 
 class NullUnet(nn.Module):
     """Identity placeholder for a skipped cascade stage."""
+
+    self_cond = False
+    cond_images_channels = 0
 
     def __init__(self, lowres_cond=False, channels=3, device=None):
         super().__init__()

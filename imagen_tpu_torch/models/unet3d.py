@@ -16,13 +16,14 @@ Ported: temporal strides, `ignore_time` (train or run on still images),
 `lowres_cond`, `memory_efficient`, conditioning on preceding frames
 (`cond_video_frames`, prepended) and succeeding frames
 (`post_cond_video_frames`, appended, as the JAX package does),
-`cast_model_parameters`, and `temporal_fused_ln`, the JAX package's
+`cast_model_parameters`, self-conditioning (`self_cond`), cond images
+(`cond_images_channels`: a (b, h, w, c) image repeated over every frame,
+prompt frames included), and `temporal_fused_ln`, the JAX package's
 `IMAGEN_TPU_TEMPORAL_FUSED_LN=1` as a constructor keyword (off by default):
 the temporal attention sites with c >= 128 then run their LayerNorm and
 out-norm fused with the fold and unfold (kernels 12 and 13,
 `ops/temporal_layout.py`). Not ported, and raising when asked for:
-self-conditioning, cond images, cross-embed downsample, linear attention,
-remat and dropout.
+cross-embed downsample, linear attention, remat and dropout.
 """
 from __future__ import annotations
 
@@ -41,7 +42,11 @@ from imagen_tpu_torch.models.blocks import (
     PixelShuffleUpsample,
     Upsample,
 )
-from imagen_tpu_torch.models.unet2d import DEFAULT_TEXT_EMBED_DIM, ConditionedUnet
+from imagen_tpu_torch.models.unet2d import (
+    DEFAULT_TEXT_EMBED_DIM,
+    ConditionedUnet,
+    input_channels,
+)
 from imagen_tpu_torch.models.video_blocks import (
     ResnetBlockVideo,
     Residual,
@@ -127,11 +132,9 @@ class Unet3D(ConditionedUnet):
                 raise ValueError('you need more than 1 attention head')
             if use_linear_attn or use_linear_cross_attn:
                 raise NotImplementedError('linear attention is not ported yet')
-            if (cross_embed_downsample or self_cond or cond_images_channels > 0 or remat
-                    or dropout > 0):
+            if cross_embed_downsample or remat or dropout > 0:
                 raise NotImplementedError(
-                    'cross-embed downsample, self-conditioning, cond images, remat and '
-                    'dropout are not ported yet')
+                    'cross-embed downsample, remat and dropout are not ported yet')
             if resize_mode != 'nearest':
                 raise NotImplementedError(f'resize_mode {resize_mode!r}: only nearest')
 
@@ -145,6 +148,8 @@ class Unet3D(ConditionedUnet):
             self.cond_on_text = cond_on_text
             self.text_embed_dim = text_embed_dim
             self.max_text_len = max_text_len
+            self.self_cond = self_cond
+            self.cond_images_channels = cond_images_channels
             self.dtype = dtype
 
             num_layers = len(dim_mults)
@@ -176,8 +181,8 @@ class Unet3D(ConditionedUnet):
             def temporal_attn(d):
                 return TemporalAttention(d, **temporal_attn_kwargs)
 
-            # input channels: video + lowres conditioning video
-            init_channels = channels * (1 + int(lowres_cond))
+            init_channels = input_channels(channels, lowres_cond, self_cond,
+                                           cond_images_channels)
             if init_cross_embed:
                 self.init_conv = unit_time(CrossEmbedLayer(
                     init_channels, init_cross_embed_kernel_sizes, dim_out=init_dim, stride=1,
@@ -298,14 +303,16 @@ class Unet3D(ConditionedUnet):
             nn.init.zeros_(self.final_conv.bias)
 
     def forward(self, x, time, *, lowres_cond_img=None, lowres_noise_times=None,
-                text_embeds=None, text_mask=None, cond_video_frames=None,
-                post_cond_video_frames=None, cond_drop_prob=0., force_text_drop_mask=None,
-                ignore_time=False, generator=None):
+                text_embeds=None, text_mask=None, cond_images=None, self_cond=None,
+                cond_video_frames=None, post_cond_video_frames=None, cond_drop_prob=0.,
+                force_text_drop_mask=None, ignore_time=False, generator=None):
         """x (b, f, H, W, c) NFHWC. The text is dropped to the null embeddings
         with probability `cond_drop_prob`, drawn from `generator`;
         `force_text_drop_mask` (b,) bool overrides that draw (classifier-free
         guidance). `ignore_time` skips every temporal module, so the net runs
-        on each frame as an image net."""
+        on each frame as an image net. `self_cond` (b, f, H, W, c) goes in on
+        the channel axis before the low-res video; `cond_images` (b, h, w, c')
+        is repeated over every frame, prompt frames included, and resized."""
         if x.ndim != 5:
             raise ValueError('input to the 3D unet must be (batch, frames, h, w, channels)')
         frames = x.shape[1]
@@ -315,6 +322,8 @@ class Unet3D(ConditionedUnet):
 
         if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
             raise ValueError('low resolution conditioning video and noise times must be present')
+        self._check_cond_images(cond_images, 4)
+        x = self._append_self_cond(x, self_cond)
         if exists(lowres_cond_img):
             x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
             # prompt frames double their channels to match the (x ++ lowres) layout
@@ -342,6 +351,10 @@ class Unet3D(ConditionedUnet):
             else:
                 x = torch.cat((x, frames_), dim=1)
                 num_succeeding_frames = n
+
+        if exists(cond_images):   # over every frame, the prompt frames' too
+            frames_ = cond_images[:, None].expand(-1, x.shape[1], -1, -1, -1)
+            x = torch.cat((resize_video_to(frames_, x.shape[-2]).to(x.dtype), x), dim=-1)
 
         x = spatial(self.init_conv, x)
         if not ignore_time:

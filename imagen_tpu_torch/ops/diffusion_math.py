@@ -95,6 +95,13 @@ class GaussianDiffusionContinuousTimes:
         alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_start, log_snr))
         return alpha * x_start + sigma * noise, log_snr, alpha, sigma
 
+    def q_sample_from_to(self, x_from, from_t, to_t, noise):
+        """Renoise x from time `from_t` back to the earlier (noisier) `to_t`:
+        RePaint's resampling step."""
+        alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_from, self.log_snr(from_t)))
+        alpha_to, sigma_to = log_snr_to_alpha_sigma(right_pad_dims_to(x_from, self.log_snr(to_t)))
+        return x_from * (alpha_to / alpha) + noise * (sigma_to * alpha - sigma * alpha_to) / alpha
+
     def predict_start_from_v(self, x_t, t, v):
         alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_t, self.log_snr(t)))
         return alpha * x_t - sigma * v

@@ -1,8 +1,8 @@
 """Fixed-batch sampling server; counterpart of `imagen_tpu/serving.py`.
 
-- warms up every cascade stage at startup for the serving batch (the
-  first call builds the CUDA kernels and lets cuDNN pick its algorithms;
-  serving requests must not pay that),
+- warms up every cascade stage at startup for the serving batch at each
+  cond_scale in `cond_scales` (the first call builds the CUDA kernels and
+  lets cuDNN pick its algorithms; serving requests must not pay that),
 - pads incoming requests to the serving batch and text length, so every
   request runs the same shapes,
 - serializes device access with a lock so several threads can call
@@ -19,44 +19,53 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from imagen_tpu_torch.utils.helpers import default, exists
+from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
 
 class ImagenServer:
-    """Fixed-shape sampling server around an `Imagen` whose unets hold their weights."""
+    """Fixed-shape sampling server around an `Imagen` whose unets hold their
+    weights. `cond_scales` are the guidance scales warmed at startup
+    (default `(cond_scale,)`); `lowres_sample_noise_level` goes to every
+    sample (None: the cascade's own)."""
 
-    def __init__(self, imagen, *, batch_size=4, text_len=256, cond_scale=3., seed=0,
-                 video_frames=8):
+    def __init__(self, imagen, *, batch_size=4, text_len=256, cond_scale=3., cond_scales=None,
+                 lowres_sample_noise_level=None, seed=0, video_frames=8, warmup=True):
         self.imagen = imagen
         self.batch_size = batch_size
         self.video_frames = video_frames  # frames per sample of a video cascade
         self.text_len = text_len
         self.cond_scale = cond_scale
+        self.cond_scales = tuple(cast_tuple(default(cond_scales, cond_scale)))
+        self.lowres_sample_noise_level = lowres_sample_noise_level
         self.device = imagen.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._lock = threading.Lock()
-        self.warmup()
+        if warmup:
+            self.warmup()
 
     def _sync(self):
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
     def warmup(self):
-        """Run every cascade stage at the serving shape."""
+        """Run every cascade stage at the serving shape, at each warmed cond_scale."""
         embeds = torch.zeros((self.batch_size, self.text_len, self.imagen.text_embed_dim),
                              device=self.device)
         masks = torch.ones((self.batch_size, self.text_len), dtype=torch.bool,
                            device=self.device)
-        generator = torch.Generator(device=self.device).manual_seed(0)
         with self._lock:
-            self._sample(embeds, masks, generator)
+            for scale in self.cond_scales:
+                self._sample(embeds, masks, torch.Generator(device=self.device).manual_seed(0),
+                             scale)
             self._sync()
         return self
 
-    def _sample(self, text_embeds, text_masks, generator):
+    def _sample(self, text_embeds, text_masks, generator, cond_scale):
         kwargs = dict(video_frames=self.video_frames) if self.imagen.is_video else {}
         return self.imagen.sample(text_embeds=text_embeds, text_masks=text_masks,
-                                  cond_scale=self.cond_scale, generator=generator, **kwargs)
+                                  cond_scale=cond_scale,
+                                  lowres_sample_noise_level=self.lowres_sample_noise_level,
+                                  generator=generator, **kwargs)
 
     def _pad_request(self, text_embeds, text_masks):
         """Pad or cut a request to (batch_size, text_len)."""
@@ -81,9 +90,12 @@ class ImagenServer:
             text_masks = torch.cat((text_masks, pad_mask))
         return text_embeds, text_masks, n
 
-    def generate(self, *, texts=None, text_embeds=None, text_masks=None, generator=None):
+    def generate(self, *, texts=None, text_embeds=None, text_masks=None, generator=None,
+                 cond_scale=None):
         """Sample images for up to `batch_size` prompts; returns (n, H, W, C)
-        in [0, 1], or (n, video_frames, H, W, C) from a video cascade."""
+        in [0, 1], or (n, video_frames, H, W, C) from a video cascade.
+        `cond_scale` defaults to the server's; one outside the warmed
+        `cond_scales` runs all the same."""
         if exists(texts):
             raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
         if not exists(text_embeds):
@@ -95,6 +107,7 @@ class ImagenServer:
         text_embeds, text_masks, n = self._pad_request(text_embeds, text_masks)
 
         with self._lock:
-            out = self._sample(text_embeds, text_masks, default(generator, self.generator))
+            out = self._sample(text_embeds, text_masks, default(generator, self.generator),
+                               default(cond_scale, self.cond_scale))
             images = out[:n].float().cpu().numpy()
         return images

@@ -9,7 +9,8 @@ draw recomputed as JAX makes it, each stage to 1e-2 from the same input;
 the same with per-call sigma_min/sigma_max and `stop_at_unet_number`; the
 whole cascade end to end in float64 on both sides to 1e-6; a one-stage dim-128 cascade
 with `fused_film=True` against JAX under `IMAGEN_TPU_FUSED_FILM=1`; the
-server around the EDM class; and what is not ported raising.
+server around the EDM class; and what is not ported raising (T5 text
+encoding, EDM training).
 """
 import jax
 import jax.numpy as jnp
@@ -260,13 +261,10 @@ def test_server_serves_the_edm_cascade(cascades):
 def test_what_is_not_ported_raises(cascades):
     _, _, timagen = cascades
     emb = t(_text(64)[0])
-    for kw in (dict(texts=['a prompt']), dict(init_images=torch.zeros(2, 16, 16, 3)),
-               dict(skip_steps=1), dict(inpaint_images=torch.zeros(2, 16, 16, 3),
-                                        inpaint_masks=torch.ones(2, 16, 16, dtype=torch.bool)),
-               dict(return_pil_images=True),
-               dict(noise_override=[{'repaint': torch.zeros(1)}, None])):
-        with pytest.raises(NotImplementedError):
-            timagen.sample(text_embeds=emb, **kw)
+    with pytest.raises(NotImplementedError):
+        timagen.sample(texts=['a prompt'])
+    with pytest.raises(ValueError):   # the RePaint draws need a (step, r) axis pair
+        timagen.sample(text_embeds=emb, noise_override=[{'repaint': torch.zeros(1)}, None])
     with pytest.raises(ValueError):   # the churn draws need a resample axis
         timagen.sample(text_embeds=emb, noise_override=[
             {'eps': torch.zeros(STEPS[0], 2, 16, 16, 3)}, None])

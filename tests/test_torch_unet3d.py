@@ -103,8 +103,7 @@ def test_unet3d_cast_and_checks():
     sr = unet.cast_model_parameters(lowres_cond=True, text_embed_dim=16, channels=3,
                                     channels_out=None, cond_on_text=True)
     assert sr.lowres_cond and isinstance(sr, it.Unet3D)
-    for bad in (dict(self_cond=True), dict(cond_images_channels=3), dict(remat=True),
-                dict(dropout=0.1), dict(use_linear_attn=True)):
+    for bad in (dict(remat=True), dict(dropout=0.1), dict(use_linear_attn=True)):
         with pytest.raises(NotImplementedError):
             it.Unet3D(**TINY, **bad, device='cpu')
     with pytest.raises(ValueError):  # 3 frames, temporal divisor 2
