@@ -39,6 +39,22 @@ parameters and random weights from a seed:
   each with kernel 14 on and off (its gate closed); then (path
   edm_inpainting) one inpainting request with 2 RePaint resamples a step,
   from `init_images` with half of each stage's steps skipped;
+- EDM training: `ElucidatedImagen.forward` through `ImagenTrainer` for 3
+  steps each of `edm_paper`'s BaseUnet64 (`fused_film=True`, batch 8, 64
+  px, Adafactor; its optimiser state's bytes beside Adam's 2 x fp32
+  params) and NullUnet + SRUnet256 (`fused_film=True`, the low-res
+  augmentation, batch 4, 256 px, Adam); kernel 8's launches are held to
+  forward hooks that count the fused norm calls;
+- video EDM: `ElucidatedImagen` over the video `Unet3D`, 16 churn + Heun
+  steps (31 forwards), an `ImagenServer(video_frames=16)` that warms up
+  and answers three requests of one prompt at cond_scale 3, then one
+  `inpaint_videos` request with one (b, h, w) mask and 2 RePaint
+  resamples a step, the known pixels checked;
+- video EDM training: that `ElucidatedImagen` over the `Unet3D` with
+  `temporal_fused_ln=True`, 3 steps on batch 4 clips of 16 frames at 64
+  px with Adam, then one step on batch 4 still images (`ignore_time`,
+  counted on its own as path video_edm_training_stills), where the
+  temporal kernel and kernels 12 and 13 must not launch;
 - SR-1024 serving: the JAX bench's `sr1024_paper` (BASELINE config 4),
   `NullUnet` + `SRUnet1024` at 256 -> 1024, `Imagen.sample` from `start_at_unet_number=2`
   with a seeded 256 px start image, batch 1 (2 with CFG), cond_scale 3,
@@ -77,7 +93,8 @@ edm_inpainting paths its latency, shapes, finiteness, range, the unet
 forwards it made per stage and, for inpainting, the worst difference of
 the known pixels from the input (1e-6 or FAIL), then the plain and
 inpainting latencies side by side and whether the 9-channel stem stayed
-off kernel 14; per training step loss, time and peak memory; launch counts
+off kernel 14; per training step (DDPM, EDM, video EDM) loss, time and
+peak memory; the Adafactor state's bytes; launch counts
 per path; per video request latency, shape, finiteness, range and peak
 memory; per video training step loss, time and peak memory; per EDM request latency,
 shape, finiteness, range and peak memory, kernel 8's sites per forward, the
@@ -233,7 +250,8 @@ LOG_ONLY_SHAPES = {CF_KERNEL: ((2, 1024, 1024, 128, 3, 3),),
 DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16', 'fused_ln_matmul_bf16',
                  'fused_matmul_ln_bf16', CF_KERNEL)
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving',
-         'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting')
+         'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
+         'video_edm', 'video_edm_training', 'video_edm_training_stills')
 RESAMPLE_TIMES = 5           # RePaint resamples a step: the JAX default
 
 
@@ -578,17 +596,20 @@ def train_config(torch, it, build, results, counts, unet_number, batch):
     stages = 'BaseUnet64' if unet_number == 1 else 'NullUnet + SRUnet256'
     label = f'train unet {unet_number} ({stages}, batch {batch}, {size}px)'
     return train_steps(torch, it, build, results['shapes']['training'], counts, label, imagen,
-                       unet_number, data, t0)
+                       unet_number, data, t0)[0]
 
 
-def train_steps(torch, it, build, shapes, counts, label, imagen, unet_number, data, t0):
+def train_steps(torch, it, build, shapes, counts, label, imagen, unet_number, data, t0,
+                optimizer='adam'):
     """TRAIN_STEPS steps of `ImagenTrainer.step_with_batch` on `data`, with
     the launches counted into `counts`; checks finite losses, a finite
-    gradient for every parameter, and that the weights and the EMA moved."""
+    gradient for every parameter, and that the weights and the EMA moved.
+    Returns (ok, the trainer)."""
     unet = imagen.unets[unet_number - 1]
     trainer = it.ImagenTrainer(imagen, lr=1e-4, max_grad_norm=1.0, use_ema=True,
                                ema_update_after_step=0, ema_update_every=1,
-                               only_train_unet_number=unet_number, seed=0, verbose=False)
+                               only_train_unet_number=unet_number, optimizer=optimizer,
+                               seed=0, verbose=False)
     named = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
     before = [p.detach().flatten()[:4096].clone() for _, p in named]
     torch.cuda.synchronize()
@@ -633,7 +654,7 @@ def train_steps(torch, it, build, shapes, counts, label, imagen, unet_number, da
     log(f'{label}: {moved} of {len(named)} parameter tensors changed, {ema_moved} EMA tensors '
         f'differ from both the start and the online weights -> {"ok" if changed else "FAIL"}; '
         f'trainer.timings() {trainer.timings()}')
-    return ok and grads_ok and changed
+    return ok and grads_ok and changed, trainer
 
 
 def phase_training(torch, it, build, results):
@@ -765,7 +786,7 @@ def phase_video_training(torch, it, build, results):
     calls, handles = fused_site_calls(unet)
     try:
         ok = train_steps(torch, it, build, results['shapes']['video_training'], counts, label,
-                         imagen, 1, data, t0)
+                         imagen, 1, data, t0)[0]
     finally:
         for h in handles:
             h.remove()
@@ -970,6 +991,183 @@ def phase_edm_serving(torch, it, build, results):
     ok &= check_launched(counts, [FILM_KERNEL, 'flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
                                   'fused_feedforward_bf16', STEM_KERNEL], 'edm_inpainting')
     results['counts']['edm_inpainting'] = counts
+    return ok
+
+
+# --- EDM training -----------------------------------------------------------------------
+
+def optimizer_state_bytes(torch, optimizer):
+    """Bytes of every tensor the optimiser keeps."""
+    return sum(t.numel() * t.element_size() for state in optimizer.state.values()
+               for t in state.values() if torch.is_tensor(t))
+
+
+def phase_edm_training(torch, it, build, results):
+    """`ElucidatedImagen.forward` trained through `ImagenTrainer` at paper
+    widths with `fused_film=True` (kernel 8 at every 2-D Block, now under
+    autograd): unet 1, `edm_paper`'s BaseUnet64 at batch 8, 64 px, with
+    Adafactor; unet 2, NullUnet + SRUnet256 with the low-res augmentation,
+    batch 4, 256 px, with Adam; TRAIN_STEPS steps each. Kernel 8's launches
+    are held to forward hooks that count the fused norm calls."""
+    common = dict(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256, fused_film=True)
+    counts = Counter()
+    ok = True
+    for unet_number, batch, optimizer in ((1, 8, 'adafactor'), (2, 4, 'adam')):
+        torch.manual_seed(60 + unet_number)
+        t0 = time.perf_counter()
+        if unet_number == 1:
+            unets, sizes = (it.BaseUnet64(**common),), (64,)
+        else:
+            unets, sizes = (it.NullUnet(), it.SRUnet256(**common, lowres_cond=True)), (64, 256)
+        imagen = it.ElucidatedImagen(unets, image_sizes=sizes, cond_drop_prob=0.1)
+        randomize_final_conv(imagen.unets[unet_number - 1], 60 + unet_number)
+        size = sizes[-1]
+        g = torch.Generator(device='cuda').manual_seed(160 + unet_number)
+        emb, mask = text_batch(torch, g, batch)
+        data = dict(images=torch.rand((batch, size, size, 3), generator=g, device='cuda'),
+                    text_embeds=emb, text_masks=mask)
+        stages = 'BaseUnet64' if unet_number == 1 else 'NullUnet + SRUnet256'
+        label = (f'edm train unet {unet_number} ({stages}, fused_film, batch {batch}, {size}px, '
+                 f'{optimizer})')
+        film_calls, _, _, handles = site_hooks(imagen)
+        before = counts[FILM_KERNEL]
+        try:
+            good, trainer = train_steps(torch, it, build, results['shapes']['edm_training'],
+                                        counts, label, imagen, unet_number, data, t0,
+                                        optimizer=optimizer)
+        finally:
+            for h in handles:
+                h.remove()
+        launched = counts[FILM_KERNEL] - before
+        expected = sum(film_calls.values())
+        exact = launched == expected > 0
+        log(f'{label}: {FILM_KERNEL} launches {launched}, expected {expected} = the fused norm '
+            f'calls the forward hooks counted ({expected // TRAIN_STEPS} a step) -> '
+            f'{"ok" if exact else "FAIL"}')
+        ok &= good and exact
+        if unet_number == 1:
+            n_params = sum(p.numel() for p in imagen.unets[0].parameters() if p.requires_grad)
+            state = optimizer_state_bytes(torch, trainer.optimizers[0])
+            log(f'{label}: optimiser state {state / 2 ** 30:.3f} GiB (Adafactor: bf16 momentum, '
+                f'factored second moments), Adam would keep 2 x fp32 params = '
+                f'{8 * n_params / 2 ** 30:.3f} GiB ({state / (8 * n_params):.3f} of it)')
+        del trainer, imagen
+        free_cuda()
+    ok &= check_launched(counts, [*IMAGE_KERNELS, FILM_KERNEL], 'edm_training')
+    results['counts']['edm_training'] = counts
+    return ok
+
+
+# --- video EDM serving and training -----------------------------------------------------
+
+def phase_video_edm(torch, it, build, results):
+    """`ElucidatedImagen` over the video `Unet3D` (16 frames of 64 px),
+    VIDEO_STEPS churn + Heun steps (2N - 1 forwards), an
+    `ImagenServer(video_frames=16)` that warms up and answers three requests
+    of one prompt at cond_scale 3; then one `inpaint_videos` request with
+    one (b, h, w) mask for every frame and 2 RePaint resamples a step."""
+    torch.manual_seed(70)
+    t0 = time.perf_counter()
+    unet = video_unet(torch, it)
+    randomize_final_conv(unet, 71)
+    imagen = it.ElucidatedImagen((unet,), image_sizes=(64,), num_sample_steps=VIDEO_STEPS,
+                                 cond_drop_prob=0.1).eval()
+    t1 = time.perf_counter()
+    server = it.ImagenServer(imagen, batch_size=1, video_frames=VIDEO_FRAMES, cond_scale=3.,
+                             seed=0)
+    log(f'video_edm: built in {t1 - t0:.1f} s, warmup {time.perf_counter() - t1:.2f} s '
+        f'({VIDEO_STEPS} steps, {2 * VIDEO_STEPS - 1} forwards, {VIDEO_FRAMES} frames, '
+        f'serving batch 1, cond_scale 3)')
+    g = torch.Generator(device='cuda').manual_seed(7071)
+    requests = [text_batch(torch, g, 1) for _ in range(3)]
+    counts = Counter()
+    ok = True
+    calls, handles = forward_calls(imagen)
+    try:
+        with counting_path(build, results['shapes']['video_edm'], counts):
+            for i, (emb, mask) in enumerate(requests):
+                torch.cuda.reset_peak_memory_stats()
+                ok &= sampled(torch, f'video edm request {i}',
+                              lambda: torch.from_numpy(server.generate(
+                                  text_embeds=emb, text_masks=mask)),
+                              [(1, VIDEO_FRAMES, 64, 64, 3)], calls)[0]
+        expected = VIDEO_TEMPORAL_SITES * (2 * VIDEO_STEPS - 1) * len(requests)
+        exact = counts['temporal_attn_fwd_bf16'] == expected
+        ok &= exact
+        log(f'video_edm: temporal kernel launches {counts["temporal_attn_fwd_bf16"]}, expected '
+            f'{VIDEO_TEMPORAL_SITES} per forward x {2 * VIDEO_STEPS - 1} forwards x '
+            f'{len(requests)} requests = {expected} -> {"ok" if exact else "FAIL"}')
+        emb, mask = requests[0]
+        clip = torch.rand((1, VIDEO_FRAMES, 64, 64, 3), generator=g, device='cuda')
+        known = half_mask(torch, 1, 64)
+        with counting_path(build, results['shapes']['video_edm'], counts):
+            ok &= sampled(
+                torch, 'video edm inpainting request (R 2)',
+                lambda: imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
+                                      inpaint_videos=clip, inpaint_masks=known,
+                                      inpaint_resample_times=2,
+                                      generator=torch.Generator(device='cuda').manual_seed(72)),
+                [(1, VIDEO_FRAMES, 64, 64, 3)], calls, known=(known[:, None], clip))[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, ['temporal_attn_fwd_bf16', 'flash_rows_fwd_bf16', STEM_KERNEL],
+                         'video_edm')
+    results['counts']['video_edm'] = counts
+    return ok
+
+
+def phase_video_edm_training(torch, it, build, results):
+    """`ElucidatedImagen` over the video `Unet3D` with its fused temporal
+    norms on (`temporal_fused_ln=True`), TRAIN_STEPS steps on batch 4 clips
+    of 16 frames at 64 px with Adam; then one step on batch 4 still images
+    (one-frame clips with `ignore_time`), whose launches are counted on
+    their own: the temporal kernel and kernels 12 and 13 must not launch."""
+    torch.manual_seed(80)
+    t0 = time.perf_counter()
+    unet = video_unet(torch, it, temporal_fused_ln=True)
+    randomize_final_conv(unet, 81)
+    imagen = it.ElucidatedImagen((unet,), image_sizes=(64,), cond_drop_prob=0.1)
+    g = torch.Generator(device='cuda').manual_seed(180)
+    emb, mask = text_batch(torch, g, VIDEO_TRAIN_BATCH)
+    data = dict(images=torch.rand((VIDEO_TRAIN_BATCH, VIDEO_FRAMES, 64, 64, 3), generator=g,
+                                  device='cuda'),
+                text_embeds=emb, text_masks=mask)
+    label = (f'video edm train (Unet3D, batch {VIDEO_TRAIN_BATCH} x {VIDEO_FRAMES} frames, '
+             f'64px)')
+    counts = Counter()
+    calls, handles = fused_site_calls(unet)
+    try:
+        ok, trainer = train_steps(torch, it, build, results['shapes']['video_edm_training'],
+                                  counts, label, imagen, 1, data, t0)
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', *VIDEO_KERNELS,
+                                  STEM_KERNEL], 'video_edm_training')
+    expected = sum(calls.values())
+    for name in ('ln_transpose_bf16', 'norm_untranspose_bf16'):
+        exact = counts[name] == expected > 0
+        ok &= exact
+        log(f'video_edm_training: {name} launches {counts[name]}, expected {expected} fused '
+            f'sites over {TRAIN_STEPS} steps -> {"ok" if exact else "FAIL"}')
+    results['counts']['video_edm_training'] = counts
+
+    stills = dict(images=torch.rand((VIDEO_TRAIN_BATCH, 64, 64, 3), generator=g, device='cuda'),
+                  text_embeds=emb, text_masks=mask)
+    counts = Counter()
+    with counting_path(build, results['shapes']['video_edm_training_stills'], counts):
+        torch.cuda.reset_peak_memory_stats()
+        loss = trainer.step_with_batch(stills, unet_number=1)
+    good = (math.isfinite(loss) and counts[STEM_KERNEL] > 0
+            and all(counts[name] == 0 for name in VIDEO_KERNELS))
+    ok &= good
+    log(f'video edm train, one step on {VIDEO_TRAIN_BATCH} still images (ignore_time): loss '
+        f'{loss:.6f} step time {trainer.step_timer.times[-1]:.4f} s peak allocated '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches '
+        f'{dict(sorted(counts.items()))}; temporal kernel and kernels 12/13 at 0 '
+        f'-> {"ok" if good else "FAIL"}')
+    results['counts']['video_edm_training_stills'] = counts
     return ok
 
 
@@ -1677,6 +1875,7 @@ def main():
         log(f'kernel build: {time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})')
         for phase in (phase_serving, phase_inpainting, phase_self_cond, phase_training,
                       phase_video, phase_video_training, phase_edm_serving,
+                      phase_edm_training, phase_video_edm, phase_video_edm_training,
                       phase_sr1024_serving):
             t0 = time.perf_counter()
             ok &= phase(torch, it, _build, results)

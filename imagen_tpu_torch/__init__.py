@@ -1,6 +1,6 @@
 """PyTorch + CUDA port of imagen_tpu: the 64->256 text-to-image cascade, its
-serving path (DDPM and EDM) and its training step, and text-to-video serving
-and training with `Unet3D`."""
+serving path and its training step (DDPM and EDM, Adam or Adafactor), and
+text-to-video serving and training with `Unet3D` (DDPM and EDM)."""
 from imagen_tpu_torch.version import __version__
 
 from imagen_tpu_torch.models.unet2d import (

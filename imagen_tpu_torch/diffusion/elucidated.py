@@ -1,24 +1,26 @@
-"""Cascaded EDM (Karras et al. 2022) sampling: the `ElucidatedImagen` class.
+"""Cascaded EDM (Karras et al. 2022): the `ElucidatedImagen` class.
 
 Counterpart of `imagen_tpu/diffusion/elucidated.py`, for text-conditioned
-image cascades. The stochastic churn + second-order Heun sampler is a plain
+image and video cascades. The stochastic churn + second-order Heun sampler is a plain
 Python loop over the steps of each stage: the sigma schedule and the churn
 factors are float32 numpy on the host, so whether a step takes the Heun
 correction (sigma_next != 0) is a Python `if` with no device sync. Every
 denoiser call is the EDM-preconditioned U-Net, with classifier-free
 guidance as one doubled-batch forward and the clamp or dynamic threshold.
 
-The class is an `Imagen` whose sampler is EDM's: it shares the cascade's
+The class is an `Imagen` whose sampler and loss are EDM's: it shares the cascade's
 plumbing (the unets' conditioning configs, the device, resizing, dynamic
-thresholding, the low-res noise augmentation and the stage loop of
-`sample`), as the JAX class borrows `Imagen`'s methods. `sample` runs the
+thresholding, the low-res noise augmentation, the stage loop of
+`sample` and the input handling of `forward`), as the JAX class borrows `Imagen`'s methods. `sample` runs the
 EDM sampler, with the DDPM sampler's surface: inpainting with RePaint
 resampling, `init_images` and `skip_steps`, `cond_images`, self-conditioned
-unets, a per-call low-res noise level, every stage's output and PIL images.
-The DDPM training loss is not EDM's, and `forward` raises.
+unets, a per-call low-res noise level, every stage's output and PIL images;
+a cascade of `Unet3D`s samples NFHWC video. `forward` is the EDM training
+loss: log-normal sigmas, the preconditioned denoiser and the lambda(sigma)
+weight.
 
-Not ported yet (they raise NotImplementedError): EDM training, video and
-`texts=` (T5).
+Not ported yet (they raise NotImplementedError): `texts=` (T5) and, for
+video, `resize_cond_video_frames=False`.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from imagen_tpu_torch.diffusion.imagen import (
     Imagen,
+    _per_sample_random_crop,
     check_draw_shapes,
     override_draws,
     unet_forward_with_cond_scale,
@@ -69,8 +72,10 @@ class ElucidatedImagen(Imagen):
             dynamic_thresholding_percentile=dynamic_thresholding_percentile,
             only_train_unet_number=only_train_unet_number,
             temporal_downsample_factor=temporal_downsample_factor, device=device)
-        if self.is_video:   # and with it `resize_cond_video_frames`, which only video reads
-            raise NotImplementedError('video EDM sampling is not ported yet')
+        if self.is_video and not resize_cond_video_frames:
+            raise NotImplementedError('resize_cond_video_frames=False is not ported: prompt '
+                                      'frames are always scaled in time (ROADMAP.md queue 1, '
+                                      'item 5)')
         num_unets = self.num_unets
         lowres = tuple(u.lowres_cond for u in self.unets)
         if lowres != (False, *((True,) * (num_unets - 1))):
@@ -81,8 +86,81 @@ class ElucidatedImagen(Imagen):
         self.hparams = [Hparams(*hp) for hp in
                         zip(*(cast_tuple(h, num_unets) for h in hparams))]
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError('EDM training is not ported yet')
+    # --- training loss ---------------------------------------------------------------------
+
+    def forward(self, images, *, unet_number=None, texts=None, text_embeds=None,
+                text_masks=None, cond_images=None, cond_video_frames=None,
+                post_cond_video_frames=None, ignore_time=False, sigmas=None, noise=None,
+                lowres_aug_times=None, lowres_aug_noise=None, self_cond_flip=None,
+                generator=None):
+        """EDM training loss of unet `unet_number` on a batch of NHWC images, or
+        NFHWC clips for a video cascade, in [0, 1] (or uint8); the inputs as
+        `Imagen.forward` takes them (still images train a video cascade as
+        one-frame clips with `ignore_time`).
+
+        In the JAX loss's order: the low-res augmentation times, the paired
+        random crop of the images and the low-res condition, the condition's
+        augmentation noise, the log-normal sigmas and the unit noise, each
+        drawn from `generator` unless given (`sigmas` (b,), `noise` at the
+        cropped images' shape, `lowres_aug_times`, `lowres_aug_noise`). Then
+        `images + sigma * noise` through the preconditioned denoiser, with,
+        for a unet with `self_cond`, half of the time (a fair coin from
+        `generator`, or `self_cond_flip`) the denoised images of a first pass
+        without gradient as `self_cond`, else zeros. The loss is the per-sample
+        mean of (denoised - images)^2 in fp32 times lambda(sigma), averaged
+        over the batch."""
+        batch = self._training_batch(
+            images, unet_number=unet_number, texts=texts, text_embeds=text_embeds,
+            text_masks=text_masks, cond_images=cond_images, cond_video_frames=cond_video_frames,
+            post_cond_video_frames=post_cond_video_frames, ignore_time=ignore_time)
+        unet, hp = self.unets[batch.index], self.hparams[batch.index]
+        images, lowres_cond_img = batch.images, batch.lowres_cond_img
+        b, device = images.shape[0], images.device
+
+        def randn(shape, dtype):
+            return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
+        if exists(lowres_cond_img):
+            lowres_aug_times = default(lowres_aug_times,
+                                       lambda: self._lowres_aug_times(b, generator))
+            lowres_cond_img = self.normalize_img(lowres_cond_img)
+        images = self.normalize_img(images)
+        crop = self.random_crop_sizes[batch.index]
+        if exists(crop):
+            images, *rest = _per_sample_random_crop(
+                (images, *((lowres_cond_img,) if exists(lowres_cond_img) else ())), crop,
+                generator)
+            lowres_cond_img = rest[0] if rest else None
+
+        kwargs = dict(batch.cond, sigma_data=hp.sigma_data, cond_drop_prob=self.cond_drop_prob,
+                      generator=generator)
+        if exists(lowres_cond_img):
+            lowres_aug_noise = default(
+                lowres_aug_noise, lambda: randn(lowres_cond_img.shape, lowres_cond_img.dtype))
+            kwargs['lowres_cond_img'], *_ = self.lowres_noise_schedule.q_sample(
+                lowres_cond_img, lowres_aug_times, lowres_aug_noise)
+            kwargs['lowres_noise_times'] = self.lowres_noise_schedule.get_condition(
+                lowres_aug_times)
+
+        sigmas = default(sigmas, lambda: edm_math.noise_distribution(
+            hp.P_mean, hp.P_std, b, generator=generator, device=device))
+        noise = default(noise, lambda: randn(images.shape, images.dtype))
+        noised_images = images + right_pad_dims_to(images, sigmas) * noise
+
+        if unet.self_cond:
+            if self_cond_flip is None:
+                self_cond_flip = bool(torch.rand((), generator=generator, device=device) < 0.5)
+            self_cond = torch.zeros_like(noised_images)
+            if self_cond_flip:
+                with torch.no_grad():
+                    self_cond = self.preconditioned_network_forward(
+                        unet, noised_images, sigmas, **kwargs).detach()
+            kwargs['self_cond'] = self_cond
+
+        denoised = self.preconditioned_network_forward(unet, noised_images, sigmas, **kwargs)
+        losses = (denoised.float() - images.float()) ** 2
+        losses = losses.reshape(b, -1).mean(dim=-1)
+        return (losses * edm_math.loss_weight(hp.sigma_data, sigmas.float())).mean()
 
     # --- preconditioning -----------------------------------------------------------------
 
@@ -133,11 +211,12 @@ class ElucidatedImagen(Imagen):
         pasted exactly at the end. A unet with `self_cond` sees the previous
         denoised output, the Heun call the Euler step's. `noise` may hold the
         JAX draws 'init' (b, s, s, c), 'eps' (the churn draws before S_noise)
-        and 'repaint', each (steps - skip_steps, R, b, s, s, c)."""
+        and 'repaint', each (steps - skip_steps, R, b, s, s, c); a video
+        stage's draws have a frame axis after the batch, (b, f, s, s, c)."""
         unet = self.unets[index]
         hp = self.hparams[index]
         size = self.image_sizes[index]
-        shape = (batch_size, size, size, self.channels)
+        shape = (batch_size, *((frames,) if exists(frames) else ()), size, size, self.channels)
         device = self.device
         steps = hp.num_sample_steps
         inpainting = exists(inpaint_images)
@@ -222,9 +301,11 @@ class ElucidatedImagen(Imagen):
                return_all_unet_outputs=False, return_pil_images=False,
                noise_override: Optional[Sequence] = None, offload_inactive_unets=False,
                generator: Optional[torch.Generator] = None):
-        """Run the cascade with EDM; returns the last stage's NHWC images in
-        [0, 1] (every stage's with `return_all_unet_outputs`, PIL images with
-        `return_pil_images`). The keywords are `Imagen.sample`'s.
+        """Run the cascade with EDM; returns the last stage's NHWC images, or
+        NFHWC video of a video cascade, in [0, 1] (every stage's with
+        `return_all_unet_outputs`, PIL images with `return_pil_images`). The
+        keywords are `Imagen.sample`'s (`video_frames`, prompt frames and
+        `inpaint_videos` with a (b, h, w) or (b, f, h, w) mask for video).
 
         `sigma_min` / `sigma_max` override each stage's schedule ends (one
         value or one per unet). `noise_override`: per-stage list (entries may
@@ -234,7 +315,8 @@ class ElucidatedImagen(Imagen):
         before S_noise per (step, r), 'repaint' (the same shape), RePaint's
         renoise draws (the last r's and the last step's unused), and 'lowres'
         (b, s, s, c), the low-res noise augmentation's draw for stages after
-        the first; R is `inpaint_resample_times` when inpainting, else 1.
+        the first; R is `inpaint_resample_times` when inpainting, else 1. A
+        video stage's draws have a frame axis after the batch.
         `offload_inactive_unets` as in `Imagen.sample`.
         """
         num_unets = self.num_unets

@@ -22,7 +22,7 @@ weighting; still images train a video cascade as one-frame clips with
 from __future__ import annotations
 
 from contextlib import contextmanager, nullcontext
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -126,6 +126,14 @@ def to_pil_images(out, is_video):
     if clips.shape[-1] == 1:
         clips = clips[..., 0]
     return [[Image.fromarray(frame.numpy()) for frame in clip] for clip in clips]
+
+
+class TrainingBatch(NamedTuple):
+    """A training batch made ready for one stage's loss (`Imagen._training_batch`)."""
+    index: int                                # the stage's unet index
+    images: torch.Tensor                      # at the stage's size and frames, input range
+    lowres_cond_img: Optional[torch.Tensor]   # the degraded low-res condition, input range
+    cond: dict                                # the unet's conditioning kwargs
 
 
 def unet_forward_with_cond_scale(unet, x, time, *, cond_scale=1., **kwargs):
@@ -695,6 +703,81 @@ class Imagen(nn.Module):
             loss_weight = clipped_snr / (snr + 1)
         return (losses * loss_weight).mean()
 
+    def _training_batch(self, images, *, unet_number, texts, text_embeds, text_masks,
+                        cond_images, cond_video_frames, post_cond_video_frames, ignore_time):
+        """What both training losses (DDPM's `forward` and EDM's) take from a
+        batch, with no random draw: checks the unet number and the inputs,
+        makes uint8 images float, turns still images into one-frame clips
+        with `ignore_time` for a video cascade, and returns a `TrainingBatch`:
+        the images resized to the stage (and its frames), the degraded
+        low-res condition (resized down to the stage before and back up, in
+        space and, for video, in time), and the unet's conditioning (text
+        embeds and mask, cond images, scaled prompt frames, `ignore_time`)."""
+        if self.num_unets > 1 and not exists(unet_number):
+            raise ValueError(f'specify unet_number in [1, {self.num_unets}] for a cascade')
+        unet_number = default(unet_number, 1)
+        if exists(self.only_train_unet_number) and self.only_train_unet_number != unet_number:
+            raise ValueError(f'only unet {self.only_train_unet_number} may be trained')
+        if exists(texts):
+            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
+        index = unet_number - 1
+        if isinstance(self.unets[index], NullUnet):
+            raise ValueError('a NullUnet cannot be trained')
+
+        device = self.device
+        images = cast_uint8_images_to_float(images.to(device))
+        if exists(cond_images):
+            cond_images = cast_uint8_images_to_float(cond_images.to(device))
+        if self.is_video and images.ndim == 4:   # still images: one-frame clips
+            images, ignore_time = images[:, None], True
+        if images.ndim != (5 if self.is_video else 4) or images.shape[-2] != images.shape[-3] \
+                or images.shape[-1] != self.channels:
+            raise ValueError(f'{"clips" if self.is_video else "images"} must be square with '
+                             f'{self.channels} channels, got {tuple(images.shape)}')
+        target_size = self.image_sizes[index]
+        if images.shape[-2] < target_size:
+            raise ValueError(f'images of {images.shape[-2]} px are smaller than {target_size}')
+
+        # per-stage frame counts; None keeps a clip's frames (images, ignore_time)
+        frame_dims = (self._calc_all_frame_dims(images.shape[1])
+                      if self.is_video and not ignore_time else (None,) * self.num_unets)
+        cond = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
+        if self.is_video:
+            cond['ignore_time'] = ignore_time
+
+        if not self.unconditional:
+            if not exists(text_embeds):
+                raise ValueError('text embeddings must be passed to a conditional imagen')
+            text_embeds = text_embeds.to(device)
+            if text_embeds.shape[-1] != self.text_embed_dim:
+                raise ValueError(f'text embeddings of dim {text_embeds.shape[-1]}, '
+                                 f'expected {self.text_embed_dim}')
+            text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
+                else text_masks.to(device)
+        elif exists(text_embeds):
+            raise ValueError('unconditional imagen cannot take text embeddings')
+        cond.update(text_embeds=text_embeds, text_mask=text_masks, cond_images=cond_images)
+
+        lowres_cond_img = None
+        if index > 0:
+            lowres_cond_img = self.resize_to(images, self.image_sizes[index - 1],
+                                             target_frames=frame_dims[index - 1],
+                                             clamp_range=self.input_image_range)
+            lowres_cond_img = self.resize_to(lowres_cond_img, target_size,
+                                             target_frames=frame_dims[index],
+                                             clamp_range=self.input_image_range)
+        images = self.resize_to(images, target_size, target_frames=frame_dims[index])
+        return TrainingBatch(index, images, lowres_cond_img, cond)
+
+    def _lowres_aug_times(self, batch_size, generator):
+        """The low-res condition's augmentation times: one draw for the batch,
+        or one per sample with `per_sample_random_aug_noise_level`."""
+        if self.per_sample_random_aug_noise_level:
+            return self.lowres_noise_schedule.sample_random_times(batch_size, generator,
+                                                                  self.device)
+        return self.lowres_noise_schedule.sample_random_times(
+            1, generator, self.device).expand(batch_size)
+
     def forward(self, images, *, unet_number=None, texts=None, text_embeds=None,
                 text_masks=None, cond_images=None, cond_video_frames=None,
                 post_cond_video_frames=None, ignore_time=False, generator=None):
@@ -708,76 +791,18 @@ class Imagen(nn.Module):
         train it as one-frame clips with `ignore_time`, which skips every
         temporal module. Prompt frames are scaled in time as in `sample`.
         """
-        if self.num_unets > 1 and not exists(unet_number):
-            raise ValueError(f'specify unet_number in [1, {self.num_unets}] for a cascade')
-        unet_number = default(unet_number, 1)
-        if exists(self.only_train_unet_number) and self.only_train_unet_number != unet_number:
-            raise ValueError(f'only unet {self.only_train_unet_number} may be trained')
-        if exists(texts):
-            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
-        index = unet_number - 1
-        unet = self.unets[index]
-        if isinstance(unet, NullUnet):
-            raise ValueError('a NullUnet cannot be trained')
-
-        device = self.device
-        images = cast_uint8_images_to_float(images.to(device))
-        if exists(cond_images):
-            cond_images = cast_uint8_images_to_float(cond_images.to(device))
-        if self.is_video and images.ndim == 4:   # still images: one-frame clips
-            images, ignore_time = images[:, None], True
-        if images.ndim != (5 if self.is_video else 4) or images.shape[-2] != images.shape[-3] \
-                or images.shape[-1] != self.channels:
-            raise ValueError(f'{"clips" if self.is_video else "images"} must be square with '
-                             f'{self.channels} channels, got {tuple(images.shape)}')
+        batch = self._training_batch(
+            images, unet_number=unet_number, texts=texts, text_embeds=text_embeds,
+            text_masks=text_masks, cond_images=cond_images, cond_video_frames=cond_video_frames,
+            post_cond_video_frames=post_cond_video_frames, ignore_time=ignore_time)
+        index = batch.index
         noise_scheduler = self.noise_schedulers[index]
-        target_size = self.image_sizes[index]
-        b = images.shape[0]
-        if images.shape[-2] < target_size:
-            raise ValueError(f'images of {images.shape[-2]} px are smaller than {target_size}')
-
-        # per-stage frame counts; None keeps a clip's frames (images, ignore_time)
-        frame_dims = (self._calc_all_frame_dims(images.shape[1])
-                      if self.is_video and not ignore_time else (None,) * self.num_unets)
-        unet_kwargs = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
-        if self.is_video:
-            unet_kwargs['ignore_time'] = ignore_time
-
-        times = noise_scheduler.sample_random_times(b, generator, device)
-
-        if not self.unconditional:
-            if not exists(text_embeds):
-                raise ValueError('text embeddings must be passed to a conditional imagen')
-            text_embeds = text_embeds.to(device)
-            if text_embeds.shape[-1] != self.text_embed_dim:
-                raise ValueError(f'text embeddings of dim {text_embeds.shape[-1]}, '
-                                 f'expected {self.text_embed_dim}')
-            text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
-                else text_masks.to(device)
-        elif exists(text_embeds):
-            raise ValueError('unconditional imagen cannot take text embeddings')
-
-        # the degraded low-res condition and its augmentation times
-        lowres_cond_img = lowres_aug_times = None
-        if index > 0:
-            lowres_cond_img = self.resize_to(images, self.image_sizes[index - 1],
-                                             target_frames=frame_dims[index - 1],
-                                             clamp_range=self.input_image_range)
-            lowres_cond_img = self.resize_to(lowres_cond_img, target_size,
-                                             target_frames=frame_dims[index],
-                                             clamp_range=self.input_image_range)
-            if self.per_sample_random_aug_noise_level:
-                lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
-                    b, generator, device)
-            else:
-                lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
-                    1, generator, device).expand(b)
-
-        images = self.resize_to(images, target_size, target_frames=frame_dims[index])
+        b = batch.images.shape[0]
+        times = noise_scheduler.sample_random_times(b, generator, self.device)
+        lowres_aug_times = (self._lowres_aug_times(b, generator)
+                            if exists(batch.lowres_cond_img) else None)
         return self.p_losses(
-            unet, images, times, noise_scheduler=noise_scheduler, text_embeds=text_embeds,
-            text_mask=text_masks, cond_images=cond_images, lowres_cond_img=lowres_cond_img,
-            lowres_aug_times=lowres_aug_times, pred_objective=self.pred_objectives[index],
-            min_snr_gamma=self.min_snr_gamma[index],
-            random_crop_size=self.random_crop_sizes[index], generator=generator,
-            **unet_kwargs)
+            self.unets[index], batch.images, times, noise_scheduler=noise_scheduler,
+            lowres_cond_img=batch.lowres_cond_img, lowres_aug_times=lowres_aug_times,
+            pred_objective=self.pred_objectives[index], min_snr_gamma=self.min_snr_gamma[index],
+            random_crop_size=self.random_crop_sizes[index], generator=generator, **batch.cond)

@@ -1,12 +1,14 @@
 """ImagenTrainer: one-unet-at-a-time training; counterpart of
 `imagen_tpu/trainer.py` for one process on one device.
 
-- Per unet, lazily: an Adam optimiser, an EMA copy of the unet and a step
-  count. The update is the optax chain of the JAX trainer (`_make_optimizer`)
-  in its order: clip by global norm (optax's `g * min(1, max_norm / |g|)`,
-  not `clip_grad_norm_`, which adds 1e-6 to the norm), weight decay added to
-  the gradient before the moments (only tensors of ndim >= 2 in the JAX
-  layout when `group_wd_params`: two parameter groups), then Adam at the warmup + cosine
+- Per unet, lazily: an optimiser (`optimizer='adam'`, or `'adafactor'`:
+  `optim.Adafactor`, factored second moment and bf16 momentum), an EMA copy
+  of the unet and a step count. The update is the optax chain of the JAX
+  trainer (`_make_optimizer`) in its order: clip by global norm (optax's
+  `g * min(1, max_norm / |g|)`, not `clip_grad_norm_`, which adds 1e-6 to
+  the norm), weight decay added to the gradient before the moments (only
+  tensors of ndim >= 2 in the JAX layout when `group_wd_params`: two
+  parameter groups), then Adam or Adafactor at the warmup + cosine
   learning rate of the count of prior updates.
 - Gradient accumulation: a batch larger than `max_batch_size` runs as
   chunks whose losses are weighted by their share of the batch, so the
@@ -18,7 +20,10 @@
 - Checkpoints are the JAX trainer's bundle (`model`, `version`, `steps`,
   `optim{i}`, `ema`) written by `torch.save`.
 
-Not ported yet (ROADMAP): Adafactor, dataloaders and `train_step` /
+The imagen may be an `Imagen` or an `ElucidatedImagen`: the loss is what
+`imagen(...)` returns.
+
+Not ported yet (ROADMAP): dataloaders and `train_step` /
 `valid_step`, checkpoint folders and their rotation, meshes and sharded
 state, multi-process training.
 """
@@ -34,6 +39,7 @@ import torch
 
 from imagen_tpu_torch.ema import EMAConfig, ema_update
 from imagen_tpu_torch.models.unet2d import NullUnet
+from imagen_tpu_torch.optim import Adafactor
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 from imagen_tpu_torch.utils.profiling import StepTimer
 from imagen_tpu_torch.version import __version__
@@ -135,11 +141,7 @@ class ImagenTrainer:
             cast_tuple(x, self.num_unets) for x in
             (lr, eps, warmup_steps, cosine_decay_max_steps, optimizer, weight_decay))
         for kind in self.optimizer_kinds:
-            if kind == 'adafactor':
-                raise NotImplementedError(
-                    "optimizer='adafactor' is not ported yet (ROADMAP.md queue 1, "
-                    'item 6: training slice, Adafactor); use adam')
-            if kind != 'adam':
+            if kind not in ('adam', 'adafactor'):
                 raise ValueError(f'unknown optimizer {kind!r}')
         self.beta1, self.beta2 = beta1, beta2
         self.max_grad_norm = max_grad_norm
@@ -203,6 +205,11 @@ class ImagenTrainer:
                       {'params': [p for p in params if not _decays(p)], 'weight_decay': 0.}]
         else:
             groups = [{'params': params, 'weight_decay': wd}]
+        if self.optimizer_kinds[index] == 'adafactor':
+            # the JAX trainer's optax.adafactor: beta2 is the exponent of the
+            # second moment's decay schedule, beta1 the bf16 momentum; no eps
+            return Adafactor(groups, lr=self.lrs[index], decay_rate=self.beta2,
+                             momentum=self.beta1)
         return torch.optim.Adam(groups, lr=self.lrs[index], betas=(self.beta1, self.beta2),
                                 eps=self.optim_eps[index],
                                 fused=self.device.type == 'cuda')

@@ -10,7 +10,7 @@ the same with per-call sigma_min/sigma_max and `stop_at_unet_number`; the
 whole cascade end to end in float64 on both sides to 1e-6; a one-stage dim-128 cascade
 with `fused_film=True` against JAX under `IMAGEN_TPU_FUSED_FILM=1`; the
 server around the EDM class; and what is not ported raising (T5 text
-encoding, EDM training).
+encoding), beside the EDM training loss that now runs.
 """
 import jax
 import jax.numpy as jnp
@@ -270,8 +270,10 @@ def test_what_is_not_ported_raises(cascades):
             {'eps': torch.zeros(STEPS[0], 2, 16, 16, 3)}, None])
     with pytest.raises(ValueError):
         timagen.sample(text_embeds=emb, noise_override=[{'init_noise': torch.zeros(1)}, None])
-    with pytest.raises(NotImplementedError):
-        timagen(torch.zeros(2, 16, 16, 3), unet_number=1, text_embeds=emb)
+    # EDM training is ported: the loss is a finite scalar
+    loss = timagen(torch.zeros(2, 16, 16, 3), unet_number=1, text_embeds=emb,
+                   generator=torch.Generator().manual_seed(0))
+    assert loss.ndim == 0 and bool(torch.isfinite(loss))
 
 
 def test_without_a_device_needs_a_gpu():

@@ -23,6 +23,7 @@ from imagen_tpu.trainer import ImagenTrainer as JTrainer
 
 import imagen_tpu_torch as it
 from imagen_tpu_torch import ema
+from imagen_tpu_torch.optim import Adafactor
 from imagen_tpu_torch.ops.tensor_utils import prob_mask_like
 from imagen_tpu_torch.trainer import split_batch_ragged
 from imagen_tpu_torch.utils.port_weights import state_dict_from_jax
@@ -206,8 +207,9 @@ def test_trainer_rejects_unknown_options():
         _tiny_trainer(weight_decays=0.1)
     with pytest.raises(TypeError):
         _tiny_trainer(ema_bogus=1)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _tiny_trainer(optimizer='adafactor')
+    with pytest.raises(ValueError, match='unknown optimizer'):
+        _tiny_trainer(optimizer='lion')
+    assert isinstance(_tiny_trainer(optimizer='adafactor')._make_optimizer(0), Adafactor)
     trainer = _tiny_trainer(only_train_unet_number=1)
     with pytest.raises(ValueError):
         trainer.step_with_batch(_batch(2), unet_number=2)
