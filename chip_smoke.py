@@ -69,7 +69,26 @@ parameters and random weights from a seed:
   off (its gate closed) on the same weights, in turns; then one request
   each with kernel 6 on and off (its gate closed, so cuDNN runs those
   convs) under torch.profiler, for the device time of the request and of
-  kernel 6 in it.
+  kernel 6 in it;
+- train_loop: the trainer as a user runs it, built from a config by
+  `ImagenTrainerConfig(...).create()`: NullUnet + SRUnet256 (published
+  kwargs, 64 -> 256) with Adafactor, EMA and bf16 compute, fed by
+  `add_train_dataset` over 32 seeded 256 px JPEGs written here and read
+  through the port's `data.Dataset`, each with a mock T5 embedding, a
+  quarter split off for validation, batch 4: 4 `train_step`s with
+  `max_batch_size=2`, one `valid_step`, one `step_with_dl_iter` on an
+  iterator of this script's own, a checkpoint every 2 steps into a folder
+  under build/ that keeps the newest (and one more at the end, which must
+  then be the folder's only file); a second trainer from the same config
+  resumes from the folder and must hold the same step counts, unet 2 and
+  EMA weights and optimiser state, bit for bit; then
+  `load_imagen_from_checkpoint(newest, load_ema_if_available=True)` samples
+  256 px from a 64 px batch of 2 at SR_STEPS steps, cond_scale 3 (path
+  train_loop_sampling). In both parts kernels 14, 6 and 10 are held to
+  forward-hook counts, and the flash pair to the hooks' count of the
+  attention calls its gate admits: none, since SRUnet256's attention runs
+  at 16^2 (256 tokens, under the gate's 1024, as in JAX). The folder is
+  removed at the end.
 Every path's cross-embed stem runs kernel 14: its gate admits the stem of
 every U-Net above.
 The launch counts are set to 0 just before each path and read just after;
@@ -104,6 +123,12 @@ forward's FLOPs, kernel 14's and kernel 6's launches against their hook
 counts, kernel 7's site, the on/off latencies and output difference, the
 profiled requests' device time and kernel 6's share of it; the device time
 of the wrapper's weight copy at the (3, 3, 2048, 1024) site;
+for train_loop, the free disk, each step's loss, time and peak memory, each
+save's file, bytes and seconds, the folder after rotation, the resumed
+trainer's build-and-load time and its bit-for-bit checks, one more load's
+bytes and seconds, the checkpoint's rebuild time, the sample's latency,
+shape and range, the hook counts against the launches, and the loop's wall
+time and peak memory;
 per-kernel errors, CUDA-event times, device times and bounds at each shape
 (with the unfused route's time and device time for kernels 8, 10, 11, 12, 13
 and 14, and its factor over the kernel's device time; kernels 7, 10, 11 and
@@ -170,6 +195,14 @@ TRAIN_STEPS = 3
 TRAIN_CONFIGS = ((1, 8), (2, 4))   # (unet number, batch), as the JAX bench trains them
 VIDEO_TRAIN_BATCH = 4
 SR_STEPS = 8                 # SR-1024 steps, cut from the JAX bench's 32 (sr1024_paper) for time
+TRAIN_LOOP_ITEMS = 32        # train_loop: seeded 256 px JPEGs, a quarter for validation
+TRAIN_LOOP_BATCH = 4
+TRAIN_LOOP_STEPS = 4         # train_steps, before one valid_step and one step_with_dl_iter
+TRAIN_LOOP_EVERY = 2         # checkpoint_every
+TRAIN_LOOP_MIN_FREE = 20e9   # disk the checkpoints need (about 7.4 GB each, two at once)
+# SRUnet256 at 256 px: its stem, its 3x3 convs, its feedforwards (the flash
+# gate admits none of its 256-token attentions)
+TRAIN_LOOP_KERNELS = ('cross_embed_stem_bf16', 'conv2d_same_3x3_bf16', 'fused_feedforward_bf16')
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes per second
 # `device_kernel`: the name (or a prefix shared by every CUDA function one
@@ -251,7 +284,11 @@ DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16', 'fused_ln_ma
                  'fused_matmul_ln_bf16', CF_KERNEL)
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving',
          'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
-         'video_edm', 'video_edm_training', 'video_edm_training_stills')
+         'video_edm', 'video_edm_training', 'video_edm_training_stills', 'train_loop',
+         'train_loop_sampling')
+# paths whose flash forwards run under autograd (with the LSE the backward reads)
+TRAINING_PATHS = ('training', 'video_training', 'edm_training', 'video_edm_training',
+                  'video_edm_training_stills', 'train_loop')
 RESAMPLE_TIMES = 5           # RePaint resamples a step: the JAX default
 
 
@@ -1324,6 +1361,311 @@ def phase_sr1024_serving(torch, it, build, results):
     return ok
 
 
+# --- the training loop: data, validation, checkpoint folders, resume, sampling -----------
+
+def sr256_config():
+    """SRUnet256's published kwargs (`imagen_tpu/models/unet2d.py:544-555`) as a
+    config dict, with the Unet defaults that `UnetConfig` would otherwise
+    change (attention heads and head width) written out."""
+    return dict(dim=128, dim_mults=[1, 2, 4, 8], num_resnet_blocks=[2, 4, 8, 8],
+                layer_attns=[False, False, False, True],
+                layer_cross_attns=[False, False, False, True], attn_heads=8, attn_dim_head=64,
+                ff_mult=2., memory_efficient=True, text_embed_dim=768, max_text_len=256)
+
+
+def train_loop_config(folder):
+    """The trainer config of the train_loop path: NullUnet + SRUnet256 at 64 ->
+    256, text-conditioned, training unet 2 with Adafactor, EMA and bf16
+    compute, a checkpoint every TRAIN_LOOP_EVERY steps into `folder`, the
+    newest one kept, a quarter of the rows split off for validation."""
+    return dict(
+        imagen=dict(unets=[{'is_null': True}, sr256_config()], image_sizes=[64, 256],
+                    timesteps=[2 * SR_STEPS, SR_STEPS], cond_drop_prob=0.1),
+        optimizer='adafactor', use_ema=True, precision='bf16', lr=1e-4, max_grad_norm=1.0,
+        ema_update_after_step=0, ema_update_every=1, only_train_unet_number=2,
+        checkpoint_path=str(folder), checkpoint_every=TRAIN_LOOP_EVERY,
+        max_checkpoints_keep=1, split_valid_from_train=True, split_valid_fraction=0.25,
+        seed=0, verbose=False)
+
+
+class ImageTextItems:
+    """The JPEG folder read through the port's `data.Dataset`, each image with
+    its mock T5 embedding and mask: (image, text_embeds, text_masks)."""
+
+    def __init__(self, images, embeds, masks):
+        self.images, self.embeds, self.masks = images, embeds, masks
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return self.images[i], self.embeds[i], self.masks[i]
+
+
+def write_jpegs(folder, n, size, seed):
+    """`n` seeded size x size JPEGs (smooth colour ramps with noise)."""
+    import numpy as np
+    from PIL import Image
+    folder.mkdir(parents=True)
+    r = np.random.RandomState(seed)
+    ramp = np.linspace(0., 1., size, dtype=np.float32)
+    for i in range(n):
+        base = r.rand(3).astype(np.float32)
+        pixels = (base + 0.5 * ramp[:, None, None] * ramp[None, :, None]
+                  + 0.1 * r.rand(size, size, 3)) % 1.
+        Image.fromarray((pixels * 255).astype(np.uint8)).save(folder / f'{i:03d}.jpg',
+                                                              quality=92)
+
+
+def train_loop_hooks(unet):
+    """Forward pre-hooks on `unet` that count the calls taking kernels 14, 6,
+    10 and the flash forward (a stride-1 `CrossEmbedLayer`, a `SameConv3x3`,
+    a `FeedForward` and an `Attention` whose gates admit the input), and the
+    flash backward (an admitted `Attention` call under autograd): their
+    expected launches, since 14, 6 and 10 launch once a forward and their
+    backward runs the plain route. Returns (calls, handles)."""
+    from imagen_tpu_torch.models import blocks
+    from imagen_tpu_torch.ops.flash_attention import flash_attention_available
+    from imagen_tpu_torch.ops.fused_norm import fused_feedforward_available
+    import torch
+    calls, _, handles = sr1024_hooks(unet)
+
+    def ff_hook(module, args):
+        x = args[0]
+        dim, hidden = module[1].in_features, module[1].out_features
+        if fused_feedforward_available(x.numel() // dim, dim, hidden, module.compute_dtype,
+                                       x.device.type):
+            calls['fused_feedforward_bf16'] += 1
+
+    def attn_hook(module, args, kwargs):
+        x = args[0]
+        if flash_attention_available(x.shape[-2], module.q_scale.shape[0],
+                                     kwargs.get('mask') is not None,
+                                     kwargs.get('attn_bias') is not None, heads=module.heads,
+                                     dtype=module.to_q.compute_dtype,
+                                     device_type=x.device.type):
+            calls['flash_rows_fwd_bf16'] += 1
+            calls['flash_rows_bwd_bf16'] += torch.is_grad_enabled()
+
+    for m in unet.modules():
+        if isinstance(m, blocks.FeedForward):
+            handles.append(m.register_forward_pre_hook(ff_hook))
+        elif isinstance(m, blocks.Attention):
+            handles.append(m.register_forward_pre_hook(attn_hook, with_kwargs=True))
+    return calls, handles
+
+
+def held_to_hooks(counts, calls, label):
+    """Each image kernel's launches against the hooks' count of the calls its
+    gate admits (0 where it admits none: then the kernel must not launch)."""
+    ok = True
+    for name in IMAGE_KERNELS:
+        exact = counts[name] == calls[name]
+        ok &= exact
+        log(f'{label}: {name} launches {counts[name]}, hook count {calls[name]} '
+            f'-> {"ok" if exact else "FAIL"}')
+    return ok
+
+
+def directory_files(folder):
+    return sorted(p.name for p in folder.iterdir())
+
+
+def same_bits(torch, a, b):
+    """Whether two (nested) state dicts hold the same tensors, bit for bit, in
+    the same dtypes and on the same devices."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(torch, x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+    return a == b
+
+
+def phase_train_loop(torch, it, build, results):
+    """The trainer as a user runs it (`imagen_tpu_torch/trainer.py`): built
+    from a config through `ImagenTrainerConfig(...).create()` (NullUnet +
+    SRUnet256's published kwargs, 0.732 B parameters, 64 -> 256,
+    Adafactor, EMA, bf16), fed by `add_train_dataset` over TRAIN_LOOP_ITEMS
+    seeded 256 px JPEGs written here and read through the port's
+    `data.Dataset` (PIL on a host without libjpeg), each with a mock T5
+    embedding, a quarter split off for validation, batch TRAIN_LOOP_BATCH;
+    TRAIN_LOOP_STEPS `train_step`s with `max_batch_size=2` (two chunks a
+    step), one `valid_step` and one `step_with_dl_iter` on an iterator of
+    this script's own; a checkpoint every TRAIN_LOOP_EVERY steps into a
+    folder that keeps the newest one, then one more at the end; a second
+    trainer from the same config resumes from the folder and must hold the
+    first one's step counts, unet 2 weights, EMA and optimiser state bit for
+    bit; `load_imagen_from_checkpoint(newest, load_ema_if_available=True)`
+    then samples 256 px from a 64 px batch at SR_STEPS steps with guidance
+    (path train_loop_sampling). In both parts every image kernel is held to
+    forward-hook counts: 14, 6 and 10 launch; SRUnet256's attention runs at
+    16^2, 256 tokens, under the flash gate's 1024 (as in JAX), so the flash
+    pair must not."""
+    import shutil
+    t_loop = time.perf_counter()
+    root = REPO / 'build' / 'train_loop'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    usage = shutil.disk_usage(root)
+    log(f'train_loop: disk at {root}: {usage.free / 1e9:.1f} GB free of '
+        f'{usage.total / 1e9:.1f} GB')
+    if usage.free < TRAIN_LOOP_MIN_FREE:
+        raise RuntimeError(f'train_loop needs {TRAIN_LOOP_MIN_FREE / 1e9:.0f} GB of disk for '
+                           f'its checkpoints, {usage.free / 1e9:.1f} GB free')
+    folder = root / 'checkpoints'
+    try:
+        return train_loop(torch, it, build, results, root, folder, t_loop)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_loop(torch, it, build, results, root, folder, t_loop):
+    from imagen_tpu_torch import data, native
+    ok = True
+    write_jpegs(root / 'images', TRAIN_LOOP_ITEMS, 256, seed=70)
+    images = data.Dataset(str(root / 'images'), 256, seed=71)
+    g = torch.Generator().manual_seed(72)
+    lengths = torch.randint(8, 257, (TRAIN_LOOP_ITEMS,), generator=g)
+    masks = torch.arange(256)[None] < lengths[:, None]
+    embeds = torch.randn((TRAIN_LOOP_ITEMS, 256, 768), generator=g) * masks[..., None]
+    log(f'train_loop: {len(images)} JPEGs of 256 px through data.Dataset '
+        f'(native decoder: {native.available()})')
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(73)
+    t0 = time.perf_counter()
+    trainer = it.ImagenTrainerConfig(**train_loop_config(folder)).create()
+    unet = trainer.unets[1]
+    randomize_final_conv(unet, 74)
+    torch.cuda.synchronize()
+    log(f'train_loop: ImagenTrainerConfig(...).create(): NullUnet + SRUnet256 '
+        f'{sum(p.numel() for p in unet.parameters()) / 1e9:.3f} B params in '
+        f'{time.perf_counter() - t0:.1f} s')
+    trainer.add_train_dataset(ImageTextItems(images, embeds, masks), batch_size=TRAIN_LOOP_BATCH)
+    log(f'train_loop: {len(trainer.train_dl.dataset)} training rows in {len(trainer.train_dl)} '
+        f'batches, {len(trainer.valid_dl.dataset)} validation rows')
+
+    saves = []
+    save = trainer.save
+
+    def timed_save(path, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, *args, **kwargs)
+        saves.append((Path(path).name, Path(path).stat().st_size, time.perf_counter() - t0))
+        log(f'train_loop save {saves[-1][0]}: {saves[-1][1] / 1e9:.3f} GB in '
+            f'{saves[-1][2]:.2f} s; the folder before rotation {directory_files(folder)}')
+
+    trainer.save = timed_save
+
+    counts_train = Counter()
+    calls, handles = train_loop_hooks(unet)
+    losses = []
+    try:
+        with counting_path(build, results['shapes']['train_loop'], counts_train):
+            for step in range(1, TRAIN_LOOP_STEPS + 1):
+                loss = trainer.train_step(unet_number=2, max_batch_size=2)
+                losses.append(loss)
+                log(f'train_loop train_step {step}: loss {loss:.6f} step time '
+                    f'{trainer.step_timer.times[-1]:.4f} s peak allocated '
+                    f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            valid = trainer.valid_step(unet_number=2, max_batch_size=2)
+            torch.cuda.synchronize()
+            log(f'train_loop valid_step: loss {valid:.6f} in {time.perf_counter() - t0:.3f} s')
+            own = iter([tuple(x.cuda() for x in (torch.stack([images[i] for i in range(4)]),
+                                                 embeds[:4], masks[:4]))])
+            loss = trainer.step_with_dl_iter(own, unet_number=2, max_batch_size=2)
+            log(f'train_loop step_with_dl_iter: loss {loss:.6f} step time '
+                f'{trainer.step_timer.times[-1]:.4f} s')
+            losses += [valid, loss]
+    finally:
+        for h in handles:
+            h.remove()
+    finite = all(math.isfinite(x) for x in losses)
+    ok &= finite
+    log(f'train_loop: losses finite {finite} -> {"ok" if finite else "FAIL"}')
+    # SRUnet256's attention runs at 16^2 (memory_efficient downsamples before
+    # every stage): 256 tokens, under the flash gate's 1024 in both packages
+    ok &= held_to_hooks(counts_train, calls, 'train_loop')
+    ok &= check_launched(counts_train, TRAIN_LOOP_KERNELS, 'train_loop')
+    results['counts']['train_loop'] = counts_train
+
+    trainer.save_to_checkpoint_folder()
+    files = directory_files(folder)
+    steps = int(trainer.steps.sum())
+    kept = files == [f'checkpoint.{steps}.ckpt']
+    ok &= kept
+    log(f'train_loop: after rotation the folder holds {files}; expected only '
+        f'checkpoint.{steps}.ckpt -> {"ok" if kept else "FAIL"}')
+
+    # a second trainer from the same config resumes from the folder at construction
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = it.ImagenTrainerConfig(**train_loop_config(folder)).create()
+    torch.cuda.synchronize()
+    log(f'train_loop: the second trainer built and resumed from '
+        f'{folder.name}/{files[-1]} ({(folder / files[-1]).stat().st_size / 1e9:.3f} GB) in '
+        f'{time.perf_counter() - t0:.2f} s')
+    checks = {
+        'step counts': resumed.steps.tolist() == trainer.steps.tolist(),
+        'unet 2 weights': same_bits(torch, resumed.unets[1].state_dict(), unet.state_dict()),
+        'EMA unet 2': same_bits(torch, resumed.ema_unets[1].state_dict(),
+                                trainer.ema_unets[1].state_dict()),
+        'optimiser state': same_bits(torch, resumed.optimizers[1].state_dict(),
+                                     trainer.optimizers[1].state_dict()),
+    }
+    resumed_ok = all(checks.values())
+    ok &= resumed_ok
+    log(f'train_loop: resume bit for bit {checks} -> {"ok" if resumed_ok else "FAIL"}')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.load_from_checkpoint_folder()
+    torch.cuda.synchronize()
+    log(f'train_loop load {files[-1]}: {(folder / files[-1]).stat().st_size / 1e9:.3f} GB in '
+        f'{time.perf_counter() - t0:.2f} s (trainer.load, onto the card)')
+    del resumed
+    trainer.save = save
+    del trainer, unet
+    free_cuda()
+
+    t0 = time.perf_counter()
+    imagen = it.load_imagen_from_checkpoint(str(folder / files[-1]), load_ema_if_available=True)
+    imagen.unets[1].set_compute_dtype(torch.bfloat16)
+    imagen.eval()
+    torch.cuda.synchronize()
+    log(f'train_loop: load_imagen_from_checkpoint (EMA weights) in '
+        f'{time.perf_counter() - t0:.2f} s')
+    g = torch.Generator(device='cuda').manual_seed(75)
+    emb, mask = text_batch(torch, g, 2)
+    start = torch.rand((2, 64, 64, 3), generator=g, device='cuda')
+    counts_sample = Counter()
+    calls, handles = train_loop_hooks(imagen.unets[1])
+    with counting_path(build, results['shapes']['train_loop_sampling'], counts_sample):
+        good, _ = sampled(torch, f'train_loop sample (256 px from 64 px, {SR_STEPS} steps, '
+                                 f'cond_scale 3)',
+                          lambda: imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
+                                                start_at_unet_number=2,
+                                                start_image_or_video=start,
+                                                generator=torch.Generator(device='cuda')
+                                                .manual_seed(76)),
+                          [(2, 256, 256, 3)])
+    for h in handles:
+        h.remove()
+    ok &= good
+    ok &= held_to_hooks(counts_sample, calls, 'train_loop_sampling')
+    ok &= check_launched(counts_sample, TRAIN_LOOP_KERNELS, 'train_loop_sampling')
+    results['counts']['train_loop_sampling'] = counts_sample
+    log(f'train_loop: wall time {time.perf_counter() - t_loop:.1f} s, peak allocated '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; saves '
+        f'{[(n, round(b / 1e9, 3), round(s, 2)) for n, b, s in saves]}')
+    del imagen
+    return ok
+
+
 # --- each kernel against its plain version --------------------------------------------
 
 def kernel_cases(torch, name, dims, g):
@@ -1641,7 +1983,7 @@ def measure_shape(torch, name, info, dims, counts, g, totals):
     bounds = [max(2 * e, 1e-3) for e in errs_p]
     good = same and all(e <= b for e, b in zip(errs_k, bounds))
     # serving launches the flash forward without the LSE
-    trained = counts['training'] + counts['video_training']
+    trained = sum(counts[path] for path in TRAINING_PATHS)
     totals['ms'] += (count * ms if served_ms is None else
                      (count - trained) * served_ms + trained * ms)
     totals['plain_ms'] += count * plain_ms
@@ -1876,7 +2218,7 @@ def main():
         for phase in (phase_serving, phase_inpainting, phase_self_cond, phase_training,
                       phase_video, phase_video_training, phase_edm_serving,
                       phase_edm_training, phase_video_edm, phase_video_edm_training,
-                      phase_sr1024_serving):
+                      phase_sr1024_serving, phase_train_loop):
             t0 = time.perf_counter()
             ok &= phase(torch, it, _build, results)
             free_cuda()

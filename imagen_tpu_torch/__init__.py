@@ -1,6 +1,8 @@
 """PyTorch + CUDA port of imagen_tpu: the 64->256 text-to-image cascade, its
-serving path and its training step (DDPM and EDM, Adam or Adafactor), and
-text-to-video serving and training with `Unet3D` (DDPM and EDM)."""
+serving path and its training (DDPM and EDM, Adam or Adafactor, dataloaders,
+validation and checkpoint folders), text-to-video serving and training with
+`Unet3D` (DDPM and EDM), configs, self-describing checkpoints (the port's and
+the JAX package's), T5 text encoding and the command line."""
 from imagen_tpu_torch.version import __version__
 
 from imagen_tpu_torch.models.unet2d import (
@@ -18,3 +20,14 @@ from imagen_tpu_torch.ops.edm_math import Hparams
 from imagen_tpu_torch.serving import ImagenServer
 from imagen_tpu_torch.trainer import ImagenTrainer
 from imagen_tpu_torch.ema import EMAConfig
+
+from imagen_tpu_torch.configs import (
+    UnetConfig,
+    Unet3DConfig,
+    NullUnetConfig,
+    ImagenConfig,
+    ElucidatedImagenConfig,
+    ImagenTrainerConfig,
+)
+
+from imagen_tpu_torch.utils.load import load_imagen_from_checkpoint

@@ -19,8 +19,8 @@ a cascade of `Unet3D`s samples NFHWC video. `forward` is the EDM training
 loss: log-normal sigmas, the preconditioned denoiser and the lambda(sigma)
 weight.
 
-Not ported yet (they raise NotImplementedError): `texts=` (T5) and, for
-video, `resize_cond_video_frames=False`.
+Not ported yet (it raises NotImplementedError): for video,
+`resize_cond_video_frames=False`.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from imagen_tpu_torch.models.t5 import get_encoded_dim, t5_encode_text
 from imagen_tpu_torch.models.unet2d import NullUnet
 from imagen_tpu_torch.models.video_blocks import resize_video_to, scale_video_time
 from imagen_tpu_torch.ops.diffusion_math import GaussianDiffusionContinuousTimes
@@ -45,14 +46,6 @@ from imagen_tpu_torch.utils.helpers import (
     pad_tuple_to_length,
     resolve_device,
 )
-
-T5_ENCODED_DIMS = {
-    'google/t5-v1_1-small': 512,
-    'google/t5-v1_1-base': 768,
-    'google/t5-v1_1-large': 1024,
-    'google/t5-v1_1-xl': 2048,
-    'google/t5-v1_1-xxl': 4096,
-}
 
 @contextmanager
 def on_device(module, device):
@@ -239,9 +232,7 @@ class Imagen(nn.Module):
             zip(cast_tuple(min_snr_loss_weight, num_unets), cast_tuple(min_snr_gamma, num_unets)))
 
         if condition_on_text and text_embed_dim is None:
-            if text_encoder_name not in T5_ENCODED_DIMS:
-                raise ValueError(f'give text_embed_dim for encoder {text_encoder_name!r}')
-            text_embed_dim = T5_ENCODED_DIMS[text_encoder_name]
+            text_embed_dim = get_encoded_dim(text_encoder_name)
         self.text_embed_dim = text_embed_dim if condition_on_text else None
 
         self.unets = nn.ModuleList([
@@ -271,6 +262,10 @@ class Imagen(nn.Module):
     @property
     def device(self):
         return self._device_anchor.device
+
+    def encode_text(self, texts, **kwargs):
+        """`texts` through the cascade's T5 encoder, on its device."""
+        return t5_encode_text(texts, name=self.text_encoder_name, device=self.device, **kwargs)
 
     def resize_to(self, x, size, target_frames=None, clamp_range=None):
         """Nearest resize of an NHWC image batch, or of NFHWC video (spatially
@@ -496,8 +491,8 @@ class Imagen(nn.Module):
         images and the masks to it and calls `self._sample_stage`, with
         `noise_override[index]` (made a dict by `self._override_dict`) less
         its 'lowres' draw as `noise` and `stage_options` passed through."""
-        if exists(texts):
-            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
+        if exists(texts) and not exists(text_embeds) and not self.unconditional:
+            text_embeds, text_masks = self.encode_text(texts, return_attn_mask=True)
         device = self.device
         if not self.unconditional:
             if not exists(text_embeds):
@@ -718,8 +713,8 @@ class Imagen(nn.Module):
         unet_number = default(unet_number, 1)
         if exists(self.only_train_unet_number) and self.only_train_unet_number != unet_number:
             raise ValueError(f'only unet {self.only_train_unet_number} may be trained')
-        if exists(texts):
-            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
+        if exists(texts) and not exists(text_embeds) and not self.unconditional:
+            text_embeds, text_masks = self.encode_text(texts, return_attn_mask=True)
         index = unet_number - 1
         if isinstance(self.unets[index], NullUnet):
             raise ValueError('a NullUnet cannot be trained')

@@ -9,8 +9,10 @@
   `generate`.
 
 Single process, one request batch at a time: no queue, no batching across
-callers. Raw `texts=` need the T5 encoder, which is not ported; pass
-`text_embeds`.
+callers. Raw `texts=` go through the cascade's T5 encoder
+(`models/t5.py`) on its device. `from_checkpoint` builds the server from a
+self-describing checkpoint (the port's or the JAX package's), EMA weights
+preferred.
 """
 from __future__ import annotations
 
@@ -42,6 +44,15 @@ class ImagenServer:
         self._lock = threading.Lock()
         if warmup:
             self.warmup()
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path, *, load_ema=True, device=None, **kwargs):
+        """A server around the cascade that `checkpoint_path` describes, with its
+        EMA weights where it has them (`load_ema`), on `device` (None: the card)."""
+        from imagen_tpu_torch.utils.load import load_imagen_from_checkpoint
+        imagen = load_imagen_from_checkpoint(checkpoint_path, load_ema_if_available=load_ema,
+                                             device=device)
+        return cls(imagen.eval(), **kwargs)
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -97,9 +108,11 @@ class ImagenServer:
         `cond_scale` defaults to the server's; one outside the warmed
         `cond_scales` runs all the same."""
         if exists(texts):
-            raise NotImplementedError('T5 text encoding is not ported: pass text_embeds')
+            if exists(text_embeds):
+                raise ValueError('pass texts or text_embeds, not both')
+            text_embeds, text_masks = self.imagen.encode_text(texts, return_attn_mask=True)
         if not exists(text_embeds):
-            raise ValueError('text_embeds required')
+            raise ValueError('texts or text_embeds required')
         text_embeds = torch.as_tensor(text_embeds, device=self.device).float()
         text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
             else torch.as_tensor(text_masks, device=self.device).bool()

@@ -15,34 +15,56 @@
   gradient is the full batch's; ragged batches end in a smaller chunk.
   Batches are images or, for a video cascade, clips with their prompt
   frames, split along the batch axis only.
+- Data: `add_train_dataset` / `add_valid_dataset` (the train set split
+  with `split_valid_from_train`, the JAX rows) or dataloaders of one's own;
+  `train_step`, `valid_step` (no gradient, eval mode, the EMA unet with
+  `use_ema_unets=True`) and `step_with_dl_iter` take the next batch, a dict
+  or a tuple named by `dl_tuple_output_keywords_names`.
 - Every random draw (times, noise, crops, the text drop) comes from the
   trainer's `torch.Generator`, seeded by `seed`, on the imagen's device.
 - Checkpoints are the JAX trainer's bundle (`model`, `version`, `steps`,
-  `optim{i}`, `ema`) written by `torch.save`.
+  `optim{i}`, `ema`, and `imagen_type` / `imagen_params` for an imagen
+  built from a config) written by `torch.save`, on a thread with
+  `async_save`. With `checkpoint_path` and `checkpoint_every`, the trainer
+  resumes from the newest `checkpoint.{total_steps}.ckpt` of that folder at
+  construction, writes one every `checkpoint_every` optimiser steps and
+  keeps the newest `max_checkpoints_keep`. `load(only_model=True)` also
+  takes a bundle the JAX trainer wrote (its unet and EMA weights); its
+  optax optimiser state does not carry across, so a full load of one raises.
 
 The imagen may be an `Imagen` or an `ElucidatedImagen`: the loss is what
-`imagen(...)` returns.
-
-Not ported yet (ROADMAP): dataloaders and `train_step` /
-`valid_step`, checkpoint folders and their rotation, meshes and sharded
-state, multi-process training.
+`imagen(...)` returns. Multi-device training (`mesh`, `fsdp`,
+`shard_optimizer_states`, `checkpoint_backend='orbax'`) is not ported yet
+(ROADMAP.md queue 1, item 7): those options raise NotImplementedError.
 """
 from __future__ import annotations
 
 import copy
 import math
 import os
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
 
+from imagen_tpu_torch.data import DataLoader, cycle, split_dataset
 from imagen_tpu_torch.ema import EMAConfig, ema_update
 from imagen_tpu_torch.models.unet2d import NullUnet
 from imagen_tpu_torch.optim import Adafactor
+from imagen_tpu_torch.utils.checkpoint_io import as_list, get_fs, load_obj, save_obj, to_cpu
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
+from imagen_tpu_torch.utils.load import (
+    is_flax_state, load_imagen_from_checkpoint, load_unet_state)
 from imagen_tpu_torch.utils.profiling import StepTimer
 from imagen_tpu_torch.version import __version__
+
+MULTI_DEVICE_NOT_PORTED = ('multi-device training ({}) is not ported yet '
+                           '(ROADMAP.md queue 1, item 7)')
+
+# keyword arguments of `sample` that carry one entry per sample, split by `max_batch_size`
+_BATCHED = ('text_embeds', 'text_masks', 'cond_images', 'inpaint_images', 'inpaint_videos',
+            'inpaint_masks', 'init_images', 'start_image_or_video', 'cond_video_frames',
+            'post_cond_video_frames', 'texts')
 
 
 def groupby_prefix_and_trim(prefix, d):
@@ -104,24 +126,54 @@ def _chunks(batch, max_batch_size):
 
 
 class ImagenTrainer:
-    """Trains the unets of an `Imagen` one at a time, on the imagen's device."""
+    """Trains the unets of an `Imagen` one at a time, on the imagen's device.
+    Built from an imagen, or from a self-describing checkpoint
+    (`imagen_checkpoint_path`: its cascade and weights, built on `device`,
+    None meaning the card, every unet's optimiser and EMA started from them)."""
 
-    def __init__(self, imagen, *, use_ema=True, lr=1e-4, eps=1e-8, beta1=0.9, beta2=0.99,
-                 optimizer='adam', max_grad_norm=None, weight_decay=0.0,
-                 group_wd_params=True, warmup_steps=None, cosine_decay_max_steps=None,
-                 only_train_unet_number=None, fp16=False, precision=None, seed=0,
-                 verbose=True, **kwargs):
+    def __init__(self, imagen=None, imagen_checkpoint_path=None, *, use_ema=True, lr=1e-4,
+                 eps=1e-8, beta1=0.9, beta2=0.99, optimizer='adam', max_grad_norm=None,
+                 weight_decay=0.0, group_wd_params=True, warmup_steps=None,
+                 cosine_decay_max_steps=None, only_train_unet_number=None, fp16=False,
+                 precision=None,
+                 dl_tuple_output_keywords_names=('images', 'text_embeds', 'text_masks',
+                                                 'cond_images'),
+                 split_valid_fraction=0.025, split_valid_from_train=False, split_random_seed=42,
+                 checkpoint_path=None, checkpoint_every=None, checkpoint_fs=None, fs_kwargs=None,
+                 max_checkpoints_keep=20, checkpoint_backend=None, mesh=None,
+                 shard_optimizer_states=False, fsdp=False, sync_loss=True, seed=0, verbose=True,
+                 device=None, **kwargs):
         ema_kwargs, kwargs = groupby_prefix_and_trim('ema_', kwargs)
         if kwargs:
             raise TypeError(f'ImagenTrainer got unexpected keyword arguments: {sorted(kwargs)}')
         unknown = set(ema_kwargs) - set(EMAConfig.__dataclass_fields__)
         if unknown:
             raise TypeError(f'ImagenTrainer got unexpected ema_ arguments: {sorted(unknown)}')
+        for name, value in (('mesh', mesh), ('fsdp', fsdp),
+                            ('shard_optimizer_states', shard_optimizer_states)):
+            if value:
+                raise NotImplementedError(MULTI_DEVICE_NOT_PORTED.format(name))
+        if checkpoint_backend == 'orbax':
+            raise NotImplementedError(MULTI_DEVICE_NOT_PORTED.format("checkpoint_backend='orbax'"))
+        if checkpoint_backend is not None:
+            raise ValueError(f'unknown checkpoint_backend {checkpoint_backend!r}: checkpoints '
+                             'are single torch.save files')
+        if exists(imagen) == exists(imagen_checkpoint_path):
+            raise ValueError('either pass an imagen instance or a checkpoint path')
+        if exists(checkpoint_path) != exists(checkpoint_every):
+            raise ValueError('checkpoint_path and checkpoint_every go together')
+        if not 0 <= split_valid_fraction <= 1:
+            raise ValueError(f'split_valid_fraction {split_valid_fraction} is not in [0, 1]')
+
+        self.fs = get_fs(default(checkpoint_path, './'), checkpoint_fs, fs_kwargs)
+        if not exists(imagen):
+            imagen = load_imagen_from_checkpoint(imagen_checkpoint_path, device=device)
 
         self.imagen = imagen
         self.num_unets = imagen.num_unets
         self.device = imagen.device
         self.verbose = verbose
+        self.sync_loss = sync_loss
 
         if fp16 and exists(precision):
             raise ValueError('pass fp16 or precision, not both')
@@ -158,6 +210,31 @@ class ImagenTrainer:
         self.step_timer = StepTimer()
         self._pending = None       # (index, weight) of forward() calls not yet applied
         self._ema_swapped = False
+        self._save_executor = None
+        self._pending_save = None
+        self.prepared = False
+
+        self.dl_tuple_output_keywords_names = dl_tuple_output_keywords_names
+        self.train_dl = self.valid_dl = None
+        self.train_dl_iter = self.valid_dl_iter = None
+        self.split_valid_from_train = split_valid_from_train
+        self.split_valid_fraction = split_valid_fraction
+        self.split_random_seed = split_random_seed
+
+        if exists(imagen_checkpoint_path):
+            for i in range(self.num_unets):
+                self._ensure_state(i)
+
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self.max_checkpoints_keep = max_checkpoints_keep
+        if exists(checkpoint_path):
+            self.fs.makedirs(checkpoint_path, exist_ok=True)
+            self.load_from_checkpoint_folder()
+
+    # one process driving one device
+    is_main = is_local_main = True
+    is_distributed = False
 
     def print(self, msg):
         if self.verbose:
@@ -176,6 +253,19 @@ class ImagenTrainer:
 
     def num_steps_taken(self, unet_number=None):
         return int(self.steps[self.validate_unet_number(unet_number) - 1])
+
+    def print_untrained_unets(self):
+        untrained = [i for i, (steps, unet) in enumerate(zip(self.steps, self.unets))
+                     if steps == 0 and not isinstance(unet, NullUnet)]
+        for i in untrained:
+            self.print(f'unet {i + 1} has not been trained')
+        if untrained:
+            self.print('when sampling, pass stop_at_unet_number to stop early in the cascade, '
+                       'so untrained unets are not used')
+
+    def encode_text(self, text, **kwargs):
+        """`text` through the cascade's T5 encoder, on its device."""
+        return self.imagen.encode_text(text, **kwargs)
 
     @property
     def unets(self):
@@ -221,6 +311,14 @@ class ImagenTrainer:
         if self.use_ema:
             self.ema_unets[index] = copy.deepcopy(self.unets[index]).requires_grad_(False)
 
+    def prepare(self):
+        """Make the state of `only_train_unet_number` now (else at its first step)."""
+        if self.prepared:
+            raise RuntimeError('the trainer is already prepared')
+        if exists(self.only_train_unet_number):
+            self._ensure_state(self.only_train_unet_number - 1)
+        self.prepared = True
+
     def _params(self, index):
         return [p for p in self.unets[index].parameters() if p.requires_grad]
 
@@ -254,6 +352,77 @@ class ImagenTrainer:
             ema_update(self.ema_config, ema.parameters(), unet.parameters(),
                        int(self.steps[index]))
 
+    # --- data ----------------------------------------------------------------------------
+
+    def add_train_dataloader(self, dl=None):
+        if not exists(dl):
+            return
+        if exists(self.train_dl):
+            raise RuntimeError('training dataloader was already added')
+        self.train_dl = dl
+
+    def add_valid_dataloader(self, dl=None):
+        if not exists(dl):
+            return
+        if exists(self.valid_dl):
+            raise RuntimeError('validation dataloader was already added')
+        self.valid_dl = dl
+
+    def add_train_dataset(self, ds=None, *, batch_size, **dl_kwargs):
+        """A `data.DataLoader` over `ds`; with `split_valid_from_train`, a
+        `split_valid_fraction` of its rows (picked by `split_random_seed`) go
+        to a validation loader instead."""
+        if not exists(ds):
+            return
+        if exists(self.train_dl):
+            raise RuntimeError('training dataloader was already added')
+        valid_ds = None
+        if self.split_valid_from_train:
+            ds, valid_ds = split_dataset(ds, 1 - self.split_valid_fraction,
+                                         seed=self.split_random_seed)
+            self.print(f'training with dataset of {len(ds)} samples and validating with '
+                       f'randomly splitted {len(valid_ds)} samples')
+        self.add_train_dataloader(DataLoader(ds, batch_size=batch_size, **dl_kwargs))
+        if self.split_valid_from_train:
+            self.add_valid_dataset(valid_ds, batch_size=batch_size, **dl_kwargs)
+
+    def add_valid_dataset(self, ds=None, *, batch_size, **dl_kwargs):
+        if not exists(ds):
+            return
+        if exists(self.valid_dl):
+            raise RuntimeError('validation dataloader was already added')
+        self.add_valid_dataloader(DataLoader(ds, batch_size=batch_size, **dl_kwargs))
+
+    def create_train_iter(self):
+        if not exists(self.train_dl):
+            raise RuntimeError('training dataloader not registered')
+        if not exists(self.train_dl_iter):
+            self.train_dl_iter = cycle(self.train_dl)
+
+    def create_valid_iter(self):
+        if not exists(self.valid_dl):
+            raise RuntimeError('validation dataloader not registered')
+        if not exists(self.valid_dl_iter):
+            self.valid_dl_iter = cycle(self.valid_dl)
+
+    def _batch_from_dl(self, dl_iter):
+        """The next batch as a dict; a tuple is named by
+        `dl_tuple_output_keywords_names`."""
+        out = next(dl_iter)
+        if isinstance(out, dict):
+            return out
+        return dict(zip(self.dl_tuple_output_keywords_names, cast_tuple(out)))
+
+    def _prepare_batch(self, batch):
+        """The batch's arrays and tensors on the device (None entries dropped,
+        other entries, flags such as `ignore_time`, kept), `texts` encoded."""
+        batch = {k: v for k, v in batch.items() if exists(v)}
+        if 'texts' in batch and 'text_embeds' not in batch and self.imagen.condition_on_text:
+            batch['text_embeds'], batch['text_masks'] = self.encode_text(
+                batch.pop('texts'), return_attn_mask=True)
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                if isinstance(v, (torch.Tensor, np.ndarray)) else v for k, v in batch.items()}
+
     # --- training ------------------------------------------------------------------------
 
     def _check_trainable(self, unet_number):
@@ -262,43 +431,93 @@ class ImagenTrainer:
             raise ValueError(f'you can only train unet #{self.only_train_unet_number}')
         return unet_number - 1
 
-    def _backward(self, index, batch, max_batch_size, scale=1.):
-        """Accumulate scale * d(loss)/d(params) into `.grad`; returns the loss.
-        The batch's tensors are split along their first axis; its other
-        entries (a flag such as `ignore_time`) go to every chunk."""
-        self.unets[index].train()
+    def _chunk_losses(self, index, batch, max_batch_size):
+        """(loss, weight) of each chunk of at most `max_batch_size` rows, made
+        as it is asked for. The batch's tensors are split along their first
+        axis; its other entries (a flag such as `ignore_time`) go to every chunk."""
         tensors = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
         options = {k: v for k, v in batch.items() if k not in tensors}
-        loss = 0.
         for chunk, weight in _chunks(tensors, max_batch_size):
             chunk = dict(chunk)
             images = chunk.pop('images')
-            chunk_loss = self.imagen(images, unet_number=index + 1, generator=self.generator,
-                                     **chunk, **options)
+            yield self.imagen(images, unet_number=index + 1, generator=self.generator,
+                              **chunk, **options), weight
+
+    def _backward(self, index, batch, max_batch_size, scale=1.):
+        """Accumulate scale * d(loss)/d(params) into `.grad`; returns the loss."""
+        self.unets[index].train()
+        loss = 0.
+        for chunk_loss, weight in self._chunk_losses(index, batch, max_batch_size):
             (chunk_loss * (weight * scale)).backward()
             loss = loss + chunk_loss.detach() * weight
         return loss
+
+    def _loss_out(self, loss):
+        """A float, or with `sync_loss=False` the device scalar (no host sync)."""
+        return float(loss) if self.sync_loss else loss
+
+    def train_step(self, *, unet_number=None, max_batch_size=None, **kwargs):
+        """One optimiser step on the next batch of the train dataloader."""
+        if not self.prepared:
+            self.prepare()
+        self.create_train_iter()
+        batch = self._batch_from_dl(self.train_dl_iter)
+        return self.step_with_batch(batch, unet_number=unet_number,
+                                    max_batch_size=max_batch_size, **kwargs)
+
+    def step_with_dl_iter(self, dl_iter, *, unet_number=None, max_batch_size=None, **kwargs):
+        """One optimiser step on the next batch of `dl_iter`, a dict or a tuple
+        named as the trainer's own dataloaders' are."""
+        return self.step_with_batch(self._batch_from_dl(dl_iter), unet_number=unet_number,
+                                    max_batch_size=max_batch_size, **kwargs)
 
     def step_with_batch(self, batch, *, unet_number=None, max_batch_size=None, **extra):
         """One optimiser step of unet `unet_number` on `batch` (a dict with
         'images' (b, h, w, c), or clips (b, f, h, w, c) for a video cascade,
         and, for a text-conditioned imagen, 'text_embeds' and optionally
-        'text_masks'; a video cascade also takes 'cond_video_frames',
-        'post_cond_video_frames' and 'ignore_time'); returns the loss as a
-        float."""
+        'text_masks', or 'texts'; a video cascade also takes
+        'cond_video_frames', 'post_cond_video_frames' and 'ignore_time');
+        returns the loss as a float (the device scalar with `sync_loss=False`),
+        then writes a checkpoint into the folder when one is due."""
         if self._ema_swapped:
             raise RuntimeError('cannot take train steps inside use_ema_unets()')
         index = self._check_trainable(unet_number)
         if exists(self._pending):
             raise RuntimeError('forward() gradients are pending: call update() first')
         self._ensure_state(index)
-        batch = {k: v for k, v in {**batch, **extra}.items() if exists(v)}
+        batch = self._prepare_batch({**batch, **extra})
         self.step_timer.start()
         loss = self._backward(index, batch, max_batch_size)
         self._apply_update(index)
-        loss = float(loss)
-        self.step_timer.stop(self.device)
+        loss = self._loss_out(loss)
+        self.step_timer.stop(self.device if self.sync_loss else None)
+        self._maybe_checkpoint()
         return loss
+
+    @torch.no_grad()
+    def valid_step(self, *, unet_number=None, max_batch_size=None, use_ema_unets=False,
+                   **kwargs):
+        """The loss of unet `unet_number` (its EMA copy with `use_ema_unets`)
+        on the next validation batch, in eval mode with no gradient; chunks
+        of at most `max_batch_size` rows weighted by their size."""
+        if not self.prepared:
+            self.prepare()
+        self.create_valid_iter()
+        batch = self._batch_from_dl(self.valid_dl_iter)
+        index = self.validate_unet_number(unet_number) - 1
+        self._ensure_state(index)
+        batch = self._prepare_batch({**batch, **kwargs})
+        unet = self.ema_unets[index] if use_ema_unets and self.use_ema else self.unets[index]
+        online, was_training = self.unets[index], unet.training
+        self.imagen.unets[index] = unet
+        unet.eval()
+        try:
+            loss = sum(chunk_loss * weight for chunk_loss, weight in
+                       self._chunk_losses(index, batch, max_batch_size))
+        finally:
+            unet.train(was_training)
+            self.imagen.unets[index] = online
+        return self._loss_out(loss)
 
     def forward(self, *, unet_number=None, max_batch_size=None, **batch):
         """Loss and gradient without the optimiser step (follow with `update`).
@@ -308,7 +527,7 @@ class ImagenTrainer:
         if exists(self._pending) and self._pending[0] != index:
             raise RuntimeError('accumulated forward() calls must target the same unet')
         self._ensure_state(index)
-        batch = {k: v for k, v in batch.items() if exists(v)}
+        batch = self._prepare_batch(batch)
         b = _batch_size(batch)
         loss = self._backward(index, batch, max_batch_size, scale=float(b))
         weight = (self._pending[1] if exists(self._pending) else 0) + b
@@ -317,7 +536,7 @@ class ImagenTrainer:
 
     def update(self, unet_number=None):
         """Apply the gradients of the forward() calls since the last update,
-        as their mean over every sample seen."""
+        as their mean over every sample seen; then checkpoint when due."""
         index = self.validate_unet_number(unet_number) - 1
         if not exists(self._pending) or self._pending[0] != index:
             raise RuntimeError('call forward(...) before update()')
@@ -326,6 +545,7 @@ class ImagenTrainer:
         grads = [p.grad for p in self._params(index) if p.grad is not None]
         torch._foreach_div_(grads, float(weight))
         self._apply_update(index)
+        self._maybe_checkpoint()
 
     # --- sampling ------------------------------------------------------------------------
 
@@ -350,21 +570,47 @@ class ImagenTrainer:
                 self.imagen.unets[i] = unet
             self._ema_swapped = False
 
-    def sample(self, *args, use_non_ema=False, **kwargs):
+    def get_ema_unet(self, unet_number=None):
+        """The EMA copy of unet `unet_number`, or None without EMA."""
+        if not self.use_ema:
+            return None
+        index = self.validate_unet_number(unet_number) - 1
+        self._ensure_state(index)
+        return self.ema_unets[index]
+
+    def sample(self, *args, max_batch_size=None, use_non_ema=False, **kwargs):
         """`Imagen.sample` through the EMA unets (the online ones with
         `use_non_ema`), drawing from the trainer's generator by default;
-        `video_frames` and the prompt frames pass through."""
+        `video_frames` and the prompt frames pass through. With
+        `max_batch_size`, every per-sample keyword is split into chunks of
+        that many, sampled one after another and joined (lists of PIL images
+        too, and each stage's output with `return_all_unet_outputs`)."""
+        self.print_untrained_unets()
         kwargs.setdefault('generator', self.generator)
-        if use_non_ema or not self.use_ema:
-            return self.imagen.sample(*args, **kwargs)
-        with self.use_ema_unets():
-            return self.imagen.sample(*args, **kwargs)
+        batched = {k: kwargs[k] for k in _BATCHED
+                   if exists(kwargs.get(k)) and hasattr(kwargs[k], '__len__')}
+        b = max((len(v) for v in batched.values()), default=0)
+        with self.use_ema_unets() if self.use_ema and not use_non_ema else nullcontext():
+            if not exists(max_batch_size) or b <= max_batch_size:
+                return self.imagen.sample(*args, **kwargs)
+            outs = [self.imagen.sample(*args, **{**kwargs, **{
+                        k: v[start:start + max_batch_size] for k, v in batched.items()}})
+                    for start in range(0, b, max_batch_size)]
+        pil = kwargs.get('return_pil_images', False)
+        if kwargs.get('return_all_unet_outputs', False):
+            return [[im for chunk in stage for im in chunk] if pil else torch.cat(stage)
+                    for stage in zip(*outs)]
+        if pil:
+            return [im for out in outs for im in out]
+        return torch.cat(outs)
 
     # --- checkpoints ---------------------------------------------------------------------
 
     def state_dict(self, without_optim_and_sched=False):
         """The JAX trainer's bundle: `model` (one state_dict per unet),
-        `version`, `steps`, `optim{i}` and `ema`, every state made first."""
+        `version`, `steps`, `optim{i}` and `ema`, every state made first, and
+        `imagen_type` / `imagen_params` for an imagen built from a config."""
+        from imagen_tpu_torch.diffusion.elucidated import ElucidatedImagen
         for i in range(self.num_unets):
             self._ensure_state(i)
         bundle = dict(model=[u.state_dict() for u in self.unets], version=__version__,
@@ -374,52 +620,112 @@ class ImagenTrainer:
                 bundle[f'optim{i}'] = opt.state_dict()
         if self.use_ema:
             bundle['ema'] = [e.state_dict() for e in self.ema_unets]
+        if hasattr(self.imagen, '_config'):
+            bundle['imagen_type'] = ('elucidated' if isinstance(self.imagen, ElucidatedImagen)
+                                     else 'original')
+            bundle['imagen_params'] = self.imagen._config
         return bundle
 
     def load_state_dict(self, bundle, only_model=False, strict=True):
-        """Restore from a bundle of `state_dict`. `strict=False` loads the
+        """Restore from a bundle of `state_dict`, or the model and EMA weights
+        of a JAX trainer's bundle with `only_model`. `strict=False` loads the
         tensors whose names and shapes match and leaves the rest."""
+        models = as_list(bundle['model'])
+        from_jax = any(is_flax_state(m) for m in models)
+        if from_jax and not only_model:
+            raise ValueError('this bundle was written by the JAX trainer: its optax optimizer '
+                             'state does not carry across; load it with only_model=True for '
+                             'its unet and EMA weights')
+        video = self.imagen.is_video
         for i in range(self.num_unets):
             self._ensure_state(i)
-            _load_module(self.unets[i], bundle['model'][i], strict)
+            load_unet_state(self.unets[i], models[i], strict=strict, video=video)
         if bundle.get('version') != __version__:
             self.print(f'loading checkpoint from version {bundle.get("version")}, '
                        f'current package version is {__version__}')
-        if only_model:
+        if only_model and not from_jax:
             return
-        self.steps = np.array(bundle['steps'], dtype=np.int64)
-        for i, opt in enumerate(self.optimizers):
-            if f'optim{i}' in bundle:
-                opt.load_state_dict(bundle[f'optim{i}'])
+        if not from_jax:
+            self.steps = np.array(bundle['steps'], dtype=np.int64)
+            for i, opt in enumerate(self.optimizers):
+                if f'optim{i}' in bundle:
+                    opt.load_state_dict(bundle[f'optim{i}'])
         if self.use_ema and 'ema' in bundle:
-            for ema, sd in zip(self.ema_unets, bundle['ema']):
-                _load_module(ema, sd, strict)
+            for ema, state in zip(self.ema_unets, as_list(bundle['ema'])):
+                load_unet_state(ema, state, strict=strict, video=video)
 
-    def save(self, path, overwrite=True, without_optim_and_sched=False, **kwargs):
-        """torch.save the bundle (plus any extra `kwargs` entries) to `path`."""
+    def save(self, path, overwrite=True, without_optim_and_sched=False, async_save=False,
+             **kwargs):
+        """Write the bundle (plus any extra `kwargs` entries) to `path`. The
+        bundle is copied to the host first; with `async_save` a thread writes
+        it while training goes on, and the next save or load waits for it."""
         path = str(path)
-        if os.path.exists(path) and not overwrite:
+        self._wait_for_pending_save()
+        if self.fs.exists(path) and not overwrite:
             raise FileExistsError(f'{path} exists and overwrite is False')
-        torch.save({**self.state_dict(without_optim_and_sched), **kwargs}, path)
+        bundle = to_cpu({**self.state_dict(without_optim_and_sched), **kwargs})
+        if 'imagen_params' in bundle:
+            self.print('this checkpoint is commandable from the CLI - '
+                       f'"python -m imagen_tpu_torch.cli sample --model {path} \\"<prompt>\\""')
+        if async_save:
+            if self._save_executor is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._save_executor = ThreadPoolExecutor(max_workers=1)
+            self._pending_save = self._save_executor.submit(save_obj, self.fs, path, bundle)
+        else:
+            save_obj(self.fs, path, bundle)
         self.print(f'checkpoint saved to {path}')
 
+    def _wait_for_pending_save(self):
+        """Wait for the writer of an `async_save`, raising what it raised."""
+        pending, self._pending_save = self._pending_save, None
+        if pending is not None:
+            pending.result()
+
     def load(self, path, only_model=False, strict=True, noop_if_not_exist=False):
+        """Restore from the bundle at `path` (the port's, or a JAX trainer's
+        with `only_model`), its tensors placed on the imagen's device."""
+        self._wait_for_pending_save()
         path = str(path)
-        if not os.path.exists(path):
+        if not self.fs.exists(path):
             if noop_if_not_exist:
                 self.print(f'trainer checkpoint not found at {path}')
                 return None
             raise FileNotFoundError(f'{path} does not exist')
-        bundle = torch.load(path, map_location=self.device, weights_only=False)
+        bundle = load_obj(self.fs, path, map_location=self.device)
         self.load_state_dict(bundle, only_model=only_model, strict=strict)
         self.print(f'checkpoint loaded from {path}')
         return bundle
 
+    # checkpoint folders: checkpoint.{total steps}.ckpt, the newest kept
 
-def _load_module(module, state, strict):
-    if strict:
-        module.load_state_dict(state, strict=True)
-        return
-    own = module.state_dict()
-    module.load_state_dict({k: v for k, v in state.items()
-                            if k in own and own[k].shape == v.shape}, strict=False)
+    @property
+    def all_checkpoints_sorted(self):
+        """The folder's checkpoints, newest first (by the step count in the
+        name, read as JAX does: the field before the last dot)."""
+        checkpoints = self.fs.glob(os.path.join(str(self.checkpoint_path), 'checkpoint.*.ckpt'))
+        return sorted(checkpoints, key=lambda x: int(str(x).split('.')[-2]), reverse=True)
+
+    def load_from_checkpoint_folder(self, last_total_steps=-1):
+        if last_total_steps != -1:
+            self.load(os.path.join(str(self.checkpoint_path),
+                                   f'checkpoint.{last_total_steps}.ckpt'))
+            return
+        checkpoints = self.all_checkpoints_sorted
+        if not checkpoints:
+            self.print(f'no checkpoints found to load from at {self.checkpoint_path}')
+            return
+        self.load(checkpoints[0])
+
+    def save_to_checkpoint_folder(self):
+        total_steps = int(self.steps.sum())
+        self.save(os.path.join(str(self.checkpoint_path), f'checkpoint.{total_steps}.ckpt'))
+        if self.max_checkpoints_keep <= 0:
+            return
+        for checkpoint in self.all_checkpoints_sorted[self.max_checkpoints_keep:]:
+            self.fs.rm(checkpoint)
+
+    def _maybe_checkpoint(self):
+        if not exists(self.checkpoint_path) or int(self.steps.sum()) % self.checkpoint_every:
+            return
+        self.save_to_checkpoint_folder()

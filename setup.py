@@ -7,11 +7,13 @@ setup(
     packages=find_packages(exclude=['tests*']),
     include_package_data=True,
     package_data={'imagen_tpu': ['default_config.json'],
-                  'imagen_tpu_torch': ['csrc/*.cu']},
+                  'imagen_tpu_torch': ['csrc/*.cu', 'native/imagen_io.cpp',
+                                       'default_config.json']},
     entry_points={
         'console_scripts': [
             'imagen_tpu = imagen_tpu.cli:main',
             'imagen = imagen_tpu.cli:imagen',
+            'imagen_torch = imagen_tpu_torch.cli:imagen',
         ],
     },
     version=__version__,

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_bridge import BASE_CFG, SR_CFG, load_into, max_abs, randn, random_params, \
-    rng, t
+from torch_port_bridge import BASE_CFG, SR_CFG, StandInEncoder, inject_t5, load_into, max_abs, \
+    randn, random_params, rng, t
 
 from imagen_tpu.diffusion.imagen import Imagen as JImagen
 from imagen_tpu.models.unet2d import Unet as JUnet
@@ -92,7 +92,7 @@ def test_start_and_stop_at_unet_number(cascades):
     assert max_abs(up, full) == 0.
 
 
-def test_server_pads_a_small_request(cascades):
+def test_server_pads_a_small_request(cascades, monkeypatch):
     _, _, timagen = cascades
     server = it.ImagenServer(timagen, batch_size=2, text_len=8, cond_scale=3., seed=1)
     r = rng(31)
@@ -110,8 +110,16 @@ def test_server_pads_a_small_request(cascades):
 
     with pytest.raises(ValueError):
         server.generate(text_embeds=t(randn(r, 3, 8, 16)))
-    with pytest.raises(NotImplementedError):
-        server.generate(texts=['a prompt'])
+    # raw texts go through the cascade's T5 encoder (a stand-in here)
+    inject_t5(monkeypatch, StandInEncoder(16), name=timagen.text_encoder_name)
+    texts = ['a prompt', 'two more words']
+    emb, mask = timagen.encode_text(texts, return_attn_mask=True)
+    by_text = server.generate(texts=texts, generator=torch.Generator().manual_seed(5))
+    by_embeds = server.generate(text_embeds=emb, text_masks=mask,
+                                generator=torch.Generator().manual_seed(5))
+    assert by_text.shape == (2, SIZES[1], SIZES[1], 3) and max_abs(by_text, by_embeds) == 0.
+    with pytest.raises(ValueError):
+        server.generate(texts=texts, text_embeds=emb)
 
 
 def test_server_serves_concurrent_callers(cascades):

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_bridge import BASE_CFG, SR_CFG, jparams, load_into, max_abs, randn, \
-    random_params, rng, softmax_in_input_dtype, t
+from torch_port_bridge import BASE_CFG, SR_CFG, StandInEncoder, inject_t5, jparams, load_into, \
+    max_abs, randn, random_params, rng, softmax_in_input_dtype, t
 
 import imagen_tpu.ops.edm_math as jem
 from imagen_tpu.diffusion.elucidated import ElucidatedImagen as JElucidated
@@ -258,11 +258,18 @@ def test_server_serves_the_edm_cascade(cascades):
     assert max_abs(images, direct[:1]) == 0.
 
 
-def test_what_is_not_ported_raises(cascades):
+def test_what_is_not_ported_raises(cascades, monkeypatch):
     _, _, timagen = cascades
     emb = t(_text(64)[0])
-    with pytest.raises(NotImplementedError):
-        timagen.sample(texts=['a prompt'])
+    # raw texts go through the cascade's T5 encoder (a stand-in here)
+    inject_t5(monkeypatch, StandInEncoder(16), name=timagen.text_encoder_name)
+    texts = ['a prompt']
+    by_text = timagen.sample(texts=texts, cond_scale=3.,
+                             generator=torch.Generator().manual_seed(2))
+    text_embeds, text_masks = timagen.encode_text(texts, return_attn_mask=True)
+    by_embeds = timagen.sample(text_embeds=text_embeds, text_masks=text_masks, cond_scale=3.,
+                               generator=torch.Generator().manual_seed(2))
+    assert by_text.shape == (1, SIZES[1], SIZES[1], 3) and max_abs(by_text, by_embeds) == 0.
     with pytest.raises(ValueError):   # the RePaint draws need a (step, r) axis pair
         timagen.sample(text_embeds=emb, noise_override=[{'repaint': torch.zeros(1)}, None])
     with pytest.raises(ValueError):   # the churn draws need a resample axis

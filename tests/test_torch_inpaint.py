@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_bridge import BASE_CFG, SR_CFG, jparams, load_into, max_abs, randn, \
-    random_params, rng, t
+from torch_port_bridge import BASE_CFG, SR_CFG, StandInEncoder, inject_t5, jparams, load_into, \
+    max_abs, randn, random_params, rng, t
 
 from imagen_tpu.diffusion.imagen import Imagen as JImagen
 from imagen_tpu.models.unet2d import Unet as JUnet
@@ -246,11 +246,16 @@ def test_unconditional_inpainting_takes_its_batch_from_the_images():
     assert out.shape == (3, 8, 8, 3)
 
 
-def test_what_is_still_unported_raises():
+def test_what_is_still_unported_raises(monkeypatch):
     emb = torch.randn(2, 8, 16)
     for imagen in (_tiny('ddpm'), _tiny('edm')):
-        with pytest.raises(NotImplementedError):
-            imagen.sample(texts=['a prompt'])
+        # raw texts go through the cascade's T5 encoder (a stand-in here)
+        inject_t5(monkeypatch, StandInEncoder(16), name=imagen.text_encoder_name)
+        text_embeds, text_masks = imagen.encode_text(['a prompt'], return_attn_mask=True)
+        assert torch.equal(
+            imagen.sample(texts=['a prompt'], generator=torch.Generator().manual_seed(1)),
+            imagen.sample(text_embeds=text_embeds, text_masks=text_masks,
+                          generator=torch.Generator().manual_seed(1)))
         with pytest.raises(ValueError):   # images without masks
             imagen.sample(text_embeds=emb, inpaint_images=torch.rand(2, 8, 8, 3))
         with pytest.raises(ValueError):   # a unet without cond channels

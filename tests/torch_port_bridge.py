@@ -5,6 +5,15 @@ go from the JAX package to the port through `state_dict_from_jax`. JAX is
 imported only inside the helpers that need it, so the GPU tests
 (`tests/test_torch_cuda.py`) run where JAX is not installed.
 """
+import os
+from types import SimpleNamespace
+
+# the tests never download: T5 models are built in code (`tiny_t5`), and
+# transformers' TensorFlow backend is not loaded
+os.environ.setdefault('HF_HUB_OFFLINE', '1')
+os.environ.setdefault('USE_TF', '0')
+os.environ.setdefault('USE_FLAX', '0')
+
 import numpy as np
 import torch
 
@@ -138,3 +147,61 @@ def softmax_in_input_dtype(monkeypatch):
 
     monkeypatch.setattr(jattn, '_masked_softmax_fp32', jax_softmax)
     monkeypatch.setattr(tattn, '_masked_softmax_fp32', torch_softmax)
+
+
+# --- T5 built in code ------------------------------------------------------------------------
+
+TINY_T5 = 'tiny-t5'
+
+
+class WordTokenizer:
+    """Stands in for `T5Tokenizer.batch_encode_plus`: each word an id in
+    [2, 64) from its letters, then the end token 1, padded with 0 to the
+    longest text; numpy arrays ('np') or tensors ('pt')."""
+
+    def batch_encode_plus(self, texts, return_tensors='np', padding='longest', max_length=256,
+                          truncation=True):
+        ids = [[sum(map(ord, w)) % 62 + 2 for w in text.split()][:max_length - 1] + [1]
+               for text in texts]
+        n = max(map(len, ids))
+        input_ids = np.array([x + [0] * (n - len(x)) for x in ids], np.int64)
+        mask = np.array([[1] * len(x) + [0] * (n - len(x)) for x in ids], np.int64)
+        if return_tensors == 'pt':
+            input_ids, mask = torch.from_numpy(input_ids), torch.from_numpy(mask)
+        return SimpleNamespace(input_ids=input_ids, attention_mask=mask)
+
+
+def tiny_t5(d_model=16, seed=0):
+    """transformers' `T5EncoderModel` at two layers and width `d_model`, with
+    random weights from `seed`."""
+    from transformers import T5Config, T5EncoderModel
+    torch.manual_seed(seed)
+    config = T5Config(vocab_size=64, d_model=d_model, d_kv=4, d_ff=2 * d_model, num_layers=2,
+                      num_heads=2, feed_forward_proj='gated-gelu', dropout_rate=0.)
+    return T5EncoderModel(config).eval()
+
+
+class StandInEncoder(torch.nn.Module):
+    """An encoder with T5EncoderModel's call (embedding, then a linear layer),
+    for tests of the wiring rather than of T5."""
+
+    def __init__(self, d_model=16, seed=0):
+        super().__init__()
+        torch.manual_seed(seed)
+        self.embed = torch.nn.Embedding(64, d_model)
+        self.proj = torch.nn.Linear(d_model, d_model)
+        self.config = SimpleNamespace(d_model=d_model)
+
+    def forward(self, input_ids, attention_mask=None):
+        return SimpleNamespace(last_hidden_state=self.proj(self.embed(input_ids)))
+
+
+def inject_t5(monkeypatch, model, name=TINY_T5, jax_side=False):
+    """Put `model` and a `WordTokenizer` into the port's T5 cache under `name`
+    (and the JAX package's, as its torch backend, with `jax_side`)."""
+    from imagen_tpu_torch.models import t5
+    entry = dict(model=model, tokenizer=WordTokenizer(), config=model.config)
+    monkeypatch.setitem(t5.T5_CONFIGS, name, entry)
+    if jax_side:
+        from imagen_tpu.models import t5 as jt5
+        monkeypatch.setitem(jt5.T5_CONFIGS, name, {**entry, 'model': ('torch', model)})
