@@ -286,9 +286,9 @@ PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr102
          'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
          'video_edm', 'video_edm_training', 'video_edm_training_stills', 'train_loop',
          'train_loop_sampling')
-# paths whose flash forwards run under autograd (with the LSE the backward reads)
-TRAINING_PATHS = ('training', 'video_training', 'edm_training', 'video_edm_training',
-                  'video_edm_training_stills', 'train_loop')
+# the launches of the flash forward that also write the LSE the backward reads (those
+# made under autograd), by size arguments; `counting_path` keeps them under this key
+FLASH_WITH_LSE = 'flash_rows_fwd_bf16 with lse'
 RESAMPLE_TIMES = 5           # RePaint resamples a step: the JAX default
 
 
@@ -370,6 +370,8 @@ def counting_path(build, shapes, counts):
         sig = build.SIGNATURES[name]
         n_ptr = next(i for i, a in enumerate(sig) if a is not ctypes.c_void_p)
         shapes[name][tuple(args[n_ptr:])] += 1
+        if name == 'flash_rows_fwd_bf16' and args[5] is not None:   # the LSE pointer
+            shapes[FLASH_WITH_LSE][tuple(args[n_ptr:])] += 1
         return original(name, *args)
 
     build.reset_launches()
@@ -1947,10 +1949,12 @@ def log_weight_copy(torch):
         f'{one:.4f} ms on the device; a zero pad then .contiguous() {two:.4f} ms')
 
 
-def measure_shape(torch, name, info, dims, counts, g, totals):
+def measure_shape(torch, name, info, dims, counts, g, totals, with_lse=0):
     """Error, times and bound of kernel `name` at one shape, each time added
-    to `totals` weighted by the shape's count; returns (good, the worst
-    error, the library call's weighted time or None)."""
+    to `totals` weighted by the shape's count (`with_lse` of the flash
+    forward's launches wrote the LSE, the rest are timed as served);
+    returns (good, the worst error, the library call's weighted time or
+    None)."""
     count = sum(counts.values())
     kernel, plain, library, served, unfused, xb, xf, flops, nbytes = kernel_cases(
         torch, name, dims, g)
@@ -1982,10 +1986,8 @@ def measure_shape(torch, name, info, dims, counts, g, totals):
     bound = max(bound_ops, bound_bytes)
     bounds = [max(2 * e, 1e-3) for e in errs_p]
     good = same and all(e <= b for e, b in zip(errs_k, bounds))
-    # serving launches the flash forward without the LSE
-    trained = sum(counts[path] for path in TRAINING_PATHS)
     totals['ms'] += (count * ms if served_ms is None else
-                     (count - trained) * served_ms + trained * ms)
+                     (count - with_lse) * served_ms + with_lse * ms)
     totals['plain_ms'] += count * plain_ms
     totals['operations'] += count * bound_ops if bound_ops >= bound_bytes else 0.
     totals['bytes'] += count * bound_bytes if bound_bytes > bound_ops else 0.
@@ -1998,7 +2000,8 @@ def measure_shape(torch, name, info, dims, counts, g, totals):
         totals['device_ms'] += count * dev_ms
     fmt = ', '.join(f'{e:.3e}' for e in errs_k)
     fmt_p = ', '.join(f'{e:.3e}' for e in errs_p)
-    served_note = '' if served_ms is None else f' ({served_ms:.4f} ms as served)'
+    served_note = ('' if served_ms is None else
+                   f' ({served_ms:.4f} ms as served; {with_lse} of {count} with the LSE)')
     unfused_note = ('' if unfused_ms is None else
                     f', the unfused route {unfused_ms:.4f} ms (device '
                     f'{unfused_dev_ms:.4f} ms'
@@ -2027,10 +2030,11 @@ def phase_kernels(torch, results):
         worst = 0.
         totals = defaultdict(float)
         lib_total = None
-        by_dims = defaultdict(Counter)
+        by_dims, with_lse = defaultdict(Counter), Counter()
         for path, shapes in results['shapes'].items():
             for dims, count in shapes[name].items():
                 by_dims[dims][path] += count
+            with_lse.update(shapes[FLASH_WITH_LSE])
         for path, sites in results['sites'].items():
             for dims, count in sites.get(name, {}).items():
                 by_dims[dims][f'{path} sites'] += count
@@ -2038,7 +2042,8 @@ def phase_kernels(torch, results):
             by_dims[dims]['log only'] += 0
         for dims, counts in sorted(by_dims.items()):
             try:
-                good, err, lib = measure_shape(torch, name, info, dims, counts, g, totals)
+                good, err, lib = measure_shape(torch, name, info, dims, counts, g, totals,
+                                               with_lse[dims])
             except Exception:  # the next shapes are still measured
                 traceback.print_exc(file=sys.stdout)
                 log(f'{name} {dims}: FAIL, the measurement raised')

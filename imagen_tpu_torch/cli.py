@@ -119,7 +119,7 @@ def _pick_split(ds):
     return ds
 
 
-def _register_dataset(cfg, model, trainer, unet):
+def _register_dataset(cfg, model, trainer, unet, device):
     from datasets import load_dataset
 
     from imagen_tpu_torch.data import Collator
@@ -137,6 +137,8 @@ def _register_dataset(cfg, model, trainer, unet):
             url_label=cfg['url_label'],
             name=model.text_encoder_name,
             channels=_CHANNEL_MODES[n_channels],
+            # T5 goes where the collator runs: a loader worker must not touch CUDA
+            device='cpu' if cfg['dataset'].get('num_workers') else device,
         ),
         **cfg['dataset'],
     )
@@ -165,7 +167,7 @@ def train(config_file, unet, epoches, device):
 
     cfg = _load_train_config(config_file)
     model, trainer, ckpt = _build_trainer(cfg, device=device)
-    _register_dataset(cfg, model, trainer, unet)
+    _register_dataset(cfg, model, trainer, unet, device)
 
     max_batch_size = cfg.get('max_batch_size', 1)
     sample_texts = cfg.get('sample_texts', [])

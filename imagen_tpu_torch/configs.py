@@ -1,20 +1,11 @@
 """Config classes; counterpart of `imagen_tpu/configs.py`.
 
-The same classes, fields, defaults and JSON shape as the JAX package's
-pydantic models: extra keys pass through (`extra='allow'`) to the
-constructors, `model_dump()` gives the dict JAX's gives (nested configs as
-dicts, noise schedules as strings), and `.create(device=...)` builds the
-model, attaching `_config` to an imagen so its checkpoints describe it. A
-JAX `imagen_params` dict therefore builds the port's cascade, and the
-reverse.
-
-The classes are plain dataclasses with pydantic's checks written out:
-pydantic is not among the installs this module may count on where it runs
-on the card, and `chip_smoke.py` builds its training cascade through it.
-The checks follow pydantic's lax mode: numbers are coerced (an int where a
-float is due becomes a float), a list stays a list, a tuple of one checked
-element stays a tuple and a longer tuple becomes a list, defaults are not
-checked, and `check_image_sizes` runs after the fields.
+The same pydantic v2 models, fields, defaults and JSON shape as the JAX
+package's: extra keys pass through (`extra='allow'`) to the constructors,
+`model_dump()` gives the dict JAX's gives, and `.create(device=...)` builds
+the model on `device` (None: the card), attaching `_config` to an imagen so
+its checkpoints describe it. A JAX `imagen_params` dict therefore builds the
+port's cascade, and the reverse.
 
 Multi-device layouts (`ParallelConfig`, `apply_parallel`, a trainer
 config's `parallel` block) are not ported: they raise NotImplementedError
@@ -22,203 +13,68 @@ config's `parallel` block) are not ported: they raise NotImplementedError
 """
 from __future__ import annotations
 
-import dataclasses
-from dataclasses import dataclass, field
-from typing import Any, Optional
+from enum import Enum
+from typing import Any, List, Optional, Tuple, Union
+
+from pydantic import BaseModel, ConfigDict, field_validator, model_validator
 
 from imagen_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encoded_dim
 
 PARALLEL_NOT_PORTED = ('multi-device layouts (meshes, FSDP, sharded optimizer states) are not '
                        'ported yet (ROADMAP.md queue 1, item 7)')
 
-NOISE_SCHEDULES = ('cosine', 'linear')
+
+def ListOrTuple(inner_type):
+    return Union[List[inner_type], Tuple[inner_type]]
 
 
-# --- pydantic's lax checks, written out ---------------------------------------------------
-
-def _int(v):
-    if isinstance(v, bool):
-        return int(v)
-    if isinstance(v, int):
-        return v
-    if isinstance(v, float) and v.is_integer():
-        return int(v)
-    if isinstance(v, str) and v.strip().lstrip('+-').isdigit():
-        return int(v)
-    raise ValueError(f'{v!r} is not a valid integer')
+def SingleOrList(inner_type):
+    return Union[inner_type, ListOrTuple(inner_type)]
 
 
-def _float(v):
-    if isinstance(v, (int, float)):
-        return float(v)
-    if isinstance(v, str):
-        return float(v)
-    raise ValueError(f'{v!r} is not a valid number')
+class NoiseSchedule(Enum):
+    cosine = 'cosine'
+    linear = 'linear'
 
 
-def _bool(v):
-    if isinstance(v, bool):
-        return v
-    if v in (0, 1):
-        return bool(v)
-    if isinstance(v, str) and v.lower() in ('true', 'false', 'yes', 'no', '1', '0'):
-        return v.lower() in ('true', 'yes', '1')
-    raise ValueError(f'{v!r} is not a valid boolean')
+class AllowExtraBaseModel(BaseModel):
+    model_config = ConfigDict(extra='allow', use_enum_values=True)
 
 
-def _str(v):
-    if not isinstance(v, str):
-        raise ValueError(f'{v!r} is not a string')
-    return v
+class NullUnetConfig(BaseModel):
+    is_null: bool
+
+    def create(self, device=None):
+        from imagen_tpu_torch.models.unet2d import NullUnet
+        return NullUnet(device=device)
 
 
-def _noise_schedule(v):
-    if v not in NOISE_SCHEDULES:
-        raise ValueError(f'noise schedule should be one of {NOISE_SCHEDULES}, got {v!r}')
-    return v
+class UnetConfig(AllowExtraBaseModel):
+    dim: int
+    dim_mults: ListOrTuple(int)
+    text_embed_dim: int = get_encoded_dim(DEFAULT_T5_NAME)
+    cond_dim: Optional[int] = None
+    channels: int = 3
+    attn_dim_head: int = 32
+    attn_heads: int = 16
+
+    def create(self, device=None):
+        from imagen_tpu_torch.models.unet2d import Unet
+        return Unet(**_tuplify(self.model_dump()), device=device)
 
 
-def _dict(v):
-    if not isinstance(v, dict):
-        raise ValueError(f'{v!r} is not a dict')
-    return dict(v)
+class Unet3DConfig(AllowExtraBaseModel):
+    dim: int
+    dim_mults: ListOrTuple(int)
+    text_embed_dim: int = get_encoded_dim(DEFAULT_T5_NAME)
+    cond_dim: Optional[int] = None
+    channels: int = 3
+    attn_dim_head: int = 32
+    attn_heads: int = 16
 
-
-def _optional(check):
-    def run(v):
-        return None if v is None else check(v)
-    run.strict = lambda v: v is None or _strict(check, v)
-    return run
-
-
-_STRICT = {
-    _int: lambda v: isinstance(v, int) and not isinstance(v, bool),
-    _float: lambda v: isinstance(v, (int, float)) and not isinstance(v, bool),
-    _bool: lambda v: isinstance(v, bool),
-    _str: lambda v: isinstance(v, str),
-    _noise_schedule: lambda v: False,   # a str is not an enum member
-    _dict: lambda v: isinstance(v, dict),
-}
-
-
-def _strict(check, v):
-    """Whether `v` passes `check` in pydantic's strict mode (no coercion, save
-    an int where a float is due), nested values included."""
-    if hasattr(check, 'strict'):
-        return check.strict(v)
-    return _STRICT[check](v)
-
-
-def _list_or_tuple(check):
-    """Union[List[T], Tuple[T]]: a list stays a list; a 1-tuple whose element
-    passes strictly stays a tuple; any other tuple becomes a list."""
-    def run(v):
-        if not isinstance(v, (list, tuple)):
-            raise ValueError(f'{v!r} is not a list or tuple')
-        out = [check(x) for x in v]
-        if isinstance(v, tuple) and len(v) == 1 and _strict(check, v[0]):
-            return tuple(out)
-        return out
-    run.strict = lambda v: (
-        (isinstance(v, list) and all(_strict(check, x) for x in v))
-        or (isinstance(v, tuple) and len(v) == 1 and _strict(check, v[0])))
-    return run
-
-
-def _single_or_list(check):
-    seq = _list_or_tuple(check)
-
-    def run(v):
-        return seq(v) if isinstance(v, (list, tuple)) else check(v)
-    run.strict = lambda v: seq.strict(v) if isinstance(v, (list, tuple)) else _strict(check, v)
-    return run
-
-
-def _unet_config(v):
-    """Union[UnetConfig, Unet3DConfig, NullUnetConfig]: a config passes as it is;
-    a dict is the first that takes it."""
-    if isinstance(v, _UNET_CONFIGS):
-        return v
-    if not isinstance(v, dict):
-        raise ValueError(f'{v!r} is not a unet config')
-    errors = []
-    for klass in _UNET_CONFIGS:
-        try:
-            return klass(**v)
-        except (TypeError, ValueError) as e:
-            errors.append(f'{klass.__name__}: {e}')
-    raise ValueError('no unet config takes ' + repr(v) + ': ' + '; '.join(errors))
-
-
-_unet_config.strict = lambda v: isinstance(v, _UNET_CONFIGS) or (
-    isinstance(v, dict) and any(klass.takes_strictly(v) for klass in _UNET_CONFIGS))
-
-
-def _check(check, default=dataclasses.MISSING):
-    return field(default=default, metadata={'check': check})
-
-
-class _Config:
-    """Declared fields checked by their `check`; unknown keys kept as extras
-    when the class allows them, dropped otherwise (pydantic's 'ignore')."""
-
-    _extra_allowed = True
-
-    def __init__(self, **data):
-        errors = []
-        for f in dataclasses.fields(self):
-            if f.name in data:
-                try:
-                    value = f.metadata['check'](data[f.name])
-                except (TypeError, ValueError) as e:
-                    errors.append(f'{f.name}: {e}')
-                    continue
-            elif f.default is not dataclasses.MISSING:
-                value = f.default
-            else:
-                errors.append(f'{f.name}: field required')
-                continue
-            object.__setattr__(self, f.name, value)
-        if errors:
-            raise ValueError(f'{len(errors)} validation error(s) for {type(self).__name__}: '
-                             + '; '.join(errors))
-        names = {f.name for f in dataclasses.fields(self)}
-        extra = {k: v for k, v in data.items() if k not in names}
-        object.__setattr__(self, '_extra', extra if self._extra_allowed else {})
-        self._validate()
-
-    def _validate(self):
-        pass
-
-    @classmethod
-    def takes_strictly(cls, data):
-        """Whether `data` would pass in pydantic's strict mode: every required
-        field given and every declared field strict."""
-        return all((f.name in data or f.default is not dataclasses.MISSING)
-                   and (f.name not in data or _strict(f.metadata['check'], data[f.name]))
-                   for f in dataclasses.fields(cls))
-
-    def __getattr__(self, name):
-        extra = self.__dict__.get('_extra', {})
-        if name in extra:
-            return extra[name]
-        raise AttributeError(f'{type(self).__name__} has no field {name!r}')
-
-    def model_dump(self):
-        """The fields, then the extras, nested configs as dicts."""
-        out = {f.name: _dump(getattr(self, f.name)) for f in dataclasses.fields(self)}
-        out.update({k: _dump(v) for k, v in self._extra.items()})
-        return out
-
-
-def _dump(v):
-    if isinstance(v, _Config):
-        return v.model_dump()
-    if isinstance(v, (list, tuple)):
-        return type(v)(_dump(x) for x in v)
-    if isinstance(v, dict):
-        return {k: _dump(x) for k, x in v.items()}
-    return v
+    def create(self, device=None):
+        from imagen_tpu_torch.models.unet3d import Unet3D
+        return Unet3D(**_tuplify(self.model_dump()), device=device)
 
 
 def _tuplify(d):
@@ -226,97 +82,40 @@ def _tuplify(d):
     return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
 
 
-# --- unets ---------------------------------------------------------------------------------
-
-@dataclass(init=False)
-class NullUnetConfig(_Config):
-    is_null: bool = _check(_bool)
-
-    _extra_allowed = False
-
-    def create(self, device=None):
-        from imagen_tpu_torch.models.unet2d import NullUnet
-        return NullUnet(device=device)
-
-
-@dataclass(init=False)
-class UnetConfig(_Config):
-    dim: int = _check(_int)
-    dim_mults: Any = _check(_list_or_tuple(_int))
-    text_embed_dim: int = _check(_int, get_encoded_dim(DEFAULT_T5_NAME))
-    cond_dim: Optional[int] = _check(_optional(_int), None)
-    channels: int = _check(_int, 3)
-    attn_dim_head: int = _check(_int, 32)
-    attn_heads: int = _check(_int, 16)
-
-    def create(self, device=None):
-        from imagen_tpu_torch.models.unet2d import Unet
-        return Unet(**_tuplify(self.model_dump()), device=device)
-
-
-@dataclass(init=False)
-class Unet3DConfig(_Config):
-    dim: int = _check(_int)
-    dim_mults: Any = _check(_list_or_tuple(_int))
-    text_embed_dim: int = _check(_int, get_encoded_dim(DEFAULT_T5_NAME))
-    cond_dim: Optional[int] = _check(_optional(_int), None)
-    channels: int = _check(_int, 3)
-    attn_dim_head: int = _check(_int, 32)
-    attn_heads: int = _check(_int, 16)
-
-    def create(self, device=None):
-        from imagen_tpu_torch.models.unet3d import Unet3D
-        return Unet3D(**_tuplify(self.model_dump()), device=device)
-
-
-_UNET_CONFIGS = (UnetConfig, Unet3DConfig, NullUnetConfig)
-
-
-def _build_unets(unet_configs, unets_kwargs, is_video, device):
+def _create_imagen(config, klass, device):
     from imagen_tpu_torch.models.unet2d import NullUnet, Unet
     from imagen_tpu_torch.models.unet3d import Unet3D
-    unets = []
-    for config, kwargs in zip(unet_configs, unets_kwargs):
-        if isinstance(config, NullUnetConfig):
-            unets.append(NullUnet(device=device))
-        else:
-            klass = Unet3D if is_video else Unet
-            unets.append(klass(**_tuplify(kwargs), device=device))
-    return unets
-
-
-def _check_image_sizes(config):
-    if len(config.image_sizes) != len(config.unets):
-        raise ValueError(f'image sizes length {len(config.image_sizes)} must match the '
-                         f'number of unets {len(config.unets)}')
-
-
-def _create_imagen(config, klass, device):
     decoder_kwargs = config.model_dump()
     unets_kwargs = decoder_kwargs.pop('unets')
-    is_video = decoder_kwargs.pop('video', False)
-    unets = _build_unets(config.unets, unets_kwargs, is_video, device)
+    unet_klass = Unet3D if decoder_kwargs.pop('video', False) else Unet
+    unets = [NullUnet(device=device) if isinstance(unet, NullUnetConfig)
+             else unet_klass(**_tuplify(kwargs), device=device)
+             for unet, kwargs in zip(config.unets, unets_kwargs)]
     imagen = klass(tuple(unets), **_tuplify(decoder_kwargs), device=device)
     imagen._config = config.model_dump().copy()
     return imagen
 
 
-# --- cascades ------------------------------------------------------------------------------
+class _CascadeConfig(AllowExtraBaseModel):
+    @model_validator(mode='after')
+    def check_image_sizes(self):
+        if len(self.image_sizes) != len(self.unets):
+            raise ValueError(
+                f'image sizes length {len(self.image_sizes)} must match the '
+                f'number of unets {len(self.unets)}')
+        return self
 
-@dataclass(init=False)
-class ImagenConfig(_Config):
-    unets: Any = _check(_list_or_tuple(_unet_config))
-    image_sizes: Any = _check(_list_or_tuple(_int))
-    video: bool = _check(_bool, False)
-    timesteps: Any = _check(_single_or_list(_int), 1000)
-    noise_schedules: Any = _check(_single_or_list(_noise_schedule), 'cosine')
-    text_encoder_name: str = _check(_str, DEFAULT_T5_NAME)
-    channels: int = _check(_int, 3)
-    loss_type: str = _check(_str, 'l2')
-    cond_drop_prob: float = _check(_float, 0.5)
 
-    def _validate(self):
-        _check_image_sizes(self)
+class ImagenConfig(_CascadeConfig):
+    unets: ListOrTuple(Union[UnetConfig, Unet3DConfig, NullUnetConfig])
+    image_sizes: ListOrTuple(int)
+    video: bool = False
+    timesteps: SingleOrList(int) = 1000
+    noise_schedules: SingleOrList(NoiseSchedule) = 'cosine'
+    text_encoder_name: str = DEFAULT_T5_NAME
+    channels: int = 3
+    loss_type: str = 'l2'
+    cond_drop_prob: float = 0.5
 
     def create(self, device=None):
         """The `Imagen` on `device` (None: the card), with `_config` attached."""
@@ -324,28 +123,24 @@ class ImagenConfig(_Config):
         return _create_imagen(self, Imagen, device)
 
 
-@dataclass(init=False)
-class ElucidatedImagenConfig(_Config):
-    unets: Any = _check(_list_or_tuple(_unet_config))
-    image_sizes: Any = _check(_list_or_tuple(_int))
-    video: bool = _check(_bool, False)
-    text_encoder_name: str = _check(_str, DEFAULT_T5_NAME)
-    channels: int = _check(_int, 3)
-    cond_drop_prob: float = _check(_float, 0.5)
-    num_sample_steps: Any = _check(_single_or_list(_int), 32)
-    sigma_min: Any = _check(_single_or_list(_float), 0.002)
-    sigma_max: Any = _check(_single_or_list(_float), 80)
-    sigma_data: Any = _check(_single_or_list(_float), 0.5)
-    rho: Any = _check(_single_or_list(_float), 7)
-    P_mean: Any = _check(_single_or_list(_float), -1.2)
-    P_std: Any = _check(_single_or_list(_float), 1.2)
-    S_churn: Any = _check(_single_or_list(_float), 80)
-    S_tmin: Any = _check(_single_or_list(_float), 0.05)
-    S_tmax: Any = _check(_single_or_list(_float), 50)
-    S_noise: Any = _check(_single_or_list(_float), 1.003)
-
-    def _validate(self):
-        _check_image_sizes(self)
+class ElucidatedImagenConfig(_CascadeConfig):
+    unets: ListOrTuple(Union[UnetConfig, Unet3DConfig, NullUnetConfig])
+    image_sizes: ListOrTuple(int)
+    video: bool = False
+    text_encoder_name: str = DEFAULT_T5_NAME
+    channels: int = 3
+    cond_drop_prob: float = 0.5
+    num_sample_steps: SingleOrList(int) = 32
+    sigma_min: SingleOrList(float) = 0.002
+    sigma_max: SingleOrList(float) = 80
+    sigma_data: SingleOrList(float) = 0.5
+    rho: SingleOrList(float) = 7
+    P_mean: SingleOrList(float) = -1.2
+    P_std: SingleOrList(float) = 1.2
+    S_churn: SingleOrList(float) = 80
+    S_tmin: SingleOrList(float) = 0.05
+    S_tmax: SingleOrList(float) = 50
+    S_noise: SingleOrList(float) = 1.003
 
     def create(self, device=None):
         """The `ElucidatedImagen` on `device` (None: the card), with `_config`."""
@@ -370,28 +165,28 @@ def apply_parallel(trainer_kwargs: dict) -> dict:
     return trainer_kwargs
 
 
-def _no_parallel(v):
-    raise NotImplementedError(PARALLEL_NOT_PORTED)
+class ImagenTrainerConfig(AllowExtraBaseModel):
+    imagen: dict
+    elucidated: bool = False
+    video: bool = False
+    use_ema: bool = True
+    lr: SingleOrList(float) = 1e-4
+    eps: SingleOrList(float) = 1e-8
+    beta1: float = 0.9
+    beta2: float = 0.99
+    max_grad_norm: Optional[float] = None
+    weight_decay: SingleOrList(float) = 0.0
+    group_wd_params: bool = True
+    warmup_steps: SingleOrList(Optional[int]) = None
+    cosine_decay_max_steps: SingleOrList(Optional[int]) = None
+    parallel: Optional[Any] = None
 
-
-# --- trainer -------------------------------------------------------------------------------
-
-@dataclass(init=False)
-class ImagenTrainerConfig(_Config):
-    imagen: dict = _check(_dict)
-    elucidated: bool = _check(_bool, False)
-    video: bool = _check(_bool, False)
-    use_ema: bool = _check(_bool, True)
-    lr: Any = _check(_single_or_list(_float), 1e-4)
-    eps: Any = _check(_single_or_list(_float), 1e-8)
-    beta1: float = _check(_float, 0.9)
-    beta2: float = _check(_float, 0.99)
-    max_grad_norm: Optional[float] = _check(_optional(_float), None)
-    weight_decay: Any = _check(_single_or_list(_float), 0.0)
-    group_wd_params: bool = _check(_bool, True)
-    warmup_steps: Any = _check(_single_or_list(_optional(_int)), None)
-    cosine_decay_max_steps: Any = _check(_single_or_list(_optional(_int)), None)
-    parallel: Any = _check(_optional(_no_parallel), None)
+    @field_validator('parallel')
+    @classmethod
+    def no_parallel(cls, v):
+        if v is not None:
+            raise NotImplementedError(PARALLEL_NOT_PORTED)
+        return v
 
     def create(self, device=None):
         """The `ImagenTrainer` over the cascade of `imagen` (built on `device`,

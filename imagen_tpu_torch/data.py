@@ -10,7 +10,8 @@ non-empty dataset; and a batch the collator drops (None) is skipped.
 Shuffling draws from `random.Random(seed)` as the JAX loader does, and
 `split_dataset` shuffles with it too, so both packages pick the same
 validation rows. `num_workers` defaults to 0; batches are made on the host
-and no worker touches CUDA (the collator's T5 runs on the CPU).
+and no worker touches CUDA (the collator's T5 runs on the CPU unless it is
+given another device).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 import torch.utils.data
 
-from imagen_tpu_torch.utils.helpers import exists
+from imagen_tpu_torch.utils.helpers import default, exists, resolve_device
 
 
 def cycle(dl):
@@ -106,19 +107,27 @@ class Dataset(torch.utils.data.Dataset):
 
 class Collator:
     """Collates HF-dataset rows: the image (fetched by URL with `url_label`),
-    resized and center-cropped; the caption encoded by T5 on the CPU; rows
-    that fail are dropped, and a batch with none left is None. Gives dict
-    batches (images, text_embeds, text_masks) of tensors."""
+    resized and center-cropped; the caption encoded by T5; rows that fail
+    are dropped, and a batch with none left is None. Gives dict batches
+    (images, text_embeds, text_masks) of tensors on `device`.
+
+    T5 is loaded here, onto `device` unless it is cached already, so that a
+    loader's workers, forked later, find it in place. Leave `device` on the
+    CPU when the loader has workers: a worker must not touch CUDA, so T5
+    must not be on the card before a worker is forked."""
 
     def __init__(self, image_size, url_label=None, text_label=None, image_label=None,
-                 name=None, channels='RGB'):
+                 name=None, channels='RGB', device='cpu'):
+        from imagen_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_model_and_tokenizer
         self.url_label = url_label
         self.text_label = text_label
         self.image_label = image_label
         self.download = url_label is not None
-        self.name = name
+        self.name = default(name, DEFAULT_T5_NAME)
         self.image_size = image_size
         self.channels = channels
+        self.device = resolve_device(device)
+        get_model_and_tokenizer(self.name, self.device)
 
     def __call__(self, batch):
         from imagen_tpu_torch.models.t5 import t5_encode_text
@@ -133,8 +142,9 @@ class Collator:
             texts.append(item[self.text_label])
         if not images:
             return None
-        encoded = t5_encode_text(texts, name=self.name)
-        return dict(images=torch.from_numpy(np.stack(images)), text_embeds=encoded,
+        encoded = t5_encode_text(texts, name=self.name, device=self.device)
+        images = torch.from_numpy(np.stack(images)).to(self.device)
+        return dict(images=images, text_embeds=encoded,
                     text_masks=(encoded != 0.).any(dim=-1))
 
     def transform_image(self, image):

@@ -1,7 +1,7 @@
 """The port's configs, unet persistence and command line against the JAX
 package's, on the CPU.
 
-- `model_dump()` of the port's plain-dataclass configs equals the JAX
+- `model_dump()` of the port's configs equals the JAX
   package's pydantic dump for the same input: lists and tuples, coerced
   numbers, nested unet configs, extra keys, the trainer config;
 - `create()` from the `imagen config` default (widths cut to dim 8; at full

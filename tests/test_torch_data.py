@@ -9,7 +9,8 @@ JAX package's, on the CPU.
   the batch still yields its one batch under `drop_last`, and batches the
   collator drops are skipped; `cycle` raises on an empty loader;
 - `Collator` over HF-style rows with the same tiny random T5 injected into
-  both packages: the same images, masks and embeddings (1e-5);
+  both packages: the same images, masks and embeddings (1e-5); encoding for
+  an imagen and then for a collator never moves the one cached T5;
 - `PrefetchLoader` and `get_images_dataloader`.
 """
 import numpy as np
@@ -17,12 +18,14 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_port_bridge import TINY_T5, inject_t5, max_abs, rng, tiny_t5
+from torch_port_bridge import TINY_T5, StandInEncoder, inject_t5, max_abs, rng, tiny_t5
 
 import imagen_tpu.data as jdata
 from imagen_tpu import native as jnative
 
+import imagen_tpu_torch as it
 from imagen_tpu_torch import data, native
+from imagen_tpu_torch.models import t5
 
 
 @pytest.fixture(scope='module')
@@ -166,6 +169,26 @@ def test_collator_matches_jax_with_a_tiny_t5(monkeypatch):
 
     dl = data.DataLoader(rows, batch_size=2, shuffle=False, collate_fn=data.Collator(**kw))
     assert [b['images'].shape[0] for b in dl] == [2, 2]
+
+
+def test_t5_cache_is_never_moved(monkeypatch):
+    """The imagen's `encode_text` and a collator share the cached T5 where it
+    is: nothing calls its `.to`, and each gets its encodings on its device."""
+    model = StandInEncoder(16)
+    inject_t5(monkeypatch, model)
+    moves = []
+    monkeypatch.setattr(model, 'to', lambda *a, **kw: moves.append((a, kw)) or model)
+    imagen = it.Imagen((it.Unet(dim=8, dim_mults=(1,), text_embed_dim=16, layer_attns=False,
+                                layer_cross_attns=False, device='cpu'),),
+                       image_sizes=(8,), timesteps=2, text_encoder_name=TINY_T5, device='cpu')
+    where = t5.model_device(model)
+    texts = ['a red fox', 'sky']
+    emb = imagen.encode_text(texts)
+    batch = data.Collator(image_size=8, image_label='image', text_label='caption',
+                          name=TINY_T5)(_rows(2))
+    assert moves == [] and t5.model_device(model) == where
+    assert emb.device == imagen.device and batch['text_embeds'].device == torch.device('cpu')
+    assert torch.equal(t5.t5_encode_text(texts, name=TINY_T5, device='cpu'), emb)
 
 
 def test_prefetch_and_images_dataloader(folder):
