@@ -89,6 +89,30 @@ parameters and random weights from a seed:
   attention calls its gate admits: none, since SRUnet256's attention runs
   at 16^2 (256 tokens, under the gate's 1024, as in JAX). The folder is
   removed at the end.
+- unet_options: BaseUnet64 (published kwargs) and SRUnet256's published
+  widths with linear attention and linear cross-attention at its 64^2 and
+  32^2 levels, full cross-attention at 16^2 and the cross-embed downsample
+  (the SR_CFG pattern of the JAX parity test), an `Imagen` at
+  `resize_mode='linear'`, SR_STEPS steps a stage: a warm-up and two
+  requests of batch 2 (4 with CFG) at cond_scale 3 with `use_tqdm`; the
+  device time of one `LinearAttention` call at each of its shapes and of
+  the 'linear' and nearest resizes of the 64 px batch to 256; then
+  (unet_options_training) NullUnet + that SR unet, `step_with_batch` on
+  batch 4 at 256 px with Adam, 3 steps at each of remat False, True and
+  'save_convs' from the same weights and data, each step's loss, time,
+  peak memory and what the forward leaves for the backward, then a step's
+  device time; the peak required to fall under remat, what is left for the
+  backward to order True < 'save_convs' < False, and 'save_convs' to launch
+  the conv kernel no more often than False (no conv recomputed); then
+  (unet_options_video) the video `Unet3D` with linear attention, linear
+  cross-attention, the cross-embed downsample and remat in an
+  `ElucidatedImagen` at `resize_mode='linear'` with
+  `resize_cond_video_frames=False`: one step on 2 clips of 16 frames given
+  at 128 px, one request of 16 frames after 4 prompt frames. In all three
+  kernels 14, 6, 10, the flash pair and the temporal kernel are held to
+  forward-hook counts (which fire again, as the kernels launch again, in
+  remat's recompute), and the stride-2 cross-embed downsample calls are
+  counted: kernel 14 never takes one.
 Every path's cross-embed stem runs kernel 14: its gate admits the stem of
 every U-Net above.
 The launch counts are set to 0 just before each path and read just after;
@@ -285,7 +309,20 @@ DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16', 'fused_ln_ma
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving',
          'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
          'video_edm', 'video_edm_training', 'video_edm_training_stills', 'train_loop',
-         'train_loop_sampling')
+         'train_loop_sampling', 'unet_options', 'unet_options_training',
+         'unet_options_video')
+# unet_options: SRUnet256's published widths with the options of the JAX parity
+# test's SR_CFG pattern (tests/test_reference_parity.py:38-46); linear attention
+# at its 64^2 and 32^2 levels (memory_efficient downsamples 256 -> 128 first)
+SR_OPTIONS = dict(layer_cross_attns=(False, True, True, True),
+                  use_linear_attn=(False, True, True, False),
+                  use_linear_cross_attn=(False, True, True, False),
+                  cross_embed_downsample=True)
+REMATS = (False, True, 'save_convs')
+OPTIONS_TRAIN_STEPS = 3
+OPTIONS_TRAIN_BATCH = 4
+OPTIONS_VIDEO_BATCH = 2
+OPTIONS_PROMPT_FRAMES = 4
 # the launches of the flash forward that also write the LSE the backward reads (those
 # made under autograd), by size arguments; `counting_path` keeps them under this key
 FLASH_WITH_LSE = 'flash_rows_fwd_bf16 with lse'
@@ -1419,13 +1456,21 @@ def write_jpegs(folder, n, size, seed):
                                                               quality=92)
 
 
+def differentiated(torch):
+    """Whether the forward running now gets a backward pass of its own: a
+    gradient is recorded and it is not a remat recompute, which runs inside
+    the backward pass (the graph task id is -1 outside one) and whose
+    gradients flow through the first forward's graph."""
+    return torch.is_grad_enabled() and torch._C._current_graph_task_id() == -1
+
+
 def train_loop_hooks(unet):
     """Forward pre-hooks on `unet` that count the calls taking kernels 14, 6,
     10 and the flash forward (a stride-1 `CrossEmbedLayer`, a `SameConv3x3`,
     a `FeedForward` and an `Attention` whose gates admit the input), and the
-    flash backward (an admitted `Attention` call under autograd): their
-    expected launches, since 14, 6 and 10 launch once a forward and their
-    backward runs the plain route. Returns (calls, handles)."""
+    flash backward (an admitted `Attention` call that is `differentiated`):
+    their expected launches, since 14, 6 and 10 launch once a forward and
+    their backward runs the plain route. Returns (calls, handles)."""
     from imagen_tpu_torch.models import blocks
     from imagen_tpu_torch.ops.flash_attention import flash_attention_available
     from imagen_tpu_torch.ops.fused_norm import fused_feedforward_available
@@ -1434,7 +1479,7 @@ def train_loop_hooks(unet):
 
     def ff_hook(module, args):
         x = args[0]
-        dim, hidden = module[1].in_features, module[1].out_features
+        dim, hidden = module.dim, module.hidden_dim
         if fused_feedforward_available(x.numel() // dim, dim, hidden, module.compute_dtype,
                                        x.device.type):
             calls['fused_feedforward_bf16'] += 1
@@ -1447,7 +1492,7 @@ def train_loop_hooks(unet):
                                      dtype=module.to_q.compute_dtype,
                                      device_type=x.device.type):
             calls['flash_rows_fwd_bf16'] += 1
-            calls['flash_rows_bwd_bf16'] += torch.is_grad_enabled()
+            calls['flash_rows_bwd_bf16'] += differentiated(torch)
 
     for m in unet.modules():
         if isinstance(m, blocks.FeedForward):
@@ -1457,11 +1502,11 @@ def train_loop_hooks(unet):
     return calls, handles
 
 
-def held_to_hooks(counts, calls, label):
-    """Each image kernel's launches against the hooks' count of the calls its
-    gate admits (0 where it admits none: then the kernel must not launch)."""
+def held_to_hooks(counts, calls, label, kernels=IMAGE_KERNELS):
+    """Each kernel's launches against the hooks' count of the calls its gate
+    admits (0 where it admits none: then the kernel must not launch)."""
     ok = True
-    for name in IMAGE_KERNELS:
+    for name in kernels:
         exact = counts[name] == calls[name]
         ok &= exact
         log(f'{label}: {name} launches {counts[name]}, hook count {calls[name]} '
@@ -1666,6 +1711,301 @@ def train_loop(torch, it, build, results, root, folder, t_loop):
         f'{[(n, round(b / 1e9, 3), round(s, 2)) for n, b, s in saves]}')
     del imagen
     return ok
+
+
+# --- the remaining U-Net options --------------------------------------------------------
+
+def options_hooks(unet):
+    """`train_loop_hooks` (kernels 14, 6, 10 and the 2-D flash pair) plus,
+    for a `Unet3D`, a hook on each `VideoAttention` that counts the calls its
+    gates send to the flash pair (`mid_attn`) or to the temporal kernel, and
+    one on each stride-2 `CrossEmbedLayer` (the cross-embed downsample, whose
+    even kernels kernel 14's gate never admits). Under remat the forward
+    hooks fire again in the recompute, as the forward kernels launch again
+    there; the flash backward is counted on the first forward only
+    (`differentiated`), as it runs once."""
+    from imagen_tpu_torch.models import blocks, video_blocks
+    from imagen_tpu_torch.ops.flash_attention import (
+        flash_attention_available, grouped_temporal_available)
+    import torch
+    calls, handles = train_loop_hooks(unet)
+
+    def video_attn_hook(module, args, kwargs):
+        x = args[0]
+        n, h, dh, dt = x.shape[-2], module.heads, module.dim_head, module.to_q.compute_dtype
+        per_pixel = kwargs.get('context') is None and kwargs.get('mask') is None
+        plain = per_pixel and module.rel_pos_bias is None and not module.causal
+        if plain and flash_attention_available(n, dh, False, False, heads=h, dtype=dt,
+                                               device_type=x.device.type):
+            calls['flash_rows_fwd_bf16'] += 1
+            calls['flash_rows_bwd_bf16'] += differentiated(torch)
+        elif per_pixel and grouped_temporal_available(n, h, n + 1, dh, dt, x.device.type):
+            calls['temporal_attn_fwd_bf16'] += 1
+
+    def downsample_hook(module, args):
+        if module.stride == 2:
+            calls['stride-2 cross-embed calls'] += 1
+
+    for m in unet.modules():
+        if isinstance(m, video_blocks.VideoAttention):
+            handles.append(m.register_forward_pre_hook(video_attn_hook, with_kwargs=True))
+        elif isinstance(m, blocks.CrossEmbedLayer):
+            handles.append(m.register_forward_pre_hook(downsample_hook))
+    return calls, handles
+
+
+def downsample_seen(calls, label):
+    """Whether the path made a stride-2 cross-embed downsample call, which
+    kernel 14 does not take: its launches, held to the stride-1 stem calls
+    alone, show that none of them reached it."""
+    seen = calls['stride-2 cross-embed calls'] > 0
+    log(f'{label}: {calls["stride-2 cross-embed calls"]} stride-2 cross-embed downsample calls, '
+        f'none of them on kernel 14 (its launches equal the stride-1 stem calls) '
+        f'-> {"ok" if seen else "FAIL"}')
+    return seen
+
+
+def options_sr(torch, it, **kwargs):
+    return it.SRUnet256(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256,
+                        lowres_cond=True, **SR_OPTIONS, **kwargs)
+
+
+def linear_attention_device_times(torch, unet, run):
+    """The device time of one `LinearAttention` call (every CUDA function
+    it launches) at each input shape `run()` gives the unet's linear
+    attentions, in eval mode without a gradient."""
+    from imagen_tpu_torch.models.blocks import LinearAttention
+    shapes = {}
+
+    def hook(module, args):
+        shapes.setdefault(tuple(args[0].shape), module)
+    handles = [m.register_forward_pre_hook(hook) for m in unet.modules()
+               if isinstance(m, LinearAttention)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    g = torch.Generator(device='cuda').manual_seed(91)
+    times = {}
+    with torch.no_grad():
+        for shape, module in sorted(shapes.items()):
+            x = torch.randn(shape, generator=g, device='cuda').to(torch.bfloat16)
+            times[shape] = device_time_ms(lambda: module(x))
+    return times
+
+
+def options_serving(torch, it, build, results):
+    """`Imagen(..., resize_mode='linear')` over BaseUnet64 (published kwargs)
+    and the options' SRUnet256, 64 -> 256 at SR_STEPS steps a stage: one
+    warm-up, then two requests of batch 2 at cond_scale 3 with `use_tqdm`."""
+    torch.manual_seed(50)
+    t0 = time.perf_counter()
+    base = it.BaseUnet64(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256)
+    sr = options_sr(torch, it)
+    randomize_final_conv(base, 51)
+    randomize_final_conv(sr, 52)
+    imagen = it.Imagen((base, sr), image_sizes=(64, 256), timesteps=(SR_STEPS, SR_STEPS),
+                       cond_drop_prob=0.1, resize_mode='linear').eval()
+    torch.cuda.synchronize()
+    log(f'unet_options: BaseUnet64 + SRUnet256 with {SR_OPTIONS}, '
+        f'{sum(p.numel() for p in sr.parameters()) / 1e9:.3f} B params in the SR unet, built in '
+        f'{time.perf_counter() - t0:.1f} s')
+    g = torch.Generator(device='cuda').manual_seed(53)
+    requests = [text_batch(torch, g, 2) for _ in range(3)]
+
+    def request(i):
+        emb, mask = requests[i]
+        return imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3., use_tqdm=True,
+                             generator=torch.Generator(device='cuda').manual_seed(54 + i))
+
+    torch.cuda.reset_peak_memory_stats()
+    ok, lat = sampled(torch, 'unet_options warm-up request', lambda: request(0),
+                      [(2, 256, 256, 3)])
+    counts = Counter()
+    calls = Counter()
+    handle_sets = [options_hooks(u) for u in imagen.unets]
+    try:
+        with counting_path(build, results['shapes']['unet_options'], counts):
+            for i in (1, 2):
+                ok &= sampled(torch, f'unet_options request {i}', lambda: request(i),
+                              [(2, 256, 256, 3)])[0]
+    finally:
+        for c, handles in handle_sets:
+            calls.update(c)
+            for h in handles:
+                h.remove()
+    ok &= held_to_hooks(counts, calls, 'unet_options')
+    ok &= downsample_seen(calls, 'unet_options')
+    ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
+                                  'fused_feedforward_bf16', STEM_KERNEL], 'unet_options')
+    results['counts']['unet_options'] = counts
+
+    times = linear_attention_device_times(torch, sr, lambda: request(1))
+    for shape, ms in times.items():
+        log(f'unet_options: LinearAttention at {shape} (bf16, eval): device {ms:.4f} ms a call')
+    from imagen_tpu_torch.ops.tensor_utils import resize_image_to
+    low = torch.rand((2, 64, 64, 3), generator=g, device='cuda')
+    for method in ('nearest', 'linear'):
+        ms = device_time_ms(lambda: resize_image_to(low, 256, method=method))
+        log(f'unet_options: resize (2, 64, 64, 3) fp32 -> 256 px, {method}: device {ms:.4f} ms')
+    del imagen, base, sr
+    return ok
+
+
+def options_training(torch, it, build, results):
+    """NullUnet + the options' SRUnet256 (64 -> 256), `step_with_batch` on
+    batch OPTIONS_TRAIN_BATCH at 256 px with Adam for OPTIONS_TRAIN_STEPS
+    steps at each remat setting, from the same weights and data: each
+    step's loss, time, peak memory and the memory the unet's forward
+    leaves for the backward (allocated at its end over the step's start),
+    then the device time of a step, from the profiler over 3 steps more.
+    Remat must lower the peak; True must leave less for the backward than
+    'save_convs', and 'save_convs' less than False; 'save_convs' must
+    launch the conv kernel as often as False does (it keeps the convs'
+    outputs and recomputes only what comes before them)."""
+    g = torch.Generator(device='cuda').manual_seed(60)
+    emb, mask = text_batch(torch, g, OPTIONS_TRAIN_BATCH)
+    data = dict(images=torch.rand((OPTIONS_TRAIN_BATCH, 256, 256, 3), generator=g,
+                                  device='cuda'), text_embeds=emb, text_masks=mask)
+    ok, peaks, firsts, later, by_remat, left, busy = True, {}, {}, {}, {}, {}, {}
+    counts = Counter()
+    for remat in REMATS:
+        torch.manual_seed(61)
+        imagen = it.Imagen((it.NullUnet(), options_sr(torch, it, remat=remat)),
+                           image_sizes=(64, 256), timesteps=(1000, 500), cond_drop_prob=0.1)
+        unet = imagen.unets[1]
+        randomize_final_conv(unet, 62)
+        trainer = it.ImagenTrainer(imagen, lr=1e-4, max_grad_norm=1.0, use_ema=False,
+                                   only_train_unet_number=2, optimizer='adam', seed=0,
+                                   verbose=False)
+        calls, handles = options_hooks(unet)
+        ends = []
+        handles.append(unet.register_forward_hook(
+            lambda *_: ends.append(torch.cuda.memory_allocated() / 2 ** 30)))
+        path_counts = Counter()
+        losses, step_peaks = [], []
+        try:
+            with counting_path(build, results['shapes']['unet_options_training'], path_counts):
+                for step in range(1, OPTIONS_TRAIN_STEPS + 1):
+                    torch.cuda.reset_peak_memory_stats()
+                    start = torch.cuda.memory_allocated() / 2 ** 30
+                    losses.append(trainer.step_with_batch(data, unet_number=2))
+                    step_peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                    left[remat] = ends[-1] - start
+                    log(f'unet_options train remat={remat!r} step {step}: loss '
+                        f'{losses[-1]:.6f} step time {trainer.step_timer.times[-1]:.4f} s '
+                        f'peak allocated {step_peaks[-1]:.2f} GiB, left for the backward '
+                        f'{left[remat]:.3f} GiB')
+        finally:
+            for h in handles:
+                h.remove()
+        later[remat] = sum(list(trainer.step_timer.times)[1:]) / (OPTIONS_TRAIN_STEPS - 1)
+        busy[remat] = device_time_ms(lambda: trainer.step_with_batch(data, unet_number=2),
+                                     iters=2)
+        finite = all(math.isfinite(x) for x in losses)
+        ok &= finite
+        label = f'unet_options_training remat={remat!r}'
+        ok &= held_to_hooks(path_counts, calls, label)
+        ok &= downsample_seen(calls, label)
+        counts.update(path_counts)
+        by_remat[remat] = path_counts
+        peaks[remat], firsts[remat] = max(step_peaks), losses[0]
+        del trainer, imagen, unet
+        free_cuda()
+    lower = all(peaks[r] < peaks[False] for r in REMATS[1:])
+    ok &= lower
+    log(f'unet_options_training: peak allocated by remat {peaks}, first-step losses {firsts} '
+        f'(the same weights, data and dropout seed); remat lowers the peak '
+        f'-> {"ok" if lower else "FAIL"}')
+    log(f'unet_options_training: mean step time after the first by remat {later}; device '
+        f'time a step (ms, torch.profiler, 2 more steps) {busy}')
+    between = left[True] < left['save_convs'] < left[False]
+    ok &= between
+    log(f'unet_options_training: GiB the forward leaves for the backward by remat {left}; '
+        f"True < 'save_convs' < False -> {'ok' if between else 'FAIL'}")
+    conv = 'conv2d_same_3x3_bf16'
+    kept = by_remat['save_convs'][conv] == by_remat[False][conv]
+    ok &= kept
+    log(f"unet_options_training: remat='save_convs' launches {conv} "
+        f"{by_remat['save_convs'][conv]} times, False {by_remat[False][conv]}, True "
+        f"{by_remat[True][conv]}: no conv recomputed -> {'ok' if kept else 'FAIL'}")
+    ok &= check_launched(counts, ['conv2d_same_3x3_bf16', 'fused_feedforward_bf16',
+                                  STEM_KERNEL], 'unet_options_training')
+    results['counts']['unet_options_training'] = counts
+    return ok
+
+
+def options_video(torch, it, build, results):
+    """The JAX bench's video `Unet3D` (dim 64, mults 1-2-4) with linear
+    attention, linear cross-attention, the cross-embed downsample and
+    remat, in an `ElucidatedImagen` with `resize_mode='linear'` and
+    `resize_cond_video_frames=False`: one training step on batch 2 clips of
+    16 frames given at 128 px (resized to 64 in 'linear'), then one request
+    of 16 frames after OPTIONS_PROMPT_FRAMES prompt frames at VIDEO_STEPS
+    steps, cond_scale 3. With one stage the prompt frames have no temporal
+    factor to skip; the CPU tests hold the flag on a two-stage cascade."""
+    torch.manual_seed(64)
+    unet = video_unet(torch, it, use_linear_attn=True, use_linear_cross_attn=True,
+                      cross_embed_downsample=True, remat=True)
+    randomize_final_conv(unet, 65)
+    imagen = it.ElucidatedImagen((unet,), image_sizes=(64,), num_sample_steps=VIDEO_STEPS,
+                                 cond_drop_prob=0.1, resize_mode='linear',
+                                 resize_cond_video_frames=False)
+    trainer = it.ImagenTrainer(imagen, lr=1e-4, max_grad_norm=1.0, use_ema=False,
+                               optimizer='adam', seed=0, verbose=False)
+    g = torch.Generator(device='cuda').manual_seed(66)
+    emb, mask = text_batch(torch, g, OPTIONS_VIDEO_BATCH)
+    clips = torch.rand((OPTIONS_VIDEO_BATCH, VIDEO_FRAMES, 128, 128, 3), generator=g,
+                       device='cuda')
+    counts = Counter()
+    calls, handles = options_hooks(unet)
+    ok = True
+    try:
+        with counting_path(build, results['shapes']['unet_options_video'], counts):
+            torch.cuda.reset_peak_memory_stats()
+            loss = trainer.step_with_batch(dict(images=clips, text_embeds=emb, text_masks=mask))
+            finite = math.isfinite(loss)
+            ok &= finite
+            log(f'unet_options video train step (batch {OPTIONS_VIDEO_BATCH} x {VIDEO_FRAMES} '
+                f'frames, 128 -> 64 px, remat=True): loss {loss:.6f} step time '
+                f'{trainer.step_timer.times[-1]:.4f} s peak allocated '
+                f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB -> '
+                f'{"ok" if finite else "FAIL"}')
+            prompt = torch.rand((1, OPTIONS_PROMPT_FRAMES, 64, 64, 3), generator=g,
+                                device='cuda')
+            torch.cuda.reset_peak_memory_stats()
+            ok &= sampled(torch, f'unet_options video request ({VIDEO_FRAMES} frames after '
+                                 f'{OPTIONS_PROMPT_FRAMES} prompt frames)',
+                          lambda: imagen.sample(text_embeds=emb[:1], text_masks=mask[:1],
+                                                video_frames=VIDEO_FRAMES, cond_scale=3.,
+                                                cond_video_frames=prompt, use_tqdm=True,
+                                                generator=torch.Generator(device='cuda')
+                                                .manual_seed(67)),
+                          [(1, VIDEO_FRAMES, 64, 64, 3)])[0]
+    finally:
+        for h in handles:
+            h.remove()
+    ok &= held_to_hooks(counts, calls, 'unet_options_video',
+                        (*IMAGE_KERNELS, 'temporal_attn_fwd_bf16'))
+    ok &= downsample_seen(calls, 'unet_options_video')
+    ok &= check_launched(counts, ['temporal_attn_fwd_bf16', 'flash_rows_fwd_bf16',
+                                  'flash_rows_bwd_bf16', STEM_KERNEL], 'unet_options_video')
+    results['counts']['unet_options_video'] = counts
+    del trainer, imagen, unet
+    return ok
+
+
+def phase_unet_options(torch, it, build, results):
+    """The U-Net options off the other paths: linear attention and linear
+    cross-attention, the cross-embed downsample, remat at each setting,
+    `resize_mode='linear'` and `use_tqdm`, in serving, training and video
+    (`options_serving`, `options_training`, `options_video`)."""
+    ok = options_serving(torch, it, build, results)
+    free_cuda()
+    ok &= options_training(torch, it, build, results)
+    free_cuda()
+    return ok & options_video(torch, it, build, results)
 
 
 # --- each kernel against its plain version --------------------------------------------
@@ -2223,7 +2563,7 @@ def main():
         for phase in (phase_serving, phase_inpainting, phase_self_cond, phase_training,
                       phase_video, phase_video_training, phase_edm_serving,
                       phase_edm_training, phase_video_edm, phase_video_edm_training,
-                      phase_sr1024_serving, phase_train_loop):
+                      phase_sr1024_serving, phase_train_loop, phase_unet_options):
             t0 = time.perf_counter()
             ok &= phase(torch, it, _build, results)
             free_cuda()

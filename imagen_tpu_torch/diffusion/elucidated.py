@@ -16,11 +16,9 @@ EDM sampler, with the DDPM sampler's surface: inpainting with RePaint
 resampling, `init_images` and `skip_steps`, `cond_images`, self-conditioned
 unets, a per-call low-res noise level, every stage's output and PIL images;
 a cascade of `Unet3D`s samples NFHWC video. `forward` is the EDM training
-loss: log-normal sigmas, the preconditioned denoiser and the lambda(sigma)
-weight.
-
-Not ported yet (it raises NotImplementedError): for video,
-`resize_cond_video_frames=False`.
+loss: log-normal sigmas, the preconditioned denoiser (the unet in train
+mode) and the lambda(sigma) weight. `resize_mode` and
+`resize_cond_video_frames` are `Imagen`'s.
 """
 from __future__ import annotations
 
@@ -35,6 +33,7 @@ from imagen_tpu_torch.diffusion.imagen import (
     check_draw_shapes,
     override_draws,
     unet_forward_with_cond_scale,
+    unet_mode,
 )
 from imagen_tpu_torch.ops import edm_math
 from imagen_tpu_torch.ops.edm_math import Hparams
@@ -59,8 +58,6 @@ class ElucidatedImagen(Imagen):
                  lowres_noise_schedule='linear', num_sample_steps=32, sigma_min=0.002,
                  sigma_max=80, sigma_data=0.5, rho=7, P_mean=-1.2, P_std=1.2, S_churn=80,
                  S_tmin=0.05, S_tmax=50, S_noise=1.003, device=None):
-        if resize_mode != 'nearest':
-            raise NotImplementedError(f'resize_mode {resize_mode!r}: only nearest is ported')
         super().__init__(
             unets, image_sizes=image_sizes, text_encoder_name=text_encoder_name,
             text_embed_dim=text_embed_dim, channels=channels, cond_drop_prob=cond_drop_prob,
@@ -71,11 +68,8 @@ class ElucidatedImagen(Imagen):
             dynamic_thresholding=dynamic_thresholding,
             dynamic_thresholding_percentile=dynamic_thresholding_percentile,
             only_train_unet_number=only_train_unet_number,
-            temporal_downsample_factor=temporal_downsample_factor, device=device)
-        if self.is_video and not resize_cond_video_frames:
-            raise NotImplementedError('resize_cond_video_frames=False is not ported: prompt '
-                                      'frames are always scaled in time (ROADMAP.md queue 1, '
-                                      'item 5)')
+            temporal_downsample_factor=temporal_downsample_factor, resize_mode=resize_mode,
+            resize_cond_video_frames=resize_cond_video_frames, device=device)
         num_unets = self.num_unets
         lowres = tuple(u.lowres_cond for u in self.unets)
         if lowres != (False, *((True,) * (num_unets - 1))):
@@ -152,12 +146,14 @@ class ElucidatedImagen(Imagen):
                 self_cond_flip = bool(torch.rand((), generator=generator, device=device) < 0.5)
             self_cond = torch.zeros_like(noised_images)
             if self_cond_flip:
-                with torch.no_grad():
+                with torch.no_grad(), unet_mode(unet, True):
                     self_cond = self.preconditioned_network_forward(
                         unet, noised_images, sigmas, **kwargs).detach()
             kwargs['self_cond'] = self_cond
 
-        denoised = self.preconditioned_network_forward(unet, noised_images, sigmas, **kwargs)
+        with unet_mode(unet, True):
+            denoised = self.preconditioned_network_forward(unet, noised_images, sigmas,
+                                                           **kwargs)
         losses = (denoised.float() - images.float()) ** 2
         losses = losses.reshape(b, -1).mean(dim=-1)
         return (losses * edm_math.loss_weight(hp.sigma_data, sigmas.float())).mean()
@@ -300,7 +296,7 @@ class ElucidatedImagen(Imagen):
                start_at_unet_number=1, start_image_or_video=None, stop_at_unet_number=None,
                return_all_unet_outputs=False, return_pil_images=False,
                noise_override: Optional[Sequence] = None, offload_inactive_unets=False,
-               generator: Optional[torch.Generator] = None):
+               use_tqdm=True, generator: Optional[torch.Generator] = None):
         """Run the cascade with EDM; returns the last stage's NHWC images, or
         NFHWC video of a video cascade, in [0, 1] (every stage's with
         `return_all_unet_outputs`, PIL images with `return_pil_images`). The
@@ -317,7 +313,7 @@ class ElucidatedImagen(Imagen):
         (b, s, s, c), the low-res noise augmentation's draw for stages after
         the first; R is `inpaint_resample_times` when inpainting, else 1. A
         video stage's draws have a frame axis after the batch.
-        `offload_inactive_unets` as in `Imagen.sample`.
+        `offload_inactive_unets` and `use_tqdm` as in `Imagen.sample`.
         """
         num_unets = self.num_unets
         return self._sample_cascade(
@@ -333,4 +329,5 @@ class ElucidatedImagen(Imagen):
             noise_override=noise_override, generator=generator,
             return_all_unet_outputs=return_all_unet_outputs,
             return_pil_images=return_pil_images, offload_inactive_unets=offload_inactive_unets,
-            sigma_min=cast_tuple(sigma_min, num_unets), sigma_max=cast_tuple(sigma_max, num_unets))
+            use_tqdm=use_tqdm, sigma_min=cast_tuple(sigma_min, num_unets),
+            sigma_max=cast_tuple(sigma_max, num_unets))

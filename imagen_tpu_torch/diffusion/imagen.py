@@ -7,9 +7,13 @@ noise-aug conditioning, and the stage loop as a plain Python loop over steps;
 for a cascade of video unets (`Unet3D`) every stage samples NFHWC video of
 `video_frames` frames (fewer where `temporal_downsample_factor` says so).
 Prompt frames (`cond_video_frames`, `post_cond_video_frames`) are scaled in
-time by each stage's `temporal_downsample_factor`. The sampler also takes
-inpainting with RePaint resampling, `init_images` with `skip_steps`,
-`cond_images`, self-conditioned unets and a per-call low-res noise level.
+time by each stage's `temporal_downsample_factor` (unless
+`resize_cond_video_frames=False`). Every resize of images, video and masks
+takes the cascade's `resize_mode`, a `jax.image.resize` method. The sampler
+also takes inpainting with RePaint resampling, `init_images` with
+`skip_steps`, `cond_images`, self-conditioned unets and a per-call low-res
+noise level, and shows a per-stage progress bar with `use_tqdm`. The loss
+runs the unet in train mode (its dropout on), sampling in eval mode.
 Training (`forward` -> `p_losses`): random times, the degraded low-res
 condition with its noise augmentation (resized in space and, for video, in
 time), the paired random crop (per frame for video), `cond_images`, the
@@ -36,6 +40,7 @@ from imagen_tpu_torch.ops.tensor_utils import (
     normalize_neg_one_to_one,
     quantile_rows,
     resize_image_to,
+    resize_kernel,
     right_pad_dims_to,
     unnormalize_zero_to_one,
 )
@@ -45,6 +50,7 @@ from imagen_tpu_torch.utils.helpers import (
     exists,
     pad_tuple_to_length,
     resolve_device,
+    stage_progress,
 )
 
 @contextmanager
@@ -66,6 +72,18 @@ def on_device(module, device):
         for m, kind, name, t, data in parked:
             t.data = data
             getattr(m, kind)[name] = t
+
+
+@contextmanager
+def unet_mode(unet, training):
+    """`unet` in train mode (dropout on) or eval mode inside the block, in
+    its own mode again after it."""
+    was_training = unet.training
+    unet.train(training)
+    try:
+        yield unet
+    finally:
+        unet.train(was_training)
 
 
 def _l1_loss(pred, target):
@@ -183,6 +201,9 @@ class Imagen(nn.Module):
     `video_frames`, and stage i samples `video_frames //
     temporal_downsample_factor[i]` frames (the last factor must be 1);
     `forward` trains stage i on clips resized to that many frames.
+    `resize_mode` is the `jax.image.resize` method of every resize;
+    `resize_cond_video_frames=False` hands prompt frames to every stage
+    unscaled in time.
     """
 
     def __init__(self, unets, *, image_sizes, text_encoder_name='google/t5-v1_1-base',
@@ -193,10 +214,14 @@ class Imagen(nn.Module):
                  condition_on_text=True, auto_normalize_img=True,
                  dynamic_thresholding=True, dynamic_thresholding_percentile=0.95,
                  only_train_unet_number=None, temporal_downsample_factor=1,
+                 resize_mode='nearest', resize_cond_video_frames=True,
                  min_snr_loss_weight=True, min_snr_gamma=5, device=None):
         super().__init__()
         if loss_type not in LOSS_FNS:
             raise NotImplementedError(f'unknown loss type {loss_type}')
+        resize_kernel(resize_mode)   # raises on an unknown method
+        self.resize_mode = resize_mode
+        self.resize_cond_video_frames = resize_cond_video_frames
         self.loss_type = loss_type
         self.loss_fn = LOSS_FNS[loss_type]
         unets = cast_tuple(unets)
@@ -268,24 +293,27 @@ class Imagen(nn.Module):
         return t5_encode_text(texts, name=self.text_encoder_name, device=self.device, **kwargs)
 
     def resize_to(self, x, size, target_frames=None, clamp_range=None):
-        """Nearest resize of an NHWC image batch, or of NFHWC video (spatially
-        and, with `target_frames`, in time) for a video cascade."""
+        """`resize_mode` resize of an NHWC image batch, or of NFHWC video
+        (spatially and, with `target_frames`, in time) for a video cascade."""
         if self.is_video:
             return resize_video_to(x, size, target_frames=target_frames,
-                                   clamp_range=clamp_range)
-        return resize_image_to(x, size, clamp_range=clamp_range)
+                                   clamp_range=clamp_range, method=self.resize_mode)
+        return resize_image_to(x, size, clamp_range=clamp_range, method=self.resize_mode)
 
     def _prompt_frames(self, index, cond_video_frames, post_cond_video_frames):
-        """The prompt-frame kwargs of stage `index`, each scaled in time by
-        the stage's temporal downsample factor."""
+        """The prompt-frame kwargs of stage `index`, each scaled in time
+        (nearest, as in JAX) by the stage's temporal downsample factor, or
+        unscaled with `resize_cond_video_frames=False`."""
         kwargs = {}
         for name, frames in (('cond_video_frames', cond_video_frames),
                              ('post_cond_video_frames', post_cond_video_frames)):
             if exists(frames):
                 if not self.is_video:
                     raise ValueError(f'{name} needs a video cascade')
-                kwargs[name] = scale_video_time(frames.to(self.device),
-                                                self.temporal_downsample_factor[index])
+                frames = frames.to(self.device)
+                if self.resize_cond_video_frames:
+                    frames = scale_video_time(frames, self.temporal_downsample_factor[index])
+                kwargs[name] = frames
         return kwargs
 
     def _calc_all_frame_dims(self, frames):
@@ -423,11 +451,12 @@ class Imagen(nn.Module):
                start_image_or_video=None, stop_at_unet_number=None,
                return_all_unet_outputs=False, return_pil_images=False,
                noise_override: Optional[Sequence] = None, offload_inactive_unets=False,
-               generator: Optional[torch.Generator] = None):
+               use_tqdm=True, generator: Optional[torch.Generator] = None):
         """Run the cascade; returns the last stage's NHWC images, or NFHWC
         video of a video cascade, in [0, 1] (every stage's, a list, with
         `return_all_unet_outputs`; PIL images with `return_pil_images`, a
-        list of frames per clip for video).
+        list of frames per clip for video). `use_tqdm` shows a progress bar
+        over the stages (none when tqdm is not installed).
 
         `offload_inactive_unets`: a unet parked off `self.device` (e.g.
         `imagen.unets[i].to('cpu')`) is copied to the device for its stage
@@ -475,7 +504,7 @@ class Imagen(nn.Module):
             start_image_or_video=start_image_or_video, stop_at_unet_number=stop_at_unet_number,
             noise_override=noise_override, offload_inactive_unets=offload_inactive_unets,
             return_all_unet_outputs=return_all_unet_outputs,
-            return_pil_images=return_pil_images, generator=generator)
+            return_pil_images=return_pil_images, use_tqdm=use_tqdm, generator=generator)
 
     def _sample_cascade(self, *, texts, text_embeds, text_masks, batch_size, video_frames,
                         cond_images, cond_video_frames, post_cond_video_frames, inpaint_images,
@@ -483,14 +512,15 @@ class Imagen(nn.Module):
                         cond_scale, lowres_sample_noise_level, start_at_unet_number,
                         start_image_or_video, stop_at_unet_number, noise_override, generator,
                         return_all_unet_outputs=False, return_pil_images=False,
-                        offload_inactive_unets=False, **stage_options):
+                        offload_inactive_unets=False, use_tqdm=True, **stage_options):
         """The stage loop of `sample`, which the EDM sampler shares: checks the
         text, the inpainting inputs and the frames, then for each stage builds
         the unet's conditioning (text, cond images, prompt frames, the noised
         low-res image of the stage before), resizes the init and inpainting
         images and the masks to it and calls `self._sample_stage`, with
         `noise_override[index]` (made a dict by `self._override_dict`) less
-        its 'lowres' draw as `noise` and `stage_options` passed through."""
+        its 'lowres' draw as `noise` and `stage_options` passed through, the
+        unet in eval mode; `use_tqdm` wraps the stage loop in a progress bar."""
         if exists(texts) and not exists(text_embeds) and not self.unconditional:
             text_embeds, text_masks = self.encode_text(texts, return_attn_mask=True)
         device = self.device
@@ -548,7 +578,9 @@ class Imagen(nn.Module):
                                  target_frames=all_frame_dims[start_at_unet_number - 2])
 
         outputs = []
-        for unet_number in range(start_at_unet_number, num_unets + 1):
+        stages = range(start_at_unet_number, num_unets + 1)
+        for unet_number in stage_progress(stages, enabled=use_tqdm, desc='sampling cascade',
+                                          total=len(stages)):
             index = unet_number - 1
             unet = self.unets[index]
             if isinstance(unet, NullUnet):
@@ -594,7 +626,8 @@ class Imagen(nn.Module):
                 stage_masks = self.resize_to(inpaint_masks[..., None].float(), image_size,
                                              target_frames=frames).bool()
 
-            with on_device(unet, device) if offload_inactive_unets else nullcontext():
+            with on_device(unet, device) if offload_inactive_unets else nullcontext(), \
+                    unet_mode(unet, False):
                 img = self._sample_stage(
                     index, batch_size=batch_size, frames=frames, cond_scale=cond_scale[index],
                     unet_kwargs=unet_kwargs, noise=noise, generator=generator,
@@ -621,7 +654,8 @@ class Imagen(nn.Module):
 
         `noise` and `lowres_aug_noise` (the low-res condition's augmentation
         noise, after any crop) are drawn from `generator` when not given, as
-        are the crop offsets and the text drop of classifier-free guidance.
+        are the crop offsets, the text drop of classifier-free guidance and
+        the dropout masks of the unet, which runs in train mode.
         `cond_images` go to the unet uncropped, as in the JAX package. A unet
         with `self_cond` is given, half of the time (a fair coin from
         `generator`, or `self_cond_flip`), the x_start of a first forward
@@ -666,14 +700,15 @@ class Imagen(nn.Module):
                                                  device=x_start.device) < 0.5)
             self_cond = torch.zeros_like(x_noisy)
             if self_cond_flip:
-                with torch.no_grad():
+                with torch.no_grad(), unet_mode(unet, True):
                     first = unet(x_noisy, noise_cond, **unet_kwargs)
                     # x_start for the noise objective, else the prediction, as in JAX
                     self_cond = (noise_scheduler.predict_start_from_noise(x_noisy, times, first)
                                  if pred_objective == 'noise' else first).detach()
             unet_kwargs['self_cond'] = self_cond
 
-        pred = unet(x_noisy, noise_cond, **unet_kwargs)
+        with unet_mode(unet, True):
+            pred = unet(x_noisy, noise_cond, **unet_kwargs)
 
         if pred_objective == 'noise':
             target = noise

@@ -16,6 +16,15 @@
   concat, or kernel 14 for a stem its gate admits); the JAX package's
   transposed-conv, strided-conv and phase-tiled forms were TPU layout
   workarounds.
+- Dropout (only `LinearAttention` has any) draws its keep masks from an
+  explicit `torch.Generator` in train mode and none in eval mode; a caller
+  may draw them beforehand (`dropout_masks`) and pass them in, so that a
+  recomputed block applies the same masks.
+- Remat (`remat=True` or `'save_convs'` on the blocks that take it) is
+  `torch.utils.checkpoint`, non-reentrant, taken only while a gradient is
+  being recorded (`recomputed`); `'save_convs'` keeps a conv's output and
+  recomputes only what comes before it (`keeps_output`), as JAX's
+  `save_only_these_names` policy does.
 """
 from __future__ import annotations
 
@@ -24,8 +33,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
-from imagen_tpu_torch.ops.attention import multihead_attention, multiquery_attention_packed
+from imagen_tpu_torch.ops.attention import (
+    kernelized_linear_attention,
+    multihead_attention,
+    multiquery_attention_packed,
+)
 from imagen_tpu_torch.ops.conv2d import conv2d_same, conv2d_same_available
 from imagen_tpu_torch.ops.fused_norm import (
     fused_feedforward,
@@ -45,6 +59,99 @@ F32 = torch.float32
 
 def ln_eps(dtype):
     return 1e-5 if dtype == F32 else 1e-3
+
+
+def remat_mode(remat):
+    """False, True or 'save_convs', as the JAX U-Nets read their `remat`
+    field: 'save_convs' by name, any other true value as True."""
+    if remat == 'save_convs':
+        return remat
+    return bool(remat)
+
+
+def recomputed(fn, *args, enabled=True):
+    """`fn(*args)` with its activations dropped after the forward and
+    recomputed in the backward pass (`torch.utils.checkpoint`, non-reentrant)
+    while a gradient is being recorded and `enabled`; a plain call otherwise.
+    Early stop is off, so the recompute runs every op of `fn` again: each
+    kernel wrapper inside launches, and each forward hook fires, a second
+    time."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    with torch_checkpoint.set_checkpoint_early_stop(False):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def keeps_output(prologue, layer, *args):
+    """`layer(prologue(*args))`, keeping for the backward pass only `args`
+    and the layer's output, as JAX's `save_only_these_names` policy does for
+    a named layer output. What the prologue saves, and the layer's input,
+    which the layer's backward reads, are dropped; the backward's first
+    request for any of them runs the prologue once more, with a gradient
+    recorded as in the forward so that it saves the same tensors in the
+    same order, and serves them all. The layer never runs again. A plain
+    call while no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return layer(prologue(*args))
+    rebuilt = []
+
+    def rebuild():
+        # detached, so that the rebuilt graph, whose hooks reach `rebuilt`,
+        # is not kept alive from it
+        if not rebuilt:
+            with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: rebuilt.append(t.detach()), lambda _: None):
+                out = prologue(*_detached(args))
+            if len(rebuilt) != saved:
+                raise RuntimeError(f'the prologue saved {len(rebuilt)} tensors when rebuilt, '
+                                   f'{saved} in the forward')
+            rebuilt.append(out.detach())
+        return rebuilt
+
+    saved = 0
+
+    def pack_prologue(_):
+        nonlocal saved
+        saved += 1
+        return saved - 1
+
+    with torch.autograd.graph.saved_tensors_hooks(pack_prologue, lambda i: rebuild()[i]):
+        p = prologue(*args)
+    ptr = p.untyped_storage().data_ptr()
+
+    def pack_layer(t):
+        # the layer's input or a view of it: keep where it lies, not its data
+        if t.untyped_storage().data_ptr() == ptr:
+            return t.size(), t.stride(), t.storage_offset()
+        return t
+
+    def unpack_layer(kept):
+        if isinstance(kept, torch.Tensor):
+            return kept
+        return rebuild()[-1].as_strided(*kept)
+
+    with torch.autograd.graph.saved_tensors_hooks(pack_layer, unpack_layer):
+        return layer(p)
+
+
+def _detached(a):
+    """`a`'s tensors detached, each as ready for a gradient as before."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().requires_grad_(a.requires_grad)
+    if isinstance(a, (tuple, list)):
+        return type(a)(_detached(x) for x in a)
+    return a
+
+
+def unit_time(module):
+    """Give every 2D conv in `module` the weight of lucidrains' video `Conv2d`,
+    an nn.Conv3d with a unit time kernel: (O, I, kh, kw) -> (O, I, 1, kh, kw).
+    `Conv1x1`, `Conv2d` and `DepthwiseConv3x3` compute the same with either
+    shape."""
+    for m in module.modules():
+        if isinstance(m, (Conv1x1, Conv2d, DepthwiseConv3x3)) and m.weight.ndim == 4:
+            m.weight = nn.Parameter(m.weight.detach()[:, :, None])
+    return module
 
 
 # --- layers that cast their fp32 parameters at use ----------------------------------------
@@ -79,7 +186,7 @@ class Conv2d(nn.Conv2d):
     """nn.Conv2d on NHWC tensors. The permuted view is channels_last-strided,
     so cuDNN takes it without a copy and the NHWC result is a free permute.
     The weight may also be a unit-time Conv3d's (O, I, 1, kh, kw), as the
-    video U-Net holds it (`video_blocks.unit_time`)."""
+    video U-Net holds it (`unit_time`)."""
 
     def __init__(self, dim_in, dim_out, kernel_size, stride=1, padding=0, dtype=F32):
         super().__init__(dim_in, dim_out, kernel_size, stride=stride, padding=padding)
@@ -109,6 +216,21 @@ class SameConv3x3(Conv2d):
         return super().forward(x)
 
 
+class DepthwiseConv3x3(nn.Conv2d):
+    """3x3 SAME depthwise conv without bias on NHWC (weight (C, 1, 3, 3), or
+    a unit-time video weight (C, 1, 1, 3, 3)); cuDNN's grouped conv."""
+
+    def __init__(self, dim, dtype=F32):
+        super().__init__(dim, dim, 3, padding=1, groups=dim, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        w = self.weight.reshape(self.out_channels, 1, 3, 3).to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, None, 1, 1, 1, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
 # --- norms ------------------------------------------------------------------------------
 
 class LayerNorm(nn.Module):
@@ -131,6 +253,18 @@ class LayerNorm(nn.Module):
         if self.stable:
             x = x / x.amax(dim=-1, keepdim=True).detach()
         return layernorm(x, self.g, ln_eps(x.dtype))
+
+
+class ChanLayerNorm(LayerNorm):
+    """`LayerNorm` over NHWC's trailing axis, its gain held as lucidrains'
+    ChanLayerNorm's (1, C, 1, 1), or (1, C, 1, 1, 1) with `video`."""
+
+    def __init__(self, dim, video=False):
+        super().__init__(dim)
+        self.g = nn.Parameter(torch.ones(1, dim, 1, 1, *((1,) if video else ())))
+
+    def forward(self, x):
+        return layernorm(x, self.g.reshape(-1), ln_eps(x.dtype))
 
 
 class ChanRMSNorm(nn.Module):
@@ -210,31 +344,38 @@ class FeedForward(KeepsPacked, nn.Sequential):
     Where the gate admits the shape the whole chain runs as one kernel
     (ops/fused_norm.py); the parameters are the same either way. Without a
     gradient the kernel's bf16 weights are kept until a weight changes or the
-    module moves."""
+    module moves. With `chan` the parameters are lucidrains'
+    ChanFeedForward's, gains (1, C, 1, 1) and 1x1 conv weights (O, I, 1, 1):
+    on NHWC the same chain and route, as the JAX package's
+    `ChanFeedForward = FeedForward`."""
 
-    def __init__(self, dim, mult=2., dtype=F32):
+    def __init__(self, dim, mult=2., dtype=F32, chan=False):
         hidden_dim = int(dim * mult)
-        super().__init__(
-            LayerNorm(dim),
-            Linear(dim, hidden_dim, bias=False, dtype=dtype),
-            nn.GELU(),
-            LayerNorm(hidden_dim),
-            Linear(hidden_dim, dim, bias=False, dtype=dtype),
-        )
+        if chan:
+            norm, proj = ChanLayerNorm, (lambda i, o: Conv1x1(i, o, bias=False, dtype=dtype))
+        else:
+            norm, proj = LayerNorm, (lambda i, o: Linear(i, o, bias=False, dtype=dtype))
+        super().__init__(norm(dim), proj(dim, hidden_dim), nn.GELU(), norm(hidden_dim),
+                         proj(hidden_dim, dim))
+        self.dim, self.hidden_dim = dim, hidden_dim
         self.compute_dtype = dtype
 
+    def _weights(self):
+        """The two weights as (out, in) matrices (views of the parameters)."""
+        return self[1].weight.flatten(1), self[4].weight.flatten(1)
+
     def _packed_weights(self):
-        """`pack_ff_weights` of the two Linear weights, kept (`KeepsPacked`)."""
-        ws = (self[1].weight, self[4].weight)
-        return self.kept(ws, lambda: pack_ff_weights(*ws))
+        """`pack_ff_weights` of the two weights, kept (`KeepsPacked`)."""
+        return self.kept((self[1].weight, self[4].weight),
+                         lambda: pack_ff_weights(*self._weights()))
 
     def forward(self, x):
         dt = self.compute_dtype
         x = x.to(dt)
-        dim, hidden_dim = self[1].in_features, self[1].out_features
-        if fused_feedforward_available(x.numel() // dim, dim, hidden_dim, dt,
+        if fused_feedforward_available(x.numel() // self.dim, self.dim, self.hidden_dim, dt,
                                        x.device.type):
-            args = (x, self[0].g, self[1].weight, self[3].g, self[4].weight, ln_eps(dt))
+            w0, w1 = self._weights()
+            args = (x, self[0].g.reshape(-1), w0, self[3].g.reshape(-1), w1, ln_eps(dt))
             if x.is_cuda and not wants_grad(x, *self.parameters()):
                 return fused_feedforward(*args, packed=self._packed_weights())
             return fused_feedforward(*args)
@@ -330,25 +471,39 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, n, h * d)
 
 
+def _fold_heads(t, heads):
+    """'b n (h d) -> (b h) n d'."""
+    b, n, hd = t.shape
+    return _split_heads(t, heads).reshape(b * heads, n, hd // heads)
+
+
+def _unfold_heads(t, heads):
+    """'(b h) n d -> b n (h d)'."""
+    bh, n, d = t.shape
+    return _merge_heads(t.reshape(bh // heads, heads, n, d))
+
+
 class CrossAttention(nn.Module):
-    """Full multi-head cross-attention over conditioning tokens (the
-    non-linear branch of the JAX module)."""
+    """Multi-head cross-attention over conditioning tokens: full cosine-sim
+    attention, or with `linear` the kernelized linear attention of the JAX
+    module's linear branch (heads folded into the batch, the null k/v
+    prepended, masked keys at -max and masked values at 0). The linear
+    branch has no q_scale or k_scale, as the JAX module allocates none."""
 
     def __init__(self, dim, context_dim=None, dim_head=64, heads=8, norm_context=False,
                  scale=8., linear=False, dtype=F32):
         super().__init__()
-        if linear:
-            raise NotImplementedError('linear cross-attention is not ported yet')
         context_dim = default(context_dim, dim)
         inner_dim = dim_head * heads
-        self.heads, self.scale = heads, scale
+        self.heads, self.scale, self.linear = heads, scale, linear
         self.norm = LayerNorm(dim)
         self.norm_context = LayerNorm(context_dim) if norm_context else None
         self.null_kv = nn.Parameter(torch.randn(2, dim_head))
         self.to_q = Linear(dim, inner_dim, bias=False, dtype=dtype)
         self.to_kv = Linear(context_dim, inner_dim * 2, bias=False, dtype=dtype)
-        self.q_scale = nn.Parameter(torch.ones(dim_head))
-        self.k_scale = nn.Parameter(torch.ones(dim_head))
+        if not linear:
+            self.q_scale = nn.Parameter(torch.ones(dim_head))
+            self.k_scale = nn.Parameter(torch.ones(dim_head))
         self.to_out = nn.Sequential(Linear(inner_dim, dim, bias=False, dtype=dtype),
                                     LayerNorm(dim))
 
@@ -357,9 +512,12 @@ class CrossAttention(nn.Module):
         if exists(self.norm_context):
             context = self.norm_context(context)
         x = self.norm(x)
-        q = _split_heads(self.to_q(x), self.heads)
-        k, v = (_split_heads(t, self.heads) for t in self.to_kv(context).chunk(2, dim=-1))
+        q = self.to_q(x)
+        k, v = self.to_kv(context).chunk(2, dim=-1)
+        if self.linear:
+            return self.to_out(self._linear(q, k, v, mask))
 
+        q, k, v = (_split_heads(t, self.heads) for t in (q, k, v))
         nk = self.null_kv[0].to(k.dtype).expand(b, self.heads, 1, -1)
         nv = self.null_kv[1].to(v.dtype).expand(b, self.heads, 1, -1)
         k = torch.cat((nk, k), dim=-2)
@@ -370,6 +528,98 @@ class CrossAttention(nn.Module):
 
         out = multihead_attention(q, k, v, scale=self.scale, mask=mask, null_tokens=1)
         return self.to_out(_merge_heads(out))
+
+    def _linear(self, q, k, v, mask):
+        h = self.heads
+        q, k, v = (_fold_heads(t, h) for t in (q, k, v))
+        bh = q.shape[0]
+        k = torch.cat((self.null_kv[0].to(k.dtype).expand(bh, 1, -1), k), dim=-2)
+        v = torch.cat((self.null_kv[1].to(v.dtype).expand(bh, 1, -1), v), dim=-2)
+        if exists(mask):
+            keep = F.pad(mask, (1, 0), value=True).repeat_interleave(h, dim=0)[..., None]
+            k = k.masked_fill(~keep, -torch.finfo(k.dtype).max)
+            v = v.masked_fill(~keep, 0.)
+        out = kernelized_linear_attention(q, k, v, scale=self.scale)
+        return _unfold_heads(out, h)
+
+
+class KeepMaskDropout(nn.Module):
+    """Dropout whose keep mask the caller draws: x / (1 - p) where `keep`
+    holds and 0 elsewhere, flax's `nn.Dropout`; x itself without a mask."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, keep=None):
+        if keep is None:
+            return x
+        return torch.where(keep, x / (1 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class LinearAttention(nn.Module):
+    """Spatial linear attention on NHWC fmaps: ChanLayerNorm; q, k and v each
+    Dropout(0.05) -> 1x1 projection -> depthwise 3x3 conv; context tokens,
+    through a LayerNorm with bias and `to_context`, appended to k and v; the
+    kernelized attention; SiLU; `to_out` with its ChanLayerNorm.
+
+    In train mode the dropout masks come from `generator`, or are given as
+    `masks` (from `dropout_masks`); eval mode draws none. With `video` the
+    parameters take lucidrains' video shapes (unit-time convs, 5-D gains)."""
+
+    def __init__(self, dim, dim_head=32, heads=8, dropout=0.05, context_dim=None, video=False,
+                 dtype=F32):
+        super().__init__()
+        inner_dim = dim_head * heads
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.norm = ChanLayerNorm(dim, video=video)
+
+        def to_qkv():
+            return nn.Sequential(KeepMaskDropout(dropout),
+                                 Conv1x1(dim, inner_dim, bias=False, dtype=dtype),
+                                 DepthwiseConv3x3(inner_dim, dtype=dtype))
+
+        self.to_q, self.to_k, self.to_v = to_qkv(), to_qkv(), to_qkv()
+        self.to_context = nn.Sequential(
+            TorchLayerNorm(context_dim, dtype=dtype),
+            Linear(context_dim, inner_dim * 2, bias=False, dtype=dtype),
+        ) if exists(context_dim) else None
+        self.to_out = nn.Sequential(Conv1x1(inner_dim, dim, bias=False, dtype=dtype),
+                                    ChanLayerNorm(dim, video=video))
+        if video:
+            unit_time(self)
+
+    def dropout_masks(self, shape, device, generator=None):
+        """The keep masks (3, *shape) of the q, k and v inputs of one call
+        on an fmap of `shape`, drawn from `generator` in train mode (keep
+        rate 1 - dropout); None in eval mode."""
+        if not self.training or self.dropout == 0:
+            return None
+        return torch.rand((3, *shape), generator=generator, device=device) < 1 - self.dropout
+
+    def forward(self, fmap, context=None, masks=None, generator=None):
+        b, xx, yy, _ = fmap.shape
+        h = self.heads
+        fmap = self.norm(fmap)
+        if masks is None:
+            masks = self.dropout_masks(fmap.shape, fmap.device, generator)
+
+        def project(i, net):
+            t = net[0](fmap, None if masks is None else masks[i])
+            t = net[2](net[1](t))
+            return _fold_heads(t.reshape(b, xx * yy, -1), h)
+
+        q, k, v = (project(i, net) for i, net in enumerate((self.to_q, self.to_k, self.to_v)))
+        if exists(context):
+            if self.to_context is None:
+                raise ValueError('LinearAttention got context but has no context_dim')
+            ck, cv = (_fold_heads(t, h) for t in self.to_context(context).chunk(2, dim=-1))
+            k = torch.cat((k, ck), dim=-2)
+            v = torch.cat((v, cv), dim=-2)
+
+        out = kernelized_linear_attention(q, k, v, scale=self.dim_head ** -0.5)
+        out = _unfold_heads(out, h).reshape(b, xx, yy, -1)
+        return self.to_out(F.silu(out))
 
 
 class GlobalContext(nn.Module):
@@ -406,6 +656,10 @@ class Block(nn.Module):
         self.project = SameConv3x3(dim, dim_out, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
+        return self.project(self.prologue(x, scale_shift))
+
+    def prologue(self, x, scale_shift=None):
+        """Norm, FiLM and SiLU, cast to the conv's compute dtype."""
         if exists(self.norm):
             x = self.norm(x, scale_shift=scale_shift, fuse_silu=True)
         else:
@@ -413,16 +667,28 @@ class Block(nn.Module):
                 scale, shift = scale_shift
                 x = x * (scale + 1) + shift
             x = F.silu(x)
-        return self.project(x)
+        return x.to(self.project.compute_dtype)
+
+    def keeping_conv_out(self, x, scale_shift=None):
+        """The forward as remat='save_convs' runs it: the conv's output kept,
+        the prologue run once more in the backward pass (`keeps_output`)."""
+        return keeps_output(self.prologue, self.project, x, scale_shift)
 
 
 class ResnetBlock(nn.Module):
-    """Time-FiLM'd double conv block with optional cross-attention and
-    GlobalContext gate."""
+    """Time-FiLM'd double conv block with optional cross-attention (linear
+    with `linear_attn`) and GlobalContext gate.
+
+    `remat=True` recomputes the whole block in the backward pass;
+    `'save_convs'` keeps what the JAX block names for its selective policy
+    (each Block's 'conv_out', the cross-attention's 'attn_out') and
+    recomputes the rest, never the 3x3 convs."""
 
     def __init__(self, dim, dim_out, cond_dim=None, time_cond_dim=None, linear_attn=False,
-                 use_gca=False, attn_dim_head=64, attn_heads=8, dtype=F32, fused_film=False):
+                 use_gca=False, attn_dim_head=64, attn_heads=8, dtype=F32, fused_film=False,
+                 remat=False):
         super().__init__()
+        self.remat = remat_mode(remat)
         self.time_mlp = nn.Sequential(
             nn.SiLU(), Linear(time_cond_dim, dim_out * 2, dtype=dtype),
         ) if exists(time_cond_dim) else None
@@ -435,37 +701,56 @@ class ResnetBlock(nn.Module):
         self.res_conv = Conv1x1(dim, dim_out, dtype=dtype) if dim != dim_out else None
 
     def forward(self, x, time_emb=None, cond=None):
-        scale_shift = None
-        if exists(self.time_mlp) and exists(time_emb):
-            t = self.time_mlp(time_emb)
-            scale_shift = t[:, None, None, :].chunk(2, dim=-1)
+        if exists(self.cross_attn) and not exists(cond):
+            raise ValueError('ResnetBlock with cross-attention needs cond')
+        if self.remat == 'save_convs':
+            return self._keeping_convs(x, time_emb, cond)
+        return recomputed(self._forward, x, time_emb, cond, enabled=self.remat)
 
+    def _forward(self, x, time_emb, cond):
         h = self.block1(x)
-
         if exists(self.cross_attn):
-            if not exists(cond):
-                raise ValueError('ResnetBlock with cross-attention needs cond')
-            b, hh, ww, c = h.shape
-            h_flat = h.reshape(b, hh * ww, c)
-            h_flat = self.cross_attn(h_flat, context=cond) + h_flat
-            h = h_flat.reshape(b, hh, ww, c)
+            h = self._cross(h, cond)
+        h = self.block2(h, scale_shift=self._scale_shift(time_emb))
+        return self._out(h, x)
 
-        h = self.block2(h, scale_shift=scale_shift)
+    def _keeping_convs(self, x, time_emb, cond):
+        h = self.block1.keeping_conv_out(x)
+        if exists(self.cross_attn):
+            h = recomputed(self._cross, h, cond)
+        h = self.block2.keeping_conv_out(h, self._scale_shift(time_emb))
+        return recomputed(self._out, h, x)
 
+    def _cross(self, h, cond):
+        b, hh, ww, c = h.shape
+        h_flat = h.reshape(b, hh * ww, c)
+        return (self.cross_attn(h_flat, context=cond) + h_flat).reshape(b, hh, ww, c)
+
+    def _scale_shift(self, time_emb):
+        if not (exists(self.time_mlp) and exists(time_emb)):
+            return None
+        t = self.time_mlp(time_emb)
+        return t[:, None, None, :].chunk(2, dim=-1)
+
+    def _out(self, h, x):
         if exists(self.gca):
             h = h * self.gca(h)
-
         if exists(self.res_conv):
             x = self.res_conv(x)
         return h + x
 
 
 class TransformerBlock(nn.Module):
-    """Flatten the fmap to tokens; depth x (multi-query attention + FF) residual layers."""
+    """Flatten the fmap to tokens; depth x (multi-query attention + FF) residual
+    layers. `remat=True` recomputes the block in the backward pass,
+    `'save_convs'` keeps each layer's 'attn_out' and 'ff_out' (the JAX
+    names) and recomputes the attention and the FF from them. `generator`
+    is taken, and unused, as the linear block takes it for its dropout."""
 
     def __init__(self, dim, depth=1, heads=8, dim_head=32, ff_mult=2., context_dim=None,
-                 dtype=F32):
+                 dtype=F32, remat=False):
         super().__init__()
+        self.remat = remat_mode(remat)
         self.layers = nn.ModuleList([
             nn.ModuleList([
                 Attention(dim, heads=heads, dim_head=dim_head, context_dim=context_dim,
@@ -473,13 +758,57 @@ class TransformerBlock(nn.Module):
                 FeedForward(dim, mult=ff_mult, dtype=dtype),
             ]) for _ in range(depth)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, generator=None):
+        return recomputed(self._layers, x, context, enabled=self.remat is True)
+
+    def _layers(self, x, context):
+        keep = self.remat == 'save_convs'
         b, hh, ww, c = x.shape
         x = x.reshape(b, hh * ww, c)
         for attn, ff in self.layers:
-            x = attn(x, context=context) + x
-            x = ff(x) + x
+            x = recomputed(_residual_attn, attn, x, context, enabled=keep)
+            x = recomputed(_residual, ff, x, enabled=keep)
         return x.reshape(b, hh, ww, -1)
+
+
+def _residual(fn, x):
+    return fn(x) + x
+
+
+def _residual_attn(attn, x, context):
+    return attn(x, context=context) + x
+
+
+class LinearAttentionTransformerBlock(nn.Module):
+    """depth x (LinearAttention + FeedForward(chan=True)) residual layers on
+    NHWC fmaps. Any `remat` recomputes the whole block in the backward pass (the
+    JAX block names no output to keep); the dropout masks are drawn before
+    the recomputed region, so the recompute applies the same ones."""
+
+    def __init__(self, dim, depth=1, heads=8, dim_head=32, ff_mult=2., context_dim=None,
+                 dtype=F32, remat=False):
+        super().__init__()
+        self.remat = remat_mode(remat)
+        self.layers = nn.ModuleList([
+            nn.ModuleList([
+                LinearAttention(dim, heads=heads, dim_head=dim_head, context_dim=context_dim,
+                                dtype=dtype),
+                FeedForward(dim, mult=ff_mult, dtype=dtype, chan=True),
+            ]) for _ in range(depth)])
+
+    def dropout_masks(self, shape, device, generator=None):
+        """Each layer's `LinearAttention.dropout_masks` (None in eval mode)."""
+        return [attn.dropout_masks(shape, device, generator) for attn, _ in self.layers]
+
+    def forward(self, x, context=None, generator=None):
+        masks = self.dropout_masks(x.shape, x.device, generator)
+        return recomputed(self._layers, x, context, masks, enabled=bool(self.remat))
+
+    def _layers(self, x, context, masks):
+        for (attn, ff), layer_masks in zip(self.layers, masks):
+            x = attn(x, context=context, masks=layer_masks) + x
+            x = ff(x) + x
+        return x
 
 
 # --- resolution changers -----------------------------------------------------------------

@@ -18,6 +18,7 @@ from imagen_tpu_torch.models.blocks import (
     Downsample,
     LearnedSinusoidalPosEmb,
     Linear,
+    LinearAttentionTransformerBlock,
     Conv1x1,
     Parallel,
     PerceiverResampler,
@@ -28,7 +29,7 @@ from imagen_tpu_torch.models.blocks import (
     Upsample,
     UpsampleCombiner,
 )
-from imagen_tpu_torch.ops.tensor_utils import prob_mask_like, resize_image_to
+from imagen_tpu_torch.ops.tensor_utils import prob_mask_like, resize_image_to, resize_kernel
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
 
 DEFAULT_TEXT_EMBED_DIM = 768  # t5-v1_1-base d_model
@@ -211,7 +212,20 @@ class Unet(ConditionedUnet):
 
     `fused_film` is the JAX `IMAGEN_TPU_FUSED_FILM=1` carried as a keyword:
     every 2-D `Block` whose shape the gate admits runs its norm -> FiLM ->
-    SiLU prologue as kernel 8. Off by default, as the JAX switch is."""
+    SiLU prologue as kernel 8. Off by default, as the JAX switch is.
+
+    `use_linear_attn` (one flag, or one per level) puts a
+    `LinearAttentionTransformerBlock` at a level without `layer_attns`;
+    `use_linear_cross_attn` makes that level's cross-attention linear. In
+    train mode their dropout draws from the forward's `generator`.
+    `cross_embed_downsample` downsamples with a stride-2 `CrossEmbedLayer`
+    of `cross_embed_downsample_kernel_sizes` (even kernels, so never kernel
+    14, whose gate takes stride-1 stems). `remat` (False, True or
+    'save_convs') recomputes every ResnetBlock, TransformerBlock and linear
+    block in the backward pass while a gradient is recorded (see
+    `blocks.ResnetBlock`). `resize_mode` is the `jax.image.resize` method
+    that resizes `cond_images`; `dropout` is accepted and read nowhere, as
+    in JAX."""
 
     def __init__(
         self,
@@ -261,6 +275,7 @@ class Unet(ConditionedUnet):
         resize_mode='nearest',
         combine_upsample_fmaps=False,
         pixel_shuffle_upsample=True,
+        remat=False,
         fused_film=False,
         dtype=F32,
         device=None,
@@ -269,12 +284,7 @@ class Unet(ConditionedUnet):
         with torch.device(resolve_device(device)):  # build on the card unless asked
             if attn_heads <= 1:
                 raise ValueError('you need more than 1 attention head')
-            if any(cast_tuple(use_linear_attn)) or any(cast_tuple(use_linear_cross_attn)):
-                raise NotImplementedError('linear attention is not ported yet')
-            if cross_embed_downsample:
-                raise NotImplementedError('cross-embed downsample is not ported yet')
-            if cond_images_channels > 0 and resize_mode != 'nearest':
-                raise NotImplementedError(f'resize_mode {resize_mode!r}: only nearest')
+            resize_kernel(resize_mode)   # raises on an unknown method
 
             # constructor arguments, for cast_model_parameters
             self._config = {k: v for k, v in locals().items()
@@ -289,6 +299,7 @@ class Unet(ConditionedUnet):
             self.dtype = dtype
             self.self_cond = self_cond
             self.cond_images_channels = cond_images_channels
+            self.resize_mode = resize_mode
 
             num_layers = len(dim_mults)
             init_dim = default(init_dim, dim)
@@ -300,12 +311,14 @@ class Unet(ConditionedUnet):
             layer_attns = cast_tuple(layer_attns, num_layers)
             layer_attns_depth = cast_tuple(layer_attns_depth, num_layers)
             layer_cross_attns = cast_tuple(layer_cross_attns, num_layers)
+            use_linear_attn = cast_tuple(use_linear_attn, num_layers)
+            use_linear_cross_attn = cast_tuple(use_linear_cross_attn, num_layers)
 
             dims = [init_dim, *(dim * m for m in dim_mults)]
             in_out = list(zip(dims[:-1], dims[1:]))
             attn_kwargs = dict(heads=attn_heads, dim_head=attn_dim_head)
             resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads, dtype=dtype,
-                                 fused_film=fused_film)
+                                 fused_film=fused_film, remat=remat)
 
             init_channels = input_channels(channels, lowres_cond, self_cond, cond_images_channels)
             if init_cross_embed:
@@ -327,37 +340,50 @@ class Unet(ConditionedUnet):
                 init_dim, init_dim, time_cond_dim=time_cond_dim,
                 use_gca=use_global_context_attn, **resnet_kwargs) if memory_efficient else None
 
-            def transformer(layer_attn, depth, dim_):
-                if not layer_attn:
-                    return None
-                return TransformerBlock(dim_, depth=depth, ff_mult=ff_mult, context_dim=cond_dim,
-                                        dtype=dtype, **attn_kwargs)
+            def transformer(layer_attn, linear, depth, dim_):
+                if layer_attn:
+                    return TransformerBlock(dim_, depth=depth, ff_mult=ff_mult,
+                                            context_dim=cond_dim, dtype=dtype, remat=remat,
+                                            **attn_kwargs)
+                if linear:
+                    return LinearAttentionTransformerBlock(
+                        dim_, depth=depth, ff_mult=ff_mult, context_dim=cond_dim, dtype=dtype,
+                        remat=remat, **attn_kwargs)
+                return None
+
+            def downsample(dim_in, dim_out):
+                if cross_embed_downsample:
+                    return CrossEmbedLayer(dim_in, cross_embed_downsample_kernel_sizes,
+                                           dim_out=dim_out, stride=2, dtype=dtype)
+                return Downsample(dim_in, dim_out, dtype=dtype)
 
             # down path: [pre_downsample, init block, blocks, transformer, post_downsample]
             self.downs = nn.ModuleList()
-            for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn) in \
-                    enumerate(zip(in_out, num_resnet_blocks, layer_attns, layer_attns_depth,
-                                  layer_cross_attns)):
+            for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn,
+                      lin_attn, lin_cross) in enumerate(zip(
+                          in_out, num_resnet_blocks, layer_attns, layer_attns_depth,
+                          layer_cross_attns, use_linear_attn, use_linear_cross_attn)):
                 is_last = ind >= (num_layers - 1)
-                layer_cond_dim = cond_dim if layer_cross_attn else None
+                layer_cond_dim = cond_dim if (layer_cross_attn or lin_cross) else None
                 current_dim = dim_out if memory_efficient else dim_in
-                pre = Downsample(dim_in, dim_out, dtype=dtype) if memory_efficient else None
+                pre = downsample(dim_in, dim_out) if memory_efficient else None
                 if memory_efficient:
                     post = None
                 elif not is_last:
-                    post = Downsample(current_dim, dim_out, dtype=dtype)
+                    post = downsample(current_dim, dim_out)
                 else:
                     post = Parallel(Conv2d(dim_in, dim_out, 3, padding=1, dtype=dtype),
                                     Conv1x1(dim_in, dim_out, dtype=dtype))
                 self.downs.append(nn.ModuleList([
                     pre,
                     ResnetBlock(current_dim, current_dim, cond_dim=layer_cond_dim,
-                                time_cond_dim=time_cond_dim, **resnet_kwargs),
+                                time_cond_dim=time_cond_dim, linear_attn=lin_cross,
+                                **resnet_kwargs),
                     nn.ModuleList([
                         ResnetBlock(current_dim, current_dim, time_cond_dim=time_cond_dim,
                                     use_gca=use_global_context_attn, **resnet_kwargs)
                         for _ in range(nblocks)]),
-                    transformer(layer_attn, attn_depth, current_dim),
+                    transformer(layer_attn, lin_attn, attn_depth, current_dim),
                     post,
                 ]))
 
@@ -365,13 +391,13 @@ class Unet(ConditionedUnet):
             mid_dim = dims[-1]
             self.mid_block1 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
                                           time_cond_dim=time_cond_dim, dtype=dtype,
-                                          fused_film=fused_film)
+                                          fused_film=fused_film, remat=remat)
             self.mid_attn = TransformerBlock(
-                mid_dim, depth=layer_mid_attns_depth, dtype=dtype,
+                mid_dim, depth=layer_mid_attns_depth, dtype=dtype, remat=remat,
                 **attn_kwargs) if attend_at_middle else None
             self.mid_block2 = ResnetBlock(mid_dim, mid_dim, cond_dim=cond_dim,
                                           time_cond_dim=time_cond_dim, dtype=dtype,
-                                          fused_film=fused_film)
+                                          fused_film=fused_film, remat=remat)
 
             # up path: [init block, blocks, transformer, upsample]
             upsample_klass = PixelShuffleUpsample if pixel_shuffle_upsample else Upsample
@@ -379,21 +405,24 @@ class Unet(ConditionedUnet):
             upsample_fmap_dims = []
             skip_dims = [dim_out if memory_efficient else dim_in for dim_in, dim_out in in_out]
             rev = lambda tup: tuple(reversed(tup))  # noqa: E731
-            for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn) in \
-                    enumerate(zip(rev(in_out), rev(num_resnet_blocks), rev(layer_attns),
-                                  rev(layer_attns_depth), rev(layer_cross_attns))):
+            for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn,
+                      lin_attn, lin_cross) in enumerate(zip(
+                          rev(in_out), rev(num_resnet_blocks), rev(layer_attns),
+                          rev(layer_attns_depth), rev(layer_cross_attns), rev(use_linear_attn),
+                          rev(use_linear_cross_attn))):
                 is_last = ind == (num_layers - 1)
-                layer_cond_dim = cond_dim if layer_cross_attn else None
+                layer_cond_dim = cond_dim if (layer_cross_attn or lin_cross) else None
                 skip_dim = skip_dims[num_layers - 1 - ind]
                 upsample_fmap_dims.append(dim_out)
                 self.ups.append(nn.ModuleList([
                     ResnetBlock(dim_out + skip_dim, dim_out, cond_dim=layer_cond_dim,
-                                time_cond_dim=time_cond_dim, **resnet_kwargs),
+                                time_cond_dim=time_cond_dim, linear_attn=lin_cross,
+                                **resnet_kwargs),
                     nn.ModuleList([
                         ResnetBlock(dim_out + skip_dim, dim_out, time_cond_dim=time_cond_dim,
                                     use_gca=use_global_context_attn, **resnet_kwargs)
                         for _ in range(nblocks)]),
-                    transformer(layer_attn, attn_depth, dim_out),
+                    transformer(layer_attn, lin_attn, attn_depth, dim_out),
                     upsample_klass(dim_out, dim_in, dtype=dtype)
                     if (not is_last or memory_efficient) else None,
                 ]))
@@ -433,7 +462,8 @@ class Unet(ConditionedUnet):
         if exists(lowres_cond_img):
             x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
         if exists(cond_images):
-            x = torch.cat((resize_image_to(cond_images, x.shape[-2]).to(x.dtype), x), dim=-1)
+            cond_images = resize_image_to(cond_images, x.shape[-2], method=self.resize_mode)
+            x = torch.cat((cond_images.to(x.dtype), x), dim=-1)
 
         x = self.init_conv(x)
         init_conv_residual = x if self.init_conv_to_final_conv_residual else None
@@ -455,7 +485,7 @@ class Unet(ConditionedUnet):
                 x = resnet_block(x, time_emb=t)
                 hiddens.append(x)
             if exists(attn_block):
-                x = attn_block(x, context=c)
+                x = attn_block(x, context=c, generator=generator)
             hiddens.append(x)
             if exists(post_downsample):
                 x = post_downsample(x)
@@ -474,7 +504,7 @@ class Unet(ConditionedUnet):
             for resnet_block in resnet_blocks:
                 x = resnet_block(add_skip(x), time_emb=t)
             if exists(attn_block):
-                x = attn_block(x, context=c)
+                x = attn_block(x, context=c, generator=generator)
             up_hiddens.append(x)
             if exists(upsample):
                 x = upsample(x)

@@ -18,12 +18,17 @@ Ported: temporal strides, `ignore_time` (train or run on still images),
 (`post_cond_video_frames`, appended, as the JAX package does),
 `cast_model_parameters`, self-conditioning (`self_cond`), cond images
 (`cond_images_channels`: a (b, h, w, c) image repeated over every frame,
-prompt frames included), and `temporal_fused_ln`, the JAX package's
-`IMAGEN_TPU_TEMPORAL_FUSED_LN=1` as a constructor keyword (off by default):
-the temporal attention sites with c >= 128 then run their LayerNorm and
-out-norm fused with the fold and unfold (kernels 12 and 13,
-`ops/temporal_layout.py`). Not ported, and raising when asked for:
-cross-embed downsample, linear attention, remat and dropout.
+prompt frames included, resized with `resize_mode`), `temporal_fused_ln`,
+the JAX package's `IMAGEN_TPU_TEMPORAL_FUSED_LN=1` as a constructor
+keyword (off by default): the temporal attention sites with c >= 128 then
+run their LayerNorm and out-norm fused with the fold and unfold (kernels 12
+and 13, `ops/temporal_layout.py`); `use_linear_attn` (a per-frame
+`LinearAttentionTransformerBlockVideo` at every level without
+`layer_attns`), `use_linear_cross_attn` (linear cross-attention at the
+levels without `layer_cross_attns`), `cross_embed_downsample` (a stride-2
+`CrossEmbedLayer` per frame, never kernel 14) and `remat` (True: every
+`ResnetBlockVideo` recomputed in the backward pass while a gradient is
+recorded). `dropout` is accepted and read nowhere, as in JAX.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from imagen_tpu_torch.models.unet2d import (
     input_channels,
 )
 from imagen_tpu_torch.models.video_blocks import (
+    LinearAttentionTransformerBlockVideo,
     ResnetBlockVideo,
     Residual,
     SpatialConvIn3d,
@@ -62,6 +68,7 @@ from imagen_tpu_torch.models.video_blocks import (
     spatial,
     unit_time,
 )
+from imagen_tpu_torch.ops.tensor_utils import resize_kernel
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
 
 
@@ -130,13 +137,7 @@ class Unet3D(ConditionedUnet):
         with torch.device(resolve_device(device)):  # build on the card unless asked
             if attn_heads <= 1:
                 raise ValueError('you need more than 1 attention head')
-            if use_linear_attn or use_linear_cross_attn:
-                raise NotImplementedError('linear attention is not ported yet')
-            if cross_embed_downsample or remat or dropout > 0:
-                raise NotImplementedError(
-                    'cross-embed downsample, remat and dropout are not ported yet')
-            if resize_mode != 'nearest':
-                raise NotImplementedError(f'resize_mode {resize_mode!r}: only nearest')
+            resize_kernel(resize_mode)   # raises on an unknown method
 
             # constructor arguments, for cast_model_parameters
             self._config = {k: v for k, v in locals().items()
@@ -150,6 +151,7 @@ class Unet3D(ConditionedUnet):
             self.max_text_len = max_text_len
             self.self_cond = self_cond
             self.cond_images_channels = cond_images_channels
+            self.resize_mode = resize_mode
             self.dtype = dtype
 
             num_layers = len(dim_mults)
@@ -173,7 +175,7 @@ class Unet3D(ConditionedUnet):
                                         fused_ln=temporal_fused_ln, **attn_kwargs,
                                         **temporal_kwargs)
             resnet_kwargs = dict(attn_dim_head=attn_dim_head, attn_heads=attn_heads,
-                                 dtype=dtype)
+                                 dtype=dtype, remat=remat)
 
             def peg(d):
                 return TemporalPeg(d, **temporal_kwargs)
@@ -206,11 +208,20 @@ class Unet3D(ConditionedUnet):
                 use_gca=use_global_context_attn, **resnet_kwargs) if memory_efficient else None
 
             def transformer(layer_attn, depth, dim_):
-                if not layer_attn:
+                klass = (TransformerBlockVideo if layer_attn else
+                         LinearAttentionTransformerBlockVideo if use_linear_attn else None)
+                if klass is None:
                     return None
-                return TransformerBlockVideo(
-                    dim_, depth=depth, ff_mult=ff_mult, ff_time_token_shift=ff_time_token_shift,
-                    context_dim=cond_dim, dtype=dtype, **attn_kwargs)
+                return klass(dim_, depth=depth, ff_mult=ff_mult,
+                             ff_time_token_shift=ff_time_token_shift, context_dim=cond_dim,
+                             dtype=dtype, **attn_kwargs)
+
+            def downsample(dim_in, dim_out):
+                if cross_embed_downsample:
+                    return unit_time(CrossEmbedLayer(
+                        dim_in, cross_embed_downsample_kernel_sizes, dim_out=dim_out, stride=2,
+                        dtype=dtype))
+                return unit_time(Downsample(dim_in, dim_out, dtype=dtype))
 
             self.downs = nn.ModuleList()
             for ind, ((dim_in, dim_out), nblocks, layer_attn, attn_depth, layer_cross_attn,
@@ -218,21 +229,22 @@ class Unet3D(ConditionedUnet):
                                                layer_attns_depth, layer_cross_attns,
                                                temporal_strides)):
                 is_last = ind >= (num_layers - 1)
-                layer_cond_dim = cond_dim if layer_cross_attn else None
+                linear_cross = not layer_cross_attn and use_linear_cross_attn
+                layer_cond_dim = cond_dim if (layer_cross_attn or linear_cross) else None
                 current_dim = dim_out if memory_efficient else dim_in
-                pre = unit_time(Downsample(dim_in, dim_out, dtype=dtype)) \
-                    if memory_efficient else None
+                pre = downsample(dim_in, dim_out) if memory_efficient else None
                 if memory_efficient:
                     post = None
                 elif not is_last:
-                    post = unit_time(Downsample(current_dim, dim_out, dtype=dtype))
+                    post = downsample(current_dim, dim_out)
                 else:
                     post = Parallel(SpatialConvIn3d(dim_in, dim_out, kernel=3, dtype=dtype),
                                     unit_time(Conv1x1(dim_in, dim_out, dtype=dtype)))
                 self.downs.append(nn.ModuleList([
                     pre,
                     ResnetBlockVideo(current_dim, current_dim, cond_dim=layer_cond_dim,
-                                     time_cond_dim=time_cond_dim, **resnet_kwargs),
+                                     time_cond_dim=time_cond_dim, linear_attn=linear_cross,
+                                     **resnet_kwargs),
                     nn.ModuleList([
                         ResnetBlockVideo(current_dim, current_dim, time_cond_dim=time_cond_dim,
                                          use_gca=use_global_context_attn, **resnet_kwargs)
@@ -248,13 +260,15 @@ class Unet3D(ConditionedUnet):
             # middle: mid blocks keep CrossAttention's defaults (dim_head 64, heads 8)
             mid_dim = dims[-1]
             self.mid_block1 = ResnetBlockVideo(mid_dim, mid_dim, cond_dim=cond_dim,
-                                               time_cond_dim=time_cond_dim, dtype=dtype)
+                                               time_cond_dim=time_cond_dim, dtype=dtype,
+                                               remat=remat)
             self.mid_attn = Residual(VideoAttention(mid_dim, dtype=dtype, **attn_kwargs)) \
                 if attend_at_middle else None
             self.mid_temporal_peg = peg(mid_dim)
             self.mid_temporal_attn = temporal_attn(mid_dim)
             self.mid_block2 = ResnetBlockVideo(mid_dim, mid_dim, cond_dim=cond_dim,
-                                               time_cond_dim=time_cond_dim, dtype=dtype)
+                                               time_cond_dim=time_cond_dim, dtype=dtype,
+                                               remat=remat)
 
             upsample_klass = PixelShuffleUpsample if pixel_shuffle_upsample else Upsample
             self.ups = nn.ModuleList()
@@ -266,12 +280,14 @@ class Unet3D(ConditionedUnet):
                                                rev(layer_attns), rev(layer_attns_depth),
                                                rev(layer_cross_attns), rev(temporal_strides))):
                 is_last = ind == (num_layers - 1)
-                layer_cond_dim = cond_dim if layer_cross_attn else None
+                linear_cross = not layer_cross_attn and use_linear_cross_attn
+                layer_cond_dim = cond_dim if (layer_cross_attn or linear_cross) else None
                 skip_dim = skip_dims[num_layers - 1 - ind]
                 upsample_fmap_dims.append(dim_out)
                 self.ups.append(nn.ModuleList([
                     ResnetBlockVideo(dim_out + skip_dim, dim_out, cond_dim=layer_cond_dim,
-                                     time_cond_dim=time_cond_dim, **resnet_kwargs),
+                                     time_cond_dim=time_cond_dim, linear_attn=linear_cross,
+                                     **resnet_kwargs),
                     nn.ModuleList([
                         ResnetBlockVideo(dim_out + skip_dim, dim_out, time_cond_dim=time_cond_dim,
                                          use_gca=use_global_context_attn, **resnet_kwargs)
@@ -344,7 +360,7 @@ class Unet3D(ConditionedUnet):
             if n % self.total_temporal_divisor:
                 raise ValueError(f'{n} conditioning frames must divide by the total temporal '
                                  f'divisor {self.total_temporal_divisor}')
-            frames_ = resize_video_to(frames_, x.shape[-2]).to(x.dtype)
+            frames_ = resize_video_to(frames_, x.shape[-2]).to(x.dtype)   # nearest, as in JAX
             if before:
                 x = torch.cat((frames_, x), dim=1)
                 num_preceding_frames = n
@@ -354,7 +370,8 @@ class Unet3D(ConditionedUnet):
 
         if exists(cond_images):   # over every frame, the prompt frames' too
             frames_ = cond_images[:, None].expand(-1, x.shape[1], -1, -1, -1)
-            x = torch.cat((resize_video_to(frames_, x.shape[-2]).to(x.dtype), x), dim=-1)
+            frames_ = resize_video_to(frames_, x.shape[-2], method=self.resize_mode)
+            x = torch.cat((frames_.to(x.dtype), x), dim=-1)
 
         x = spatial(self.init_conv, x)
         if not ignore_time:
@@ -379,7 +396,7 @@ class Unet3D(ConditionedUnet):
                 x = resnet_block(x, t, ignore_time=ignore_time)
                 hiddens.append(x)
             if exists(attn_block):
-                x = attn_block(x, context=c)
+                x = attn_block(x, context=c, generator=generator)
             if not ignore_time:
                 x = temporal_attn(temporal_peg(x))
             hiddens.append(x)
@@ -408,7 +425,7 @@ class Unet3D(ConditionedUnet):
             for resnet_block in resnet_blocks:
                 x = resnet_block(add_skip(x), t, ignore_time=ignore_time)
             if exists(attn_block):
-                x = attn_block(x, context=c)
+                x = attn_block(x, context=c, generator=generator)
             if not ignore_time:
                 x = temporal_attn(temporal_peg(x))
             up_hiddens.append(x)

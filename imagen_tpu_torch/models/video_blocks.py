@@ -32,6 +32,7 @@ from torch import nn
 from imagen_tpu_torch.models.blocks import (
     F32,
     Attention,
+    ChanLayerNorm,
     ChanRMSNorm,
     Conv1x1,
     Conv2d,
@@ -39,8 +40,11 @@ from imagen_tpu_torch.models.blocks import (
     GlobalContext,
     LayerNorm,
     Linear,
+    LinearAttention,
     TorchLayerNorm,
     ln_eps,
+    recomputed,
+    unit_time,
 )
 from imagen_tpu_torch.ops.flash_attention import (
     build_grouped_bias,
@@ -49,31 +53,35 @@ from imagen_tpu_torch.ops.flash_attention import (
     flash_grouped_cosine,
     grouped_temporal_available,
 )
-from imagen_tpu_torch.ops.fused_norm import layernorm
 from imagen_tpu_torch.ops.temporal_layout import fused_norm_untranspose, temporal_layout_available
-from imagen_tpu_torch.ops.tensor_utils import l2norm
+from imagen_tpu_torch.ops.tensor_utils import l2norm, resize_axes, resize_kernel
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
 
 # --- video resize helpers -------------------------------------------------------------------
 
-def resize_video_to(video, target_image_size, target_frames=None, clamp_range=None):
-    """Nearest resize of NFHWC video to a square size and, optionally, another
-    frame count; 'nearest-exact' samples at half-pixel centres on every axis,
-    frames included, as `jax.image.resize` does."""
+def resize_video_to(video, target_image_size, target_frames=None, clamp_range=None,
+                    method='nearest'):
+    """Resize of NFHWC video to a square size and, optionally, another frame
+    count, with a `jax.image.resize` method (`resize_axes`, in time and
+    space at once). Nearest is 'nearest-exact', which samples at half-pixel
+    centres on every axis, frames included, as `jax.image.resize` does."""
     b, f, h, w, c = video.shape
     target_frames = default(target_frames, f)
     target = (target_frames, target_image_size, target_image_size)
     if (f, h, w) == target:
         return video
-    out = F.interpolate(video.permute(0, 4, 1, 2, 3), size=target,
-                        mode='nearest-exact').permute(0, 2, 3, 4, 1)
+    if resize_kernel(method) is None:
+        out = F.interpolate(video.permute(0, 4, 1, 2, 3), size=target,
+                            mode='nearest-exact').permute(0, 2, 3, 4, 1)
+    else:
+        out = resize_axes(video, dict(zip((1, 2, 3), target)), method)
     if exists(clamp_range):
         out = out.clamp(*clamp_range)
     return out
 
 
-def scale_video_time(video, downsample_scale=1):
+def scale_video_time(video, downsample_scale=1, method='nearest'):
     """Temporal downsample of conditioning frames."""
     if downsample_scale == 1:
         return video
@@ -81,7 +89,8 @@ def scale_video_time(video, downsample_scale=1):
     if frames % downsample_scale:
         raise ValueError(f'{frames} frames not divisible by temporal downsample '
                          f'{downsample_scale}')
-    return resize_video_to(video, video.shape[-2], target_frames=frames // downsample_scale)
+    return resize_video_to(video, video.shape[-2], target_frames=frames // downsample_scale,
+                           method=method)
 
 
 # --- frame folding --------------------------------------------------------------------------
@@ -99,16 +108,6 @@ def spatial(module, x, *args, **kwargs):
     """Apply a 2D NHWC module per frame."""
     folded, b = fold_frames(x)
     return unfold_frames(module(folded, *args, **kwargs), b)
-
-
-def unit_time(module):
-    """Give every 2D conv in `module` the weight of lucidrains' video `Conv2d`,
-    an nn.Conv3d with a unit time kernel: (O, I, kh, kw) -> (O, I, 1, kh, kw).
-    `Conv1x1` and `Conv2d` compute the same with either shape."""
-    for m in module.modules():
-        if isinstance(m, (Conv1x1, Conv2d)) and m.weight.ndim == 4:
-            m.weight = nn.Parameter(m.weight.detach()[:, :, None])
-    return module
 
 
 def _shift_frames(x, s):
@@ -383,18 +382,6 @@ class TimeTokenShift(nn.Module):
         return torch.cat((keep, _shift_frames(shift, 1)), dim=-1)
 
 
-class ChanLayerNorm(LayerNorm):
-    """Bias-free LayerNorm over channels, gain held as lucidrains' video
-    ChanLayerNorm's (1, C, 1, 1, 1)."""
-
-    def __init__(self, dim):
-        super().__init__(dim)
-        self.g = nn.Parameter(torch.ones(1, dim, 1, 1, 1))
-
-    def forward(self, x):
-        return layernorm(x, self.g.reshape(-1), ln_eps(x.dtype))
-
-
 class ChanFeedForwardVideo(nn.Sequential):
     """ChanLayerNorm -> 1x1 -> GELU -> TimeTokenShift -> ChanLayerNorm -> 1x1,
     no biases (Sequential indices 0, 1, 4, 5 hold the parameters)."""
@@ -402,11 +389,11 @@ class ChanFeedForwardVideo(nn.Sequential):
     def __init__(self, dim, mult=2., time_token_shift=True, dtype=F32):
         hidden_dim = int(dim * mult)
         super().__init__(
-            ChanLayerNorm(dim),
+            ChanLayerNorm(dim, video=True),
             unit_time(Conv1x1(dim, hidden_dim, bias=False, dtype=dtype)),
             nn.GELU(),
             TimeTokenShift() if time_token_shift else nn.Identity(),
-            ChanLayerNorm(hidden_dim),
+            ChanLayerNorm(hidden_dim, video=True),
             unit_time(Conv1x1(hidden_dim, dim, bias=False, dtype=dtype)),
         )
 
@@ -433,12 +420,14 @@ class BlockVideo(nn.Module):
 
 
 class ResnetBlockVideo(nn.Module):
-    """Video resnet block: cross-attention over the flattened (f h w) tokens,
-    GlobalContext pooled over all of them."""
+    """Video resnet block: cross-attention (linear with `linear_attn`) over
+    the flattened (f h w) tokens, GlobalContext pooled over all of them.
+    With `remat` the block is recomputed in the backward pass."""
 
     def __init__(self, dim, dim_out, cond_dim=None, time_cond_dim=None, linear_attn=False,
-                 use_gca=False, attn_dim_head=64, attn_heads=8, dtype=F32):
+                 use_gca=False, attn_dim_head=64, attn_heads=8, dtype=F32, remat=False):
         super().__init__()
+        self.remat = bool(remat)
         self.time_mlp = nn.Sequential(
             nn.SiLU(), Linear(time_cond_dim, dim_out * 2, dtype=dtype),
         ) if exists(time_cond_dim) else None
@@ -452,6 +441,9 @@ class ResnetBlockVideo(nn.Module):
             if dim != dim_out else None
 
     def forward(self, x, time_emb=None, cond=None, ignore_time=False):
+        return recomputed(self._forward, x, time_emb, cond, ignore_time, enabled=self.remat)
+
+    def _forward(self, x, time_emb, cond, ignore_time):
         scale_shift = None
         if exists(self.time_mlp) and exists(time_emb):
             t = self.time_mlp(time_emb)
@@ -479,7 +471,9 @@ class ResnetBlockVideo(nn.Module):
 
 
 class TransformerBlockVideo(nn.Module):
-    """Full attention over (f h w) tokens + the token-shift channel FF."""
+    """Full attention over (f h w) tokens + the token-shift channel FF.
+    `generator` is taken, and unused, as the linear block takes it for its
+    dropout."""
 
     def __init__(self, dim, depth=1, heads=8, dim_head=32, ff_mult=2.,
                  ff_time_token_shift=True, context_dim=None, dtype=F32):
@@ -492,7 +486,7 @@ class TransformerBlockVideo(nn.Module):
                                      dtype=dtype),
             ]) for _ in range(depth)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, generator=None):
         b, f, hh, ww, c = x.shape
         for attn, ff in self.layers:
             tokens = x.reshape(b, f * hh * ww, c)
@@ -503,8 +497,30 @@ class TransformerBlockVideo(nn.Module):
 
 
 class LinearAttentionTransformerBlockVideo(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError('linear attention is not ported yet')
+    """Per-frame spatial linear attention (frames folded into the batch, the
+    context repeated per frame) + the token-shift channel FF. Parameters
+    in lucidrains' video shapes: unit-time convs, (1, C, 1, 1, 1) gains."""
+
+    def __init__(self, dim, depth=1, heads=8, dim_head=32, ff_mult=2.,
+                 ff_time_token_shift=True, context_dim=None, dtype=F32):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            nn.ModuleList([
+                LinearAttention(dim, heads=heads, dim_head=dim_head, context_dim=context_dim,
+                                video=True, dtype=dtype),
+                ChanFeedForwardVideo(dim, mult=ff_mult, time_token_shift=ff_time_token_shift,
+                                     dtype=dtype),
+            ]) for _ in range(depth)])
+
+    def forward(self, x, context=None, generator=None):
+        b, f = x.shape[:2]
+        ctx = None if context is None else context.repeat_interleave(f, dim=0)
+        for attn, ff in self.layers:
+            folded, _ = fold_frames(x)
+            folded = attn(folded, context=ctx, generator=generator) + folded
+            x = unfold_frames(folded, b)
+            x = ff(x) + x
+        return x
 
 
 # --- temporal resolution changers -----------------------------------------------------------

@@ -88,3 +88,13 @@ def multihead_attention(q, k, v, *, scale, mask=None, attn_bias=None, null_token
         sim = sim + attn_bias
     attn = _masked_softmax_fp32(sim, mask, null_tokens)
     return torch.einsum('bhij,bhjd->bhid', attn, v)
+
+
+def kernelized_linear_attention(q, k, v, *, scale):
+    """softmax(q, -1) . softmax(k, -2) linear attention; q, k, v are
+    (b*, n, d) with the heads folded into the batch. The JAX package
+    computes it outside any Pallas kernel, so it stays plain here."""
+    q = torch.softmax(q, dim=-1) * scale
+    k = torch.softmax(k, dim=-2)
+    context = torch.einsum('bnd,bne->bde', k, v)
+    return torch.einsum('bnd,bde->bne', q, context)

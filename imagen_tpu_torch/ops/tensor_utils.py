@@ -4,6 +4,9 @@ Images are NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,19 +53,109 @@ def masked_mean(t, *, dim, mask=None):
     return masked_t.sum(dim=dim) / denom.clamp(min=1e-5)
 
 
-def resize_image_to(image, target_image_size, clamp_range=None):
-    """Nearest resize of an NHWC batch to a square size, then clamped to
-    `clamp_range` (lo, hi) when given.
+def resize_image_to(image, target_image_size, clamp_range=None, method='nearest'):
+    """Resize of an NHWC batch to a square size with a `jax.image.resize`
+    method (`resize_axes`), then clamped to `clamp_range` (lo, hi) when given.
 
-    'nearest-exact' samples at half-pixel centres, as `jax.image.resize` does.
+    Nearest is 'nearest-exact', which samples at half-pixel centres, as
+    `jax.image.resize` does.
     """
     if image.shape[-2] == target_image_size:
         return image
-    out = F.interpolate(image.permute(0, 3, 1, 2), size=target_image_size,
-                        mode='nearest-exact').permute(0, 2, 3, 1)
+    if resize_kernel(method) is None:
+        out = F.interpolate(image.permute(0, 3, 1, 2), size=target_image_size,
+                            mode='nearest-exact').permute(0, 2, 3, 1)
+    else:
+        out = resize_axes(image, {1: target_image_size, 2: target_image_size}, method)
     if exists(clamp_range):
         out = out.clamp(*clamp_range)
     return out
+
+
+# --- jax.image.resize's scale-and-translate ------------------------------------------------
+
+def _triangle(x):
+    return np.maximum(x.dtype.type(0.), 1 - np.abs(x))
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel with a = -0.5."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.
+    out = np.where(x >= 1., ((-0.5 * x + 2.5) * x - 4.) * x + 2., out)
+    return np.where(x >= 2., 0., out)
+
+
+def _lanczos(radius):
+    def kernel(x):
+        y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
+        with np.errstate(divide='ignore', invalid='ignore'):
+            out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1.), 1.)
+        return np.where(x > radius, 0., out)
+    return kernel
+
+
+_RESIZE_KERNELS = {
+    'nearest': None,
+    **dict.fromkeys(('linear', 'bilinear', 'trilinear', 'triangle'), _triangle),
+    **dict.fromkeys(('cubic', 'bicubic', 'tricubic'), _keys_cubic),
+    'lanczos3': _lanczos(3.),
+    'lanczos5': _lanczos(5.),
+}
+
+
+def resize_kernel(method):
+    """The interpolation kernel of a `jax.image.resize` method name (None
+    for nearest); raises on an unknown name."""
+    if method not in _RESIZE_KERNELS:
+        raise ValueError(f'unknown resize method {method!r}; expected one of '
+                         f'{sorted(_RESIZE_KERNELS)}')
+    return _RESIZE_KERNELS[method]
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_matrix(in_size, out_size, method):
+    """`jax.image.resize`'s (in, out) weight matrix for one axis: the kernel
+    sampled at half-pixel centres, widened by the scale factor when the
+    axis shrinks (the antialias), each column normalised to sum 1, and zero
+    where the sample falls outside the input. In float32 arithmetic, step
+    for step as JAX makes it, whose float32 rounding of the weights shows
+    at 1e-5 in the result."""
+    f32 = np.float32
+    kernel = resize_kernel(method)
+    inv_scale = f32(1. / (out_size / in_size))
+    kernel_scale = np.maximum(inv_scale, f32(1.))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = kernel(x).astype(f32)
+    total = weights.sum(axis=0, keepdims=True, dtype=f32)
+    weights = np.where(np.abs(total) > f32(1000. * np.finfo(f32).eps),
+                       weights / np.where(total != 0, total, f32(1.)), f32(0.))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.from_numpy(np.where(inside[None, :], weights, f32(0.)).astype(f32))
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_matrix_on(in_size, out_size, method, device, dtype):
+    """`_resize_matrix` in `dtype` on `device`, kept: a forward that resizes
+    its cond images then copies no matrix to the card."""
+    return _resize_matrix(in_size, out_size, method).to(device, dtype)
+
+
+def resize_axes(x, sizes, method):
+    """`x` resized along each axis of `sizes` ({axis: size}) with a
+    `jax.image.resize` method other than nearest: one (in, out) weight
+    matrix per axis that changes size (`_resize_matrix`), applied one axis
+    at a time in fp32 (float64 for a float64 input); the result in x's
+    dtype. One path for images and for video in time and space."""
+    dtype = x.dtype
+    compute = torch.promote_types(dtype, torch.float32)
+    out = x.to(compute)
+    for axis, size in sorted(sizes.items()):
+        if out.shape[axis] == size:
+            continue
+        w = _resize_matrix_on(out.shape[axis], size, method, out.device, compute)
+        out = torch.movedim(torch.movedim(out, axis, -1) @ w, -1, axis)
+    return out.to(dtype)
 
 
 def cast_uint8_images_to_float(images):

@@ -76,7 +76,7 @@ class ImagenServer:
         return self.imagen.sample(text_embeds=text_embeds, text_masks=text_masks,
                                   cond_scale=cond_scale,
                                   lowres_sample_noise_level=self.lowres_sample_noise_level,
-                                  generator=generator, **kwargs)
+                                  use_tqdm=False, generator=generator, **kwargs)
 
     def _pad_request(self, text_embeds, text_masks):
         """Pad or cut a request to (batch_size, text_len)."""

@@ -498,8 +498,9 @@ class ImagenTrainer:
     def valid_step(self, *, unet_number=None, max_batch_size=None, use_ema_unets=False,
                    **kwargs):
         """The loss of unet `unet_number` (its EMA copy with `use_ema_unets`)
-        on the next validation batch, in eval mode with no gradient; chunks
-        of at most `max_batch_size` rows weighted by their size."""
+        on the next validation batch with no gradient (the loss runs the unet
+        in train mode, dropout on, as the JAX trainer's validation loss
+        does); chunks of at most `max_batch_size` rows weighted by their size."""
         if not self.prepared:
             self.prepare()
         self.create_valid_iter()
@@ -508,14 +509,12 @@ class ImagenTrainer:
         self._ensure_state(index)
         batch = self._prepare_batch({**batch, **kwargs})
         unet = self.ema_unets[index] if use_ema_unets and self.use_ema else self.unets[index]
-        online, was_training = self.unets[index], unet.training
+        online = self.unets[index]
         self.imagen.unets[index] = unet
-        unet.eval()
         try:
             loss = sum(chunk_loss * weight for chunk_loss, weight in
                        self._chunk_losses(index, batch, max_batch_size))
         finally:
-            unet.train(was_training)
             self.imagen.unets[index] = online
         return self._loss_out(loss)
 

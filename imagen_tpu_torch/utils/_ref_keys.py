@@ -2,15 +2,19 @@
 
 The port's own copy of the tables in `tools/port_weights.py` (`ref_key_for`,
 2D `Unet`) and `tools/port_weights_video.py` (`ref_key_for_video`,
-`Unet3D`), so that the port imports nothing of the JAX side's tooling. Only
-what the port's modules carry is kept (no linear attention). The video table
-differs from its original where the original cannot have been exercised:
+`Unet3D`), so that the port imports nothing of the JAX side's tooling. The
+video table differs from its original where the original cannot have been
+exercised:
 
 - `down_{i}_temporal_down` and `up_{i}_temporal_up` (the names `Unet3D`
   gives its temporal resamplers; the original spelled them `..._downsample`
   and `..._upsample`, so `temporal_strides > 1` found no key);
 - `init_resnet_block` (`memory_efficient=True`) and `init_conv/conv`
-  (`init_cross_embed=False`), which the original did not map.
+  (`init_cross_embed=False`), which the original did not map;
+- the linear attention of `LinearAttentionTransformerBlockVideo` and the
+  cross-embed downsample (`down_{i}_pre/conv_{j}`, `down_{i}_post/conv_{j}`),
+  which the original does not have: named here after the 2D keys, and not
+  checked against a lucidrains `Unet3D` checkpoint.
 """
 from __future__ import annotations
 
@@ -60,11 +64,36 @@ def _self_attn(rest):
     return _cross_attn(rest)
 
 
+def _linear_attn(rest):
+    """LinearAttention: the q, k and v stacks (Dropout, 1x1 conv, depthwise
+    3x3 conv), the context projection and the output conv and norm."""
+    m = re.fullmatch(r'to_([qkv])_(proj|dw)/kernel', rest)
+    if m:
+        return f'to_{m.group(1)}.{1 if m.group(2) == "proj" else 2}.weight'
+    return {
+        'LayerNorm_0/g': 'norm.g',
+        'ctx_norm/LayerNorm_0/scale': 'to_context.0.weight',
+        'ctx_norm/LayerNorm_0/bias': 'to_context.0.bias',
+        'to_context/kernel': 'to_context.1.weight',
+        'to_out/kernel': 'to_out.0.weight',
+        'out_norm/g': 'to_out.1.g',
+    }[rest]
+
+
+def _any_attn(rest, table):
+    """`table`'s key, or the LinearAttention key of a linear block's sublayer."""
+    try:
+        return table(rest)
+    except KeyError:
+        return _linear_attn(rest)
+
+
 def _transformer(rest):
-    """TransformerBlock: layers.{d}.(0: attention | 1: feedforward)."""
+    """TransformerBlock or LinearAttentionTransformerBlock:
+    layers.{d}.(0: attention | 1: feedforward)."""
     m = re.fullmatch(r'attn_(\d+)/(.*)', rest)
     if m:
-        return f'layers.{m.group(1)}.0.' + _self_attn(m.group(2))
+        return f'layers.{m.group(1)}.0.' + _any_attn(m.group(2), _self_attn)
     m = re.fullmatch(r'ff_(\d+)/(.*)', rest)
     if m:
         return f'layers.{m.group(1)}.1.' + _ff(m.group(2))
@@ -195,6 +224,10 @@ def ref_key_for(path: str) -> str:
     m = re.fullmatch(r'down_(\d+)_pre/conv/(kernel|bias)', path)
     if m:
         return f'downs.{m.group(1)}.0.1.{_wb(m.group(2))}'
+    m = re.fullmatch(r'down_(\d+)_(pre|post)/conv_(\d+)/(kernel|bias)', path)
+    if m:   # cross-embed downsample
+        slot = 0 if m.group(2) == 'pre' else 4
+        return f'downs.{m.group(1)}.{slot}.convs.{m.group(3)}.{_wb(m.group(4))}'
     m = re.fullmatch(r'down_(\d+)_init_block/(.*)', path)
     if m:
         return f'downs.{m.group(1)}.1.' + _resnet(m.group(2))
@@ -295,10 +328,11 @@ def _temporal_attn(rest):
 
 
 def _transformer_video(rest):
-    """TransformerBlockVideo: layers.{d}.(0: attention | 1: chan FF with token shift)."""
+    """TransformerBlockVideo or LinearAttentionTransformerBlockVideo:
+    layers.{d}.(0: attention | 1: chan FF with token shift)."""
     m = re.fullmatch(r'attn_(\d+)/(.*)', rest)
     if m:
-        return f'layers.{m.group(1)}.0.' + _video_attn(m.group(2))
+        return f'layers.{m.group(1)}.0.' + _any_attn(m.group(2), _video_attn)
     m = re.fullmatch(r'ff_(\d+)/(.*)', rest)
     if m:
         return f'layers.{m.group(1)}.1.' + _ff_chan_video(m.group(2))
@@ -363,6 +397,10 @@ def ref_key_for_video(path: str) -> str:
     m = re.fullmatch(r'down_(\d+)_pre/conv/(kernel|bias)', path)
     if m:
         return f'downs.{m.group(1)}.0.1.{_wb(m.group(2))}'
+    m = re.fullmatch(r'down_(\d+)_(pre|post)/conv_(\d+)/(kernel|bias)', path)
+    if m:   # cross-embed downsample
+        slot = 0 if m.group(2) == 'pre' else 7
+        return f'downs.{m.group(1)}.{slot}.convs.{m.group(3)}.{_wb(m.group(4))}'
     m = re.fullmatch(r'down_(\d+)_init_block/(.*)', path)
     if m:
         return f'downs.{m.group(1)}.1.' + _resnet_video(m.group(2))

@@ -44,3 +44,15 @@ def resolve_device(device=None):
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device is available: pass device="cpu" to build on the CPU')
     return device
+
+
+def stage_progress(iterable, *, enabled, desc, total=None):
+    """A per-stage progress bar over the cascade's stage loop, or the
+    iterable itself when disabled or when tqdm is not installed."""
+    if not enabled:
+        return iterable
+    try:
+        from tqdm.auto import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, desc=desc, unit='stage', total=total, leave=False)

@@ -42,8 +42,6 @@ def unet_from_config(klass, config, device=None):
     config = dict(restore_index_dicts(config))
     if isinstance(config.get('dtype'), str):
         config['dtype'] = _DTYPES[config['dtype']]
-    if config.pop('remat', False):
-        raise NotImplementedError('remat is not ported yet (ROADMAP.md queue 1, item 5)')
     config = {k: tuple(v) if isinstance(v, list) else v for k, v in config.items()}
     return klass(**config, device=device)
 

@@ -20,6 +20,13 @@ time kernel, so most video convs carry 5-D weights:
 - the temporal resamplers' Dense (I, O) -> Conv1d (O, I, 1);
 - the video feedforward's ChanLayerNorm gains (C,) -> (1, C, 1, 1, 1).
 
+A linear-attention block (LinearAttention + ChanFeedForward, found by its
+`to_q_proj` leaf) holds lucidrains' channel shapes: its Dense kernels are
+1x1 conv weights (O, I, 1, 1), (O, I, 1, 1, 1) for video, except the
+context projection's, which stays a Linear; its gains are ChanLayerNorm's
+(1, C, 1, 1), (1, C, 1, 1, 1) for video; the depthwise 3x3 kernel
+(3, 3, 1, C) becomes (C, 1, 3, 3), (C, 1, 1, 3, 3) for video.
+
 lucidrains allocates `null_attn_bias` on every video attention; the JAX
 package, and so the port, holds it only where a relative position bias uses
 it (the temporal attentions, not `mid_attn`), so it is neither produced
@@ -49,6 +56,14 @@ _VIDEO_CONV1D = re.compile(r'(downs\.\d+\.6|ups\.\d+\.5)\.conv\.weight$')
 # video: ChanLayerNorm gains of the feedforward, (1, C, 1, 1, 1)
 _VIDEO_CHAN_LN = re.compile(r'(downs\.\d+\.3|ups\.\d+\.2)\.layers\.\d+\.1\.[04]\.g$')
 _VIDEO_PATH = re.compile(r'(^|/)(\w+_temporal_(peg|attn|down|up)|spatial_conv)(/|$)')
+# the JAX path of a linear-attention block, from one of its LinearAttention leaves
+_LINEAR_BLOCK = re.compile(r'^(.*/)attn_\d+/to_q_proj/kernel$')
+
+
+def _chan_kernel(ref_key, chan):
+    """Whether a Dense kernel of a linear-attention block is a 1x1 conv's
+    (all but the context projection's)."""
+    return chan and not ref_key.endswith('to_context.1.weight')
 
 
 def _flatten(tree, prefix=()):
@@ -59,24 +74,27 @@ def _flatten(tree, prefix=()):
             yield '/'.join(prefix + (name,)), value
 
 
-def _to_torch_layout(a, ref_key, leaf):
+def _to_torch_layout(a, ref_key, leaf, chan=False):
     if leaf == 'kernel':
         if a.ndim == 2:
             a = a.T
-            return a[:, :, None, None] if _CONV1X1.search(ref_key) else a
+            conv = _CONV1X1.search(ref_key) or _chan_kernel(ref_key, chan)
+            return a[:, :, None, None] if conv else a
         if a.ndim == 4:
             return a.transpose(3, 2, 0, 1)  # (kh, kw, I, O) -> (O, I, kh, kw)
         raise ValueError(f'kernel of rank {a.ndim} at {ref_key}')
     if _CHAN_GAMMA.search(ref_key):
         return a.reshape(-1, 1, 1)
+    if chan and leaf == 'g':
+        return a.reshape(1, -1, 1, 1)
     return a
 
 
-def _to_torch_layout_video(a, ref_key, path):
+def _to_torch_layout_video(a, ref_key, path, chan=False):
     if path.endswith('/kernel'):
         if a.ndim == 2:
             a = a.T
-            if _VIDEO_CONV1X1X1.search(ref_key):
+            if _VIDEO_CONV1X1X1.search(ref_key) or _chan_kernel(ref_key, chan):
                 return a[:, :, None, None, None]
             return a[:, :, None] if _VIDEO_CONV1D.search(ref_key) else a
         if a.ndim == 3:
@@ -89,7 +107,7 @@ def _to_torch_layout_video(a, ref_key, path):
         raise ValueError(f'kernel of rank {a.ndim} at {ref_key}')
     if _CHAN_GAMMA.search(ref_key):
         return a.reshape(-1, 1, 1)
-    if _VIDEO_CHAN_LN.search(ref_key):
+    if _VIDEO_CHAN_LN.search(ref_key) or (chan and path.endswith('/g')):
         return a.reshape(1, -1, 1, 1, 1)
     return a
 
@@ -105,15 +123,18 @@ def state_dict_from_jax(flax_params, video=None):
     leaves = list(_flatten(flax_params))
     if video is None:
         video = any(_VIDEO_PATH.search(path) for path, _ in leaves)
+    linear_blocks = tuple({m.group(1) for path, _ in leaves
+                           if (m := _LINEAR_BLOCK.match(path))})
     out = {}
     for path, leaf in leaves:
         key = ref_key_for_video(path) if video else ref_key_for(path)
         if key in out:
             raise KeyError(f'two JAX leaves map to {key!r} (second: {path!r})')
         a = np.asarray(leaf, dtype=np.float32)
+        chan = path.startswith(linear_blocks)
         if video:
-            a = _to_torch_layout_video(a, key, path)
+            a = _to_torch_layout_video(a, key, path, chan)
         else:
-            a = _to_torch_layout(a, key, path.rsplit('/', 1)[-1])
+            a = _to_torch_layout(a, key, path.rsplit('/', 1)[-1], chan)
         out[key] = torch.from_numpy(np.array(a, dtype=np.float32, order='C'))
     return out

@@ -264,19 +264,20 @@ def test_what_is_still_unported_raises(monkeypatch):
             imagen.sample(text_embeds=emb, noise_override=[{'renoise_noise': torch.zeros(1)}])
     with pytest.raises(ValueError):   # cond channels and no cond images
         _tiny('ddpm', cond_images_channels=3).sample(text_embeds=emb)
-    with pytest.raises(NotImplementedError):
-        it.Unet(**TINY, cross_embed_downsample=True, device='cpu')
-    with pytest.raises(NotImplementedError):
-        it.Unet(**TINY, cond_images_channels=3, resize_mode='bilinear', device='cpu')
-    for bad in (dict(remat=True), dict(dropout=0.1)):
-        with pytest.raises(NotImplementedError):
-            it.Unet3D(**TINY3D, **bad, device='cpu')
-    # video EDM builds; the prompt frames' time scaling cannot be turned off
+    # the options that used to raise here build (test_torch_unet_options.py,
+    # test_torch_remat.py and test_torch_resize.py hold them to JAX); an
+    # unknown resize method raises
+    it.Unet(**TINY, cross_embed_downsample=True, device='cpu')
+    it.Unet(**TINY, cond_images_channels=3, resize_mode='bilinear', device='cpu')
+    for ported in (dict(remat=True), dict(dropout=0.1)):
+        it.Unet3D(**TINY3D, **ported, device='cpu')
     it.ElucidatedImagen((it.Unet3D(**TINY3D, device='cpu'),), image_sizes=(8,),
-                        text_embed_dim=16, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+                        text_embed_dim=16, resize_cond_video_frames=False, device='cpu')
+    with pytest.raises(ValueError):
+        it.Unet(**TINY, cond_images_channels=3, resize_mode='area', device='cpu')
+    with pytest.raises(ValueError):
         it.ElucidatedImagen((it.Unet3D(**TINY3D, device='cpu'),), image_sizes=(8,),
-                            text_embed_dim=16, resize_cond_video_frames=False, device='cpu')
+                            text_embed_dim=16, resize_mode='area', device='cpu')
 
 
 # --- the server's keywords --------------------------------------------------------------

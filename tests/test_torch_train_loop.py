@@ -118,7 +118,7 @@ def test_train_valid_and_dl_iter_steps_match_jax(trainers):
     for use_ema in (False, True):
         _close(ttrainer.valid_step(unet_number=1, max_batch_size=2, use_ema_unets=use_ema),
                jtrainer.valid_step(unet_number=1, max_batch_size=2, use_ema_unets=use_ema))
-    assert ttrainer.unets[0].training   # eval mode only inside valid_step
+    assert ttrainer.unets[0].training   # the trainer leaves its unets in train mode
 
     batch = tuple(np.stack(col) for col in zip(*ds[:4]))
     _close(ttrainer.step_with_dl_iter(iter([batch]), unet_number=1, max_batch_size=2),

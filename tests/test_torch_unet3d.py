@@ -103,9 +103,12 @@ def test_unet3d_cast_and_checks():
     sr = unet.cast_model_parameters(lowres_cond=True, text_embed_dim=16, channels=3,
                                     channels_out=None, cond_on_text=True)
     assert sr.lowres_cond and isinstance(sr, it.Unet3D)
-    for bad in (dict(remat=True), dict(dropout=0.1), dict(use_linear_attn=True)):
-        with pytest.raises(NotImplementedError):
-            it.Unet3D(**TINY, **bad, device='cpu')
+    # the options that used to raise here build (test_torch_unet_options.py and
+    # test_torch_remat.py hold them to JAX); an unknown resize method raises
+    for ported in (dict(remat=True), dict(dropout=0.1), dict(use_linear_attn=True)):
+        it.Unet3D(**TINY, **ported, device='cpu')
+    with pytest.raises(ValueError):
+        it.Unet3D(**TINY, resize_mode='area', device='cpu')
     with pytest.raises(ValueError):  # 3 frames, temporal divisor 2
         it.Unet3D(**TINY, temporal_strides=(2, 1), device='cpu')(
             torch.zeros(1, 3, S, S, 3), torch.zeros(1))

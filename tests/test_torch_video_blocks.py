@@ -202,8 +202,15 @@ def test_transformer_block_video_matches_jax():
 
 
 def test_linear_attention_block_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        vb.LinearAttentionTransformerBlockVideo(8)
+    """The block that used to raise here is ported
+    (`test_torch_linear_attention.py` holds it to JAX): it builds with
+    lucidrains' video shapes and keeps the clip's shape."""
+    block = vb.LinearAttentionTransformerBlockVideo(8, heads=2, dim_head=4)
+    shapes = {k: tuple(v.shape) for k, v in block.state_dict().items()}
+    assert shapes['layers.0.0.to_q.2.weight'] == (8, 1, 1, 3, 3)
+    assert shapes['layers.0.0.norm.g'] == (1, 8, 1, 1, 1)
+    x = torch.randn(2, 3, 4, 4, 8)
+    assert block.eval()(x).shape == x.shape
 
 
 # --- temporal resolution (item 7) -----------------------------------------------------------
