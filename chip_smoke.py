@@ -113,6 +113,24 @@ parameters and random weights from a seed:
   forward-hook counts (which fire again, as the kernels launch again, in
   remat's recompute), and the stride-2 cross-embed downsample calls are
   counted: kernel 14 never takes one.
+- parallel: the trainer on several GPUs, as two ranks on the one card.
+  NullUnet + SRUnet256 at its published widths, bf16 compute, Adam at lr
+  1e-5, batch 4 at 256 px: the one-process trainer takes 3 steps and
+  samples; then two worker processes (this script with `--parallel-worker`,
+  gloo over a FileStore, killed after PARALLEL_WORKER_TIMEOUT s) take, each
+  on its 2 rows, 2 steps of data parallelism and of ZeRO-1, 3 of FSDP and,
+  with `data=1, model=2` on all 4 rows, 2, each held to the one-process run
+  (losses rtol 2e-4; 4096 elements strided over every weight and EMA
+  tensor rtol 1e-3 atol 5e-4, and their change from the start within
+  PARALLEL_CHANGE_RTOL of the one process's in norm). FSDP saves a sharded
+  checkpoint after step 2, which it loads after step 3 to take step 3
+  again as it did; then its default bundle, which this process
+  loads into a one-process trainer bit for bit, and a sample of batch 1
+  held to the one-process sample. Each rank's kernels 6, 10 and 14 are held
+  to forward-hook counts, at inputs of the rank's rows; the bytes of
+  parameters, optimiser state and EMA per rank (FSDP's and ZeRO-1's about
+  half of data parallelism's). Then a one-rank NCCL group takes a data
+  parallel and an FSDP step.
 Every path's cross-embed stem runs kernel 14: its gate admits the stem of
 every U-Net above.
 The launch counts are set to 0 just before each path and read just after;
@@ -152,7 +170,11 @@ save's file, bytes and seconds, the folder after rotation, the resumed
 trainer's build-and-load time and its bit-for-bit checks, one more load's
 bytes and seconds, the checkpoint's rebuild time, the sample's latency,
 shape and range, the hook counts against the launches, and the loop's wall
-time and peak memory;
+time and peak memory; for parallel, per mode and rank the losses against
+the one-process run, the weights' and EMA's worst excess over the
+tolerance, the rows the kernel sites saw, step times, peak memory, bytes,
+launches against hook counts, FSDP's checkpoint sizes and seconds, the
+resumed step and the sample's difference, and the NCCL steps;
 per-kernel errors, CUDA-event times, device times and bounds at each shape
 (with the unfused route's time and device time for kernels 8, 10, 11, 12, 13
 and 14, and its factor over the kernel's device time; kernels 7, 10, 11 and
@@ -310,7 +332,7 @@ PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr102
          'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
          'video_edm', 'video_edm_training', 'video_edm_training_stills', 'train_loop',
          'train_loop_sampling', 'unet_options', 'unet_options_training',
-         'unet_options_video')
+         'unet_options_video', 'parallel')
 # unet_options: SRUnet256's published widths with the options of the JAX parity
 # test's SR_CFG pattern (tests/test_reference_parity.py:38-46); linear attention
 # at its 64^2 and 32^2 levels (memory_efficient downsamples 256 -> 128 first)
@@ -2010,6 +2032,466 @@ def phase_unet_options(torch, it, build, results):
 
 # --- each kernel against its plain version --------------------------------------------
 
+# --- several GPUs: data parallelism, ZeRO-1, FSDP and the 'model' axis ----------------------
+
+PARALLEL_BATCH = 4             # the global batch: two rows a rank
+PARALLEL_SIZES = (64, 256)     # NullUnet's and SRUnet256's image sizes
+PARALLEL_LR = 1e-5             # Adam's lr-sized steps on near-zero gradients bound the drift
+PARALLEL_SAMPLE_STEPS = 2      # the SR stage's steps in the sample off the FSDP weights
+PARALLEL_SAMPLE_ATOL = 2e-2    # the sample against the one-process one: a few bf16 steps near 1
+PARALLEL_WORKER_TIMEOUT = 420  # seconds; a worker past it is killed and the phase fails
+PARALLEL_PROBE = 4096          # elements of every tensor held to the one-process run, strided
+# a mode's change of the probes from the start against the one-process change: the
+# norm of their difference at most this share of the one-process change's norm. Adam
+# moves every weight by about lr, so a mode that drops an update or a reduction is off
+# by a large share (a planted fault: 0.47-0.88, H100 80GB HBM3 at 700 W), while bf16 at
+# a rank's 2 rows against the one process's 4 is off by 0.021-0.029 (the same run; the
+# 0.02 that tests/test_torch_train_loop.py holds fp32 on the CPU to is below that)
+PARALLEL_CHANGE_RTOL = 0.1
+# modes that gloo refuses on CUDA tensors, which then run in the one-rank NCCL group
+# instead of on two ranks: none, gloo took every collective of every mode on the card
+GLOO_REFUSED = ()
+PARALLEL_MODES = (   # (name, mesh (data, model), trainer options, steps)
+    ('ddp', (2, 1), {}, 2),
+    ('zero1', (2, 1), {'shard_optimizer_states': True}, 2),
+    ('fsdp', (2, 1), {'fsdp': True}, 3),
+    ('tp', (1, 2), {}, 2),
+)
+PARALLEL_KERNELS = ('conv2d_same_3x3_bf16', 'fused_feedforward_bf16', STEM_KERNEL)
+
+
+def parallel_trainer(torch, it, **options):
+    """NullUnet + SRUnet256 at its published widths (`sr256_config()`), bf16
+    compute over fp32 weights, the same seeded weights on every rank and in
+    the one-process run; Adam at PARALLEL_LR with clipping and an EMA every
+    step. A process makes one trainer at a time, several in all, so the
+    once-a-process lock is released first."""
+    torch.manual_seed(80)
+    imagen = it.ImagenConfig(unets=[{'is_null': True}, sr256_config()],
+                             image_sizes=list(PARALLEL_SIZES),
+                             timesteps=[2 * SR_STEPS, PARALLEL_SAMPLE_STEPS],
+                             cond_drop_prob=0.1).create()
+    randomize_final_conv(imagen.unets[1], 81)
+    it.ImagenTrainer.locked = False
+    return it.ImagenTrainer(imagen, lr=PARALLEL_LR, max_grad_norm=1.0, use_ema=True,
+                            ema_update_after_step=0, ema_update_every=1, precision='bf16',
+                            only_train_unet_number=2, seed=0, verbose=False, **options)
+
+
+def parallel_batch(torch):
+    g = torch.Generator(device='cuda').manual_seed(82)
+    emb, mask = text_batch(torch, g, PARALLEL_BATCH)
+    size = PARALLEL_SIZES[1]
+    return dict(images=torch.rand((PARALLEL_BATCH, size, size, 3), generator=g, device='cuda'),
+                text_embeds=emb, text_masks=mask)
+
+
+def parallel_step(trainer, batch, step):
+    """Step `step` (from 1) of unet 2. The generator is seeded anew before the
+    third, in every run alike, since FSDP's resumed third step takes it too."""
+    if step == 3:
+        trainer.generator.manual_seed(99)
+    return trainer.step_with_batch(dict(batch), unet_number=2)
+
+
+def parallel_sample(torch, trainer):
+    """Batch 1, 256 px from a seeded 64 px image, PARALLEL_SAMPLE_STEPS steps."""
+    g = torch.Generator(device='cuda').manual_seed(83)
+    emb, mask = text_batch(torch, g, 1)
+    size = PARALLEL_SIZES[0]
+    start = torch.rand((1, size, size, 3), generator=g, device='cuda')
+    return trainer.sample(text_embeds=emb, text_masks=mask, cond_scale=1.,
+                          start_at_unet_number=2, start_image_or_video=start, use_tqdm=False,
+                          generator=torch.Generator(device='cuda').manual_seed(84))
+
+
+def probes(state):
+    """PARALLEL_PROBE elements of every tensor, on the host, strided over the
+    whole of it, so that every rank's block of a cut tensor has its share."""
+    def probe(v):
+        flat = v.detach().flatten()
+        return flat[::max(1, flat.numel() // PARALLEL_PROBE)][:PARALLEL_PROBE].float().cpu()
+    return {k: probe(v) for k, v in state.items()}
+
+
+def held_probes(mine, ref):
+    """(worst |a - b| - (5e-4 + 1e-3 |b|) over every probe, ok): the JAX
+    tests' weight tolerance, rtol 1e-3 and atol 5e-4."""
+    if mine.keys() != ref.keys():
+        return float('inf'), False
+    worst = max(float(((mine[k] - v).abs() - (5e-4 + 1e-3 * v.abs())).max())
+                for k, v in ref.items())
+    return worst, worst <= 0.
+
+
+def held_change(mine, ref, start, lr):
+    """(the norm of the difference of the changes from `start` over the norm
+    of the one-process change, the one-process change's largest, ok): the
+    one-process run must have moved (by over half an Adam step of lr), the
+    mode must follow it to PARALLEL_CHANGE_RTOL."""
+    if mine.keys() != ref.keys():
+        return float('inf'), 0., False
+    import torch
+    got = torch.cat([(mine[k] - start[k]) for k in start])
+    want = torch.cat([(ref[k] - start[k]) for k in start])
+    ratio, largest = float((got - want).norm() / want.norm()), float(want.abs().max())
+    return ratio, largest, largest > lr / 2 and ratio <= PARALLEL_CHANGE_RTOL
+
+
+def rows_hooks(unet):
+    """Forward pre-hooks counting the rows of every input to the modules where
+    kernels 6, 10 and 14 run (`SameConv3x3`, `FeedForward`, `CrossEmbedLayer`)."""
+    from imagen_tpu_torch.models import blocks
+    rows = Counter()
+    handles = [m.register_forward_pre_hook(lambda m, args: rows.update([int(args[0].shape[0])]))
+               for m in unet.modules()
+               if isinstance(m, (blocks.SameConv3x3, blocks.FeedForward, blocks.CrossEmbedLayer))]
+    return rows, handles
+
+
+def local_bytes(trainer):
+    """This rank's bytes of unet 2's parameters, optimiser state and EMA."""
+    def size(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors if hasattr(t, 'numel'))
+    opt = trainer.optimizers[1]
+    return dict(params=size(trainer.unets[1].parameters()),
+                optim=size(v for s in opt.state.values() for v in s.values()),
+                ema=size(trainer.ema_unets[1].parameters()))
+
+
+def full_probes(trainer, module):
+    """Probes of `module`'s full tensors (gathered where the layout cuts them)."""
+    layout = trainer.layouts[1]
+    return probes(layout.full_state_dict(module) if layout else module.state_dict())
+
+
+def parallel_worker(rank, folder):
+    """One of the two ranks of phase_parallel on the one card (gloo over a
+    FileStore in `folder`): every mode of PARALLEL_MODES but GLOO_REFUSED's on
+    its rows of the global batch; what it saw goes to `<folder>/rank<rank>.json`
+    after each mode."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import imagen_tpu_torch as it
+    from imagen_tpu_torch.ops import _build
+    from imagen_tpu_torch.parallel.mesh import create_mesh
+    _build.library()
+    folder = Path(folder)
+    dist.init_process_group('gloo', store=dist.FileStore(str(folder / 'store'), 2), rank=rank,
+                            world_size=2)
+    ref = torch.load(folder / 'reference.pt')
+    batch = parallel_batch(torch)
+    out, shapes = {'modes': {}}, defaultdict(Counter)
+    for name, (data, model), options, n in PARALLEL_MODES:
+        if name in GLOO_REFUSED:
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = create_mesh(data=data, model=model)
+        trainer = parallel_trainer(torch, it, mesh=mesh, **options)
+        mine = batch if data == 1 else {k: v[rank * 2:rank * 2 + 2] for k, v in batch.items()}
+        calls, handles = train_loop_hooks(trainer.unets[1])
+        rows, more = rows_hooks(trainer.unets[1])
+        counts, losses, peaks, mode = Counter(), [], [], {}
+        for step in range(1, n + 1):
+            if name == 'fsdp' and step == 3:
+                mode.update(fsdp_save(torch, trainer, folder))
+            torch.cuda.reset_peak_memory_stats()
+            with counting_path(_build, shapes, counts):
+                losses.append(parallel_step(trainer, mine, step))
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        for h in handles + more:
+            h.remove()
+        mode.update(losses=losses, step_s=list(trainer.step_timer.times), rows=dict(rows),
+                    counts=dict(counts), calls={k: calls[k] for k in PARALLEL_KERNELS},
+                    bytes=local_bytes(trainer), build_and_steps_s=time.perf_counter() - t0,
+                    step_peak_gib=max(peaks))
+        if name == 'fsdp':   # its load and the step again: not counted
+            mode.update(fsdp_resume(torch, trainer, mine, folder))
+        final = full_probes(trainer, trainer.unets[1])
+        ema = full_probes(trainer, trainer.ema_unets[1])
+        mode['weights_err'], mode['weights_ok'] = held_probes(final, ref[f'weights{n}'])
+        mode['ema_err'], mode['ema_ok'] = held_probes(ema, ref[f'ema{n}'])
+        for kind, got in (('weights', final), ('ema', ema)):
+            mode[f'{kind}_change'] = held_change(got, ref[f'{kind}{n}'], ref['weights0'],
+                                                 PARALLEL_LR)
+        if name == 'fsdp':
+            mode.update(fsdp_bundle_and_sample(torch, trainer, folder, ref, final, rank))
+        mode['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out['modes'][name] = mode
+        out['shapes'] = [[k, list(dims), c] for k, v in shapes.items() for dims, c in v.items()]
+        (folder / f'rank{rank}.json').write_text(json.dumps(out))
+        del trainer
+        free_cuda()
+        dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def fsdp_save(torch, trainer, folder):
+    """After FSDP's second step: a sharded save (each rank writes its blocks,
+    nothing gathered)."""
+    out = {}
+    sharded = folder / 'fsdp_sharded'
+    trainer.checkpoint_backend = 'orbax'
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save(str(sharded))
+    out['sharded_save_s'] = time.perf_counter() - t0
+    trainer.checkpoint_backend = None
+    out['sharded_files'] = sorted(p.name for p in (sharded / 'arrays').iterdir())
+    out['sharded_bytes'] = sum(p.stat().st_size for p in (sharded / 'arrays').iterdir())
+    return out
+
+
+def fsdp_resume(torch, trainer, mine, folder):
+    """After FSDP's third step: the trainer loads the sharded checkpoint of
+    step 2 (each rank its blocks, in place) and takes the third step again,
+    whose loss must be the uninterrupted third's."""
+    out = {}
+    trainer.checkpoint_backend = 'orbax'
+    t0 = time.perf_counter()
+    trainer.load(str(folder / 'fsdp_sharded'))
+    torch.cuda.synchronize()
+    out['sharded_load_s'] = time.perf_counter() - t0
+    trainer.checkpoint_backend = None
+    out['loaded_steps'] = int(trainer.steps[1])
+    out['resumed_loss'] = parallel_step(trainer, mine, 3)
+    out['resumed_steps'] = int(trainer.steps[1])
+    return out
+
+
+def fsdp_bundle_and_sample(torch, trainer, folder, ref, final, rank):
+    """FSDP's default bundle without optimiser state (every rank gathers, rank
+    0 writes it for the parent to load), and a sample off the FSDP weights."""
+    out = {}
+    t0 = time.perf_counter()
+    trainer.save(str(folder / 'fsdp.ckpt'), without_optim_and_sched=True)
+    out['bundle_save_s'] = time.perf_counter() - t0
+    torch.save(final, folder / f'fsdp_probes{rank}.pt')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample = parallel_sample(torch, trainer)
+    torch.cuda.synchronize()
+    out['sample_s'] = time.perf_counter() - t0
+    err = float((sample.float().cpu() - ref['sample']).abs().max())
+    out['sample_err'], out['sample_ok'] = err, err <= PARALLEL_SAMPLE_ATOL
+    return out
+
+
+def phase_parallel(torch, it, build, results):
+    """Path parallel: the trainer on several GPUs (`parallel/`), as two ranks
+    on the one card. The one-process trainer first takes 3 steps of NullUnet +
+    SRUnet256 (`parallel_trainer`) on the global batch of PARALLEL_BATCH at 256
+    px and samples; then two worker processes (this script with
+    `--parallel-worker`, gloo over a FileStore, the one backend that takes two
+    ranks on one GPU) take each mode of PARALLEL_MODES on two rows each (the
+    'model' mode on all four) and are killed after PARALLEL_WORKER_TIMEOUT s:
+    the steps of each mode held to the one-process run (losses rtol 2e-4;
+    PARALLEL_PROBE elements strided over every weight and EMA tensor rtol
+    1e-3, atol 5e-4, and their change from the start by `held_change`);
+    FSDP also saves a sharded checkpoint after step 2, loads it after step 3
+    and takes step 3 again, which must be the uninterrupted one; then its
+    default bundle, which this process loads into a one-process trainer,
+    and a sample of batch 1 held to the one-process sample. Each rank's
+    launches of kernels 6, 10 and 14 are held to forward hooks, at inputs
+    of the rank's rows; per rank, step times, the steps' peak memory and
+    the bytes of parameters, optimiser state and EMA (gloo's collectives
+    go through the host: these are no scaling numbers). Then a one-rank NCCL
+    group, the backend of a machine with several GPUs, takes a step in data
+    parallel and FSDP layout (and each mode of GLOO_REFUSED)."""
+    import shutil
+    folder = REPO / 'build' / 'parallel'
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    try:
+        return run_parallel(torch, it, results, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_parallel(torch, it, results, folder):
+    ok = True
+    batch = parallel_batch(torch)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = parallel_trainer(torch, it)
+    unet = trainer.unets[1]
+    log(f'parallel: NullUnet + SRUnet256 {sum(p.numel() for p in unet.parameters()) / 1e9:.3f} '
+        f'B params, global batch {PARALLEL_BATCH} at 256 px, lr {PARALLEL_LR}')
+    ref, losses = {'weights0': probes(unet.state_dict())}, []
+    for step in range(1, 4):
+        losses.append(parallel_step(trainer, batch, step))
+        if step >= 2:
+            ref[f'weights{step}'] = probes(unet.state_dict())
+            ref[f'ema{step}'] = probes(trainer.ema_unets[1].state_dict())
+    ref['losses'] = losses
+    ref['sample'] = parallel_sample(torch, trainer).float().cpu()
+    log(f'parallel one process: losses {losses}, step times '
+        f'{[round(s, 4) for s in trainer.step_timer.times]} s, bytes {local_bytes(trainer)}, '
+        f'peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    torch.save(ref, folder / 'reference.pt')
+    del trainer, unet
+    free_cuda()
+
+    t0 = time.perf_counter()
+    logs = [open(folder / f'worker{r}.log', 'w') for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               '--parallel-worker', str(r), str(folder)],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1., PARALLEL_WORKER_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        log(f'parallel: a worker ran past {PARALLEL_WORKER_TIMEOUT} s -> FAIL')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    log(f'parallel: two workers on the card in {time.perf_counter() - t0:.1f} s, exit codes '
+        f'{[p.returncode for p in procs]}')
+    ranks = []
+    for r, p in enumerate(procs):
+        path = folder / f'rank{r}.json'
+        ranks.append(json.loads(path.read_text()) if path.exists() else {'modes': {}})
+        if p.returncode != 0:
+            ok = False
+            log(f'parallel worker {r} -> FAIL; the end of its log:\n'
+                f'{(folder / f"worker{r}.log").read_text()[-4000:]}')
+
+    counts = Counter()
+    for r, out in enumerate(ranks):
+        for name, dims, c in out.get('shapes', []):
+            results['shapes']['parallel'][name][tuple(dims)] += c
+        for name, *_ in PARALLEL_MODES:
+            if name in GLOO_REFUSED:
+                continue
+            mode = out['modes'].get(name)
+            if mode is None:
+                ok = False
+                log(f'parallel {name} rank {r}: no result -> FAIL')
+                continue
+            ok &= parallel_mode_ok(name, r, mode, ref, counts)
+    ok &= parallel_layouts_ok(ranks)
+    ok &= fsdp_bundle_ok(torch, it, folder)
+    results['counts']['parallel'] = counts
+    ok &= check_launched(counts, PARALLEL_KERNELS, 'parallel')
+    ok &= parallel_nccl(torch, it, folder, batch, ref)
+    return ok
+
+
+def parallel_mode_ok(name, rank, mode, ref, counts):
+    label = f'parallel {name} rank {rank}'
+    n = len(mode['losses'])
+    losses_ok = all(abs(a - b) <= 2e-4 * abs(b) for a, b in zip(mode['losses'], ref['losses']))
+    rows = dict(sorted(mode['rows'].items()))
+    local = str(PARALLEL_BATCH if name == 'tp' else PARALLEL_BATCH // 2)
+    rows_ok = list(rows) == [local]
+    changes_ok = mode['weights_change'][2] and mode['ema_change'][2]
+    good = losses_ok and mode['weights_ok'] and mode['ema_ok'] and changes_ok and rows_ok
+    log(f'{label}: losses {mode["losses"]} vs one process {ref["losses"][:n]} (rtol 2e-4); '
+        f'weights {mode["weights_err"]:.3e}, EMA {mode["ema_err"]:.3e} past rtol 1e-3 + '
+        f'atol 5e-4 (<= 0); kernel sites saw rows {rows} (the rank\'s {local}) '
+        f'-> {"ok" if good else "FAIL"}')
+    for kind in ('weights', 'ema'):
+        ratio, largest, _ = mode[f'{kind}_change']
+        log(f'{label}: {kind} change from the start against the one process\'s '
+            f'(largest {largest:.3e}, > lr / 2): |difference| / |change| {ratio:.3e} '
+            f'(<= {PARALLEL_CHANGE_RTOL})')
+    log(f'{label}: step times {[round(s, 4) for s in mode["step_s"]]} s, peak allocated in '
+        f'the steps {mode["step_peak_gib"]:.2f} GiB (in the mode {mode["peak_gib"]:.2f}), '
+        f'bytes {mode["bytes"]}, built and stepped in {mode["build_and_steps_s"]:.1f} s')
+    counts.update(mode['counts'])
+    good &= held_to_hooks(Counter(mode['counts']), Counter(mode['calls']), label,
+                          kernels=PARALLEL_KERNELS)
+    if name == 'fsdp':
+        resume_ok = (mode['resumed_loss'] == mode['losses'][2] and mode['loaded_steps'] == 2
+                     and mode['resumed_steps'] == 3)
+        files_ok = '.metadata' in mode['sharded_files']
+        good &= resume_ok and files_ok and mode['sample_ok']
+        log(f'{label}: sharded save {mode["sharded_bytes"] / 1e9:.3f} GB ({mode["sharded_files"]}) '
+            f'in {mode["sharded_save_s"]:.2f} s, load {mode["sharded_load_s"]:.2f} s (at step '
+            f'{mode["loaded_steps"]}); the third step again {mode["resumed_loss"]} vs '
+            f'uninterrupted {mode["losses"][2]} -> {"ok" if resume_ok and files_ok else "FAIL"}')
+        log(f'{label}: default bundle save {mode["bundle_save_s"]:.2f} s; sample '
+            f'{mode["sample_s"]:.2f} s, max |sample - one-process sample| '
+            f'{mode["sample_err"]:.3e} (<= {PARALLEL_SAMPLE_ATOL}) '
+            f'-> {"ok" if mode["sample_ok"] else "FAIL"}')
+    return good
+
+
+def parallel_layouts_ok(ranks):
+    """Per rank, FSDP's parameters, optimiser state and EMA and ZeRO-1's
+    optimiser state at 0.45-0.6 of data parallelism's."""
+    ok = True
+    for r, out in enumerate(ranks):
+        modes = out['modes']
+        if not all(m in modes for m in ('ddp', 'zero1', 'fsdp')):
+            continue
+        ddp = modes['ddp']['bytes']
+        for name, kinds in (('zero1', ('optim',)), ('fsdp', ('params', 'optim', 'ema'))):
+            shares = {k: modes[name]['bytes'][k] / ddp[k] for k in kinds}
+            good = all(0.45 <= s <= 0.6 for s in shares.values())
+            ok &= good
+            log(f'parallel {name} rank {r}: bytes against data parallelism '
+                f'{ {k: round(s, 4) for k, s in shares.items()} } -> {"ok" if good else "FAIL"}')
+    return ok
+
+
+def fsdp_bundle_ok(torch, it, folder):
+    """FSDP's default bundle in a one-process trainer: its weights are the
+    FSDP trainer's, bit for bit (on rank 0's probes)."""
+    path = folder / 'fsdp.ckpt'
+    if not path.exists():
+        log('parallel: no FSDP bundle -> FAIL')
+        return False
+    trainer = parallel_trainer(torch, it)
+    t0 = time.perf_counter()
+    trainer.load(str(path), only_model=True)
+    got = probes(trainer.unets[1].state_dict())
+    want = torch.load(folder / 'fsdp_probes0.pt')
+    good = got.keys() == want.keys() and all(torch.equal(got[k], v) for k, v in want.items())
+    log(f'parallel: FSDP\'s default bundle ({path.stat().st_size / 1e9:.3f} GB) loaded by a '
+        f'one-process trainer in {time.perf_counter() - t0:.2f} s, weights bit for bit '
+        f'-> {"ok" if good else "FAIL"}')
+    del trainer
+    free_cuda()
+    return good
+
+
+def parallel_nccl(torch, it, folder, batch, ref):
+    """A one-rank NCCL group in this process: a step in data parallel and in
+    FSDP layout (and in each mode of GLOO_REFUSED) on the global batch, each
+    held to the one-process trainer's first loss."""
+    import torch.distributed as dist
+    from imagen_tpu_torch.parallel.mesh import create_mesh
+    ok = True
+    dist.init_process_group('nccl', init_method=f'file://{folder / "nccl_store"}', rank=0,
+                            world_size=1)
+    try:
+        modes = [('ddp', {}), ('fsdp', {'fsdp': True})]
+        modes += [(name, opts) for name, _, opts, _ in PARALLEL_MODES if name in GLOO_REFUSED]
+        for name, options in modes:
+            trainer = parallel_trainer(torch, it, mesh=create_mesh(), **options)
+            loss = parallel_step(trainer, batch, 1)
+            good = abs(loss - ref['losses'][0]) <= 2e-4 * abs(ref['losses'][0])
+            ok &= good
+            log(f'parallel nccl {name} (one rank): loss {loss} vs one process '
+                f'{ref["losses"][0]} (rtol 2e-4), step time {trainer.step_timer.times[-1]:.4f} s '
+                f'-> {"ok" if good else "FAIL"}')
+            del trainer
+            free_cuda()
+    finally:
+        dist.destroy_process_group()
+    return ok
+
+
 def kernel_cases(torch, name, dims, g):
     """(kernel, plain, library or None, served or None, unfused or None,
     bf16 inputs, fp32 inputs, flops, bytes) at one recorded launch shape.
@@ -2563,7 +3045,8 @@ def main():
         for phase in (phase_serving, phase_inpainting, phase_self_cond, phase_training,
                       phase_video, phase_video_training, phase_edm_serving,
                       phase_edm_training, phase_video_edm, phase_video_edm_training,
-                      phase_sr1024_serving, phase_train_loop, phase_unet_options):
+                      phase_sr1024_serving, phase_train_loop, phase_unet_options,
+                      phase_parallel):
             t0 = time.perf_counter()
             ok &= phase(torch, it, _build, results)
             free_cuda()
@@ -2582,4 +3065,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--parallel-worker']:   # one rank of phase_parallel
+        sys.exit(parallel_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -2,7 +2,9 @@
 serving path and its training (DDPM and EDM, Adam or Adafactor, dataloaders,
 validation and checkpoint folders), text-to-video serving and training with
 `Unet3D` (DDPM and EDM), configs, self-describing checkpoints (the port's and
-the JAX package's), T5 text encoding and the command line."""
+the JAX package's), T5 text encoding, training on several GPUs (data
+parallelism, ZeRO-1, FSDP and a 'model' axis over torch.distributed, with
+sharded checkpoints) and the command line."""
 from imagen_tpu_torch.version import __version__
 
 from imagen_tpu_torch.models.unet2d import (
@@ -28,6 +30,7 @@ from imagen_tpu_torch.configs import (
     ImagenConfig,
     ElucidatedImagenConfig,
     ImagenTrainerConfig,
+    ParallelConfig,
 )
 
 from imagen_tpu_torch.utils.load import load_imagen_from_checkpoint

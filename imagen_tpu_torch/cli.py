@@ -6,8 +6,14 @@
     python -m imagen_tpu_torch.cli sample --model imagen.ckpt "a prompt"
 
 (`imagen_torch` once the package is installed.) Models run on the card;
-`--device cpu` asks for the CPU. `train` reads its HF dataset (`datasets`)
-and encodes captions with T5 (`transformers`), both imported when it runs.
+`--device cpu` asks for the CPU. A config whose trainer has a `parallel`
+block trains on several GPUs, one process each:
+
+    torchrun --nproc-per-node 8 -m imagen_tpu_torch.cli train --config c.json
+
+Each rank joins the process group (NCCL; gloo with `--device cpu`).
+`train` reads its HF dataset (`datasets`) and encodes captions with T5
+(`transformers`), both imported when it runs.
 """
 from __future__ import annotations
 
@@ -91,19 +97,42 @@ def _load_train_config(config_file):
     return cfg
 
 
+def _join_process_group(device=None):
+    """Join the process group a config's 'parallel' block lays its mesh over,
+    unless this process has joined one: under `torchrun` the environment
+    holds the rank, the world size and the address. NCCL on the card, gloo
+    when `device` is the CPU. True when this call joined it."""
+    import torch
+    import torch.distributed as dist
+
+    from imagen_tpu_torch.parallel.mesh import initialize_distributed
+
+    if dist.is_initialized():
+        return False
+    on_cpu = device is not None and torch.device(device).type == 'cpu'
+    initialize_distributed(backend='gloo' if on_cpu else 'nccl')
+    return True
+
+
 def _build_trainer(cfg, device=None):
     """(imagen, trainer, checkpoint path) of a config file's dict; resumes
-    from the checkpoint when it exists."""
+    from the checkpoint when it exists. A 'parallel' block lays the trainer
+    out on the process group's mesh (under torchrun every rank builds it;
+    rank 0 prints and writes), joining the group first if need be."""
     from imagen_tpu_torch.configs import ElucidatedImagenConfig, ImagenConfig, apply_parallel
     from imagen_tpu_torch.trainer import ImagenTrainer
 
+    trainer_kwargs = dict(cfg.get('trainer', {}))
+    if trainer_kwargs.get('parallel') is not None:
+        _join_process_group(device)
     klass = ElucidatedImagenConfig if cfg['type'] == 'elucidated' else ImagenConfig
     model = klass(**cfg['imagen']).create(device=device)
-    trainer = ImagenTrainer(imagen=model, **apply_parallel(dict(cfg.get('trainer', {}))))
+    trainer = ImagenTrainer(imagen=model, **apply_parallel(trainer_kwargs, device=device))
 
     ckpt = Path(cfg['checkpoint_path'])
     if ckpt.exists():
-        click.echo(f'resuming from {ckpt}')
+        if trainer.is_main:
+            click.echo(f'resuming from {ckpt}')
         trainer.load(str(ckpt))
     return model, trainer, ckpt
 
@@ -163,8 +192,10 @@ class _Cadence:
 @click.option('--epoches', default=50, help='Amount of epoches to train for')
 @click.option('--device', default=None, help='torch device (default: the card)')
 def train(config_file, unet, epoches, device):
+    import torch.distributed as dist
     from tqdm import tqdm
 
+    had_group = dist.is_initialized()
     cfg = _load_train_config(config_file)
     model, trainer, ckpt = _build_trainer(cfg, device=device)
     _register_dataset(cfg, model, trainer, unet, device)
@@ -180,24 +211,28 @@ def train(config_file, unet, epoches, device):
 
     steps_per_epoch = len(trainer.train_dl)
     for epoch in range(epoches):
-        bar = tqdm(range(steps_per_epoch), desc=f'epoch {epoch}')
+        bar = tqdm(range(steps_per_epoch), desc=f'epoch {epoch}', disable=not trainer.is_main)
         for _ in bar:
             loss = trainer.train_step(unet_number=unet, max_batch_size=max_batch_size)
             bar.set_postfix(loss=f'{loss:.4f}')
 
         if validate.hits(epoch):
             valid_loss = trainer.valid_step(unet_number=unet, max_batch_size=max_batch_size)
-            click.echo(f'epoch {epoch}: valid loss {valid_loss:.4f}')
+            if trainer.is_main:
+                click.echo(f'epoch {epoch}: valid loss {valid_loss:.4f}')
 
         if sample_every.hits(epoch):
             images = trainer.sample(texts=sample_texts, batch_size=1, return_pil_images=True,
                                     stop_at_unet_number=unet)
-            images[0].save(f'./sample-{epoch // 100}.png')
+            if trainer.is_main:
+                images[0].save(f'./sample-{epoch // 100}.png')
 
         if save_every.hits(epoch):
             trainer.save(str(ckpt))
 
     trainer.save(str(ckpt))
+    if dist.is_initialized() and not had_group:
+        dist.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -7,22 +7,18 @@ the model on `device` (None: the card), attaching `_config` to an imagen so
 its checkpoints describe it. A JAX `imagen_params` dict therefore builds the
 port's cascade, and the reverse.
 
-Multi-device layouts (`ParallelConfig`, `apply_parallel`, a trainer
-config's `parallel` block) are not ported: they raise NotImplementedError
-(ROADMAP.md queue 1, item 7).
+A trainer config's `parallel` block (`ParallelConfig`: `{"data": 8,
+"fsdp": true}`) lays the trainer out on a mesh of the process group's ranks
+(`parallel/mesh.py`); every rank builds it under `torchrun`.
 """
 from __future__ import annotations
 
 from enum import Enum
-from typing import Any, List, Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
-from pydantic import BaseModel, ConfigDict, field_validator, model_validator
+from pydantic import BaseModel, ConfigDict, model_validator
 
 from imagen_tpu_torch.models.t5 import DEFAULT_T5_NAME, get_encoded_dim
-
-PARALLEL_NOT_PORTED = ('multi-device layouts (meshes, FSDP, sharded optimizer states) are not '
-                       'ported yet (ROADMAP.md queue 1, item 7)')
-
 
 def ListOrTuple(inner_type):
     return Union[List[inner_type], Tuple[inner_type]]
@@ -148,20 +144,46 @@ class ElucidatedImagenConfig(_CascadeConfig):
         return _create_imagen(self, ElucidatedImagen, device)
 
 
-# --- multi-device layouts: not ported ---------------------------------------------------------
+# --- multi-device layouts -------------------------------------------------------------------
 
-class ParallelConfig:
-    """The JAX package's declarative mesh layout; not ported (item 7)."""
+class ParallelConfig(BaseModel):
+    """The declarative mesh layout, the config-file face of `parallel/mesh.py`:
+    `{"trainer": {"parallel": {"data": 8, "fsdp": true}}}` gives data
+    parallelism and ZeRO-3 without mesh code.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
+    - data: ranks on the 'data' axis (None: the world size / `model`)
+    - model: ranks on the 'model' axis (the large weights' output features
+      cut over it, gathered before use)
+    - fsdp: ZeRO-3, params, moments and EMA cut 1/data a rank (True, or the
+      least leaf size in elements that is cut)
+    - shard_optimizer_states: ZeRO-1, only the optimizer moments cut
+    """
+    data: Optional[int] = None
+    model: int = 1
+    fsdp: Union[bool, int] = False
+    shard_optimizer_states: Union[bool, int] = False
+
+    def create_mesh(self, device=None):
+        """The mesh over the process group's ranks, on `device` (None: the card)."""
+        from imagen_tpu_torch.parallel.mesh import create_mesh
+        return create_mesh(data=self.data, model=self.model, device=device)
+
+    def trainer_kwargs(self, device=None):
+        return dict(mesh=self.create_mesh(device), fsdp=self.fsdp,
+                    shard_optimizer_states=self.shard_optimizer_states)
 
 
-def apply_parallel(trainer_kwargs: dict) -> dict:
-    """Trainer kwargs without a 'parallel' block pass unchanged; a block raises."""
-    if trainer_kwargs.get('parallel') is not None:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
-    trainer_kwargs.pop('parallel', None)
+def apply_parallel(trainer_kwargs: dict, device=None) -> dict:
+    """Pop a 'parallel' block (a dict or a ParallelConfig) out of trainer
+    kwargs and expand it into mesh, fsdp and shard_optimizer_states: the one
+    place the block maps to ImagenTrainer kwargs (`ImagenTrainerConfig.create`
+    and the CLI's train command)."""
+    parallel = trainer_kwargs.pop('parallel', None)
+    if parallel is None:
+        return trainer_kwargs
+    if not isinstance(parallel, ParallelConfig):
+        parallel = ParallelConfig(**parallel)
+    trainer_kwargs.update(parallel.trainer_kwargs(device))
     return trainer_kwargs
 
 
@@ -179,20 +201,16 @@ class ImagenTrainerConfig(AllowExtraBaseModel):
     group_wd_params: bool = True
     warmup_steps: SingleOrList(Optional[int]) = None
     cosine_decay_max_steps: SingleOrList(Optional[int]) = None
-    parallel: Optional[Any] = None
-
-    @field_validator('parallel')
-    @classmethod
-    def no_parallel(cls, v):
-        if v is not None:
-            raise NotImplementedError(PARALLEL_NOT_PORTED)
-        return v
+    parallel: Optional[ParallelConfig] = None
 
     def create(self, device=None):
         """The `ImagenTrainer` over the cascade of `imagen` (built on `device`,
-        None: the card); the extra keys go to the trainer."""
+        None: the card, where the mesh of a `parallel` block lies too); the
+        extra keys go to the trainer."""
         from imagen_tpu_torch.trainer import ImagenTrainer
-        trainer_kwargs = apply_parallel(self.model_dump())
+        trainer_kwargs = self.model_dump()
+        trainer_kwargs['parallel'] = self.parallel
+        trainer_kwargs = apply_parallel(trainer_kwargs, device)
         imagen_config = trainer_kwargs.pop('imagen')
         elucidated = trainer_kwargs.pop('elucidated')
         video = trainer_kwargs.pop('video')

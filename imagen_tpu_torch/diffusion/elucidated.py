@@ -38,6 +38,7 @@ from imagen_tpu_torch.diffusion.imagen import (
 from imagen_tpu_torch.ops import edm_math
 from imagen_tpu_torch.ops.edm_math import Hparams
 from imagen_tpu_torch.ops.tensor_utils import right_pad_dims_to
+from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
 _OVERRIDE_KEYS = ('init', 'eps', 'repaint', 'lowres')
@@ -112,7 +113,8 @@ class ElucidatedImagen(Imagen):
         b, device = images.shape[0], images.device
 
         def randn(shape, dtype):
-            return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+            return rows_of(lambda n: torch.randn((n, *shape[1:]), generator=generator,
+                                                 device=device, dtype=dtype), shape[0])
 
         if exists(lowres_cond_img):
             lowres_aug_times = default(lowres_aug_times,
@@ -136,8 +138,8 @@ class ElucidatedImagen(Imagen):
             kwargs['lowres_noise_times'] = self.lowres_noise_schedule.get_condition(
                 lowres_aug_times)
 
-        sigmas = default(sigmas, lambda: edm_math.noise_distribution(
-            hp.P_mean, hp.P_std, b, generator=generator, device=device))
+        sigmas = default(sigmas, lambda: rows_of(lambda n: edm_math.noise_distribution(
+            hp.P_mean, hp.P_std, n, generator=generator, device=device), b))
         noise = default(noise, lambda: randn(images.shape, images.dtype))
         noised_images = images + right_pad_dims_to(images, sigmas) * noise
 

@@ -35,6 +35,7 @@ from imagen_tpu_torch.models.t5 import get_encoded_dim, t5_encode_text
 from imagen_tpu_torch.models.unet2d import NullUnet
 from imagen_tpu_torch.models.video_blocks import resize_video_to, scale_video_time
 from imagen_tpu_torch.ops.diffusion_math import GaussianDiffusionContinuousTimes
+from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.ops.tensor_utils import (
     cast_uint8_images_to_float,
     normalize_neg_one_to_one,
@@ -178,8 +179,10 @@ def _per_sample_random_crop(tensors, crop_size, generator=None):
         return tuple(t.reshape(b, f, *t.shape[1:]) for t in cropped)
     b, h, w, _ = tensors[0].shape
     device = tensors[0].device
-    tops = torch.randint(0, h - crop_size + 1, (b,), generator=generator, device=device)
-    lefts = torch.randint(0, w - crop_size + 1, (b,), generator=generator, device=device)
+    tops = rows_of(lambda n: torch.randint(0, h - crop_size + 1, (n,), generator=generator,
+                                           device=device), b)
+    lefts = rows_of(lambda n: torch.randint(0, w - crop_size + 1, (n,), generator=generator,
+                                            device=device), b)
     offsets = torch.arange(crop_size, device=device)
     rows = (tops[:, None] + offsets)[:, :, None]
     cols = (lefts[:, None] + offsets)[:, None, :]
@@ -664,7 +667,8 @@ class Imagen(nn.Module):
         through to the unet.
         """
         def randn(shape, dtype):
-            return torch.randn(shape, generator=generator, device=x_start.device, dtype=dtype)
+            return rows_of(lambda n: torch.randn((n, *shape[1:]), generator=generator,
+                                                 device=x_start.device, dtype=dtype), shape[0])
 
         noise = default(noise, lambda: randn(x_start.shape, x_start.dtype))
         x_start = self.normalize_img(x_start)
@@ -803,8 +807,8 @@ class Imagen(nn.Module):
         """The low-res condition's augmentation times: one draw for the batch,
         or one per sample with `per_sample_random_aug_noise_level`."""
         if self.per_sample_random_aug_noise_level:
-            return self.lowres_noise_schedule.sample_random_times(batch_size, generator,
-                                                                  self.device)
+            return rows_of(lambda n: self.lowres_noise_schedule.sample_random_times(
+                n, generator, self.device), batch_size)
         return self.lowres_noise_schedule.sample_random_times(
             1, generator, self.device).expand(batch_size)
 
@@ -828,7 +832,8 @@ class Imagen(nn.Module):
         index = batch.index
         noise_scheduler = self.noise_schedulers[index]
         b = batch.images.shape[0]
-        times = noise_scheduler.sample_random_times(b, generator, self.device)
+        times = rows_of(lambda n: noise_scheduler.sample_random_times(n, generator, self.device),
+                        b)
         lowres_aug_times = (self._lowres_aug_times(b, generator)
                             if exists(batch.lowres_cond_img) else None)
         return self.p_losses(

@@ -52,6 +52,7 @@ from imagen_tpu_torch.ops.fused_norm import (
 from imagen_tpu_torch.ops.stem_conv import cross_embed_stem, pack_stem_weights, stem_available
 from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
 from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to, wants_grad
+from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 
 F32 = torch.float32
@@ -595,7 +596,8 @@ class LinearAttention(nn.Module):
         rate 1 - dropout); None in eval mode."""
         if not self.training or self.dropout == 0:
             return None
-        return torch.rand((3, *shape), generator=generator, device=device) < 1 - self.dropout
+        return rows_of(lambda n: torch.rand((3, n, *shape[1:]), generator=generator,
+                                            device=device), shape[0], dim=1) < 1 - self.dropout
 
     def forward(self, fmap, context=None, masks=None, generator=None):
         b, xx, yy, _ = fmap.shape

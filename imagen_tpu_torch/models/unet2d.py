@@ -30,6 +30,7 @@ from imagen_tpu_torch.models.blocks import (
     UpsampleCombiner,
 )
 from imagen_tpu_torch.ops.tensor_utils import prob_mask_like, resize_image_to, resize_kernel
+from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
 
 DEFAULT_TEXT_EMBED_DIM = 768  # t5-v1_1-base d_model
@@ -171,8 +172,8 @@ class ConditionedUnet(nn.Module):
             if exists(force_text_drop_mask):
                 text_keep_mask = ~force_text_drop_mask.to(device)
             else:
-                text_keep_mask = prob_mask_like((batch_size,), 1 - cond_drop_prob, device,
-                                                generator=generator)
+                text_keep_mask = rows_of(lambda n: prob_mask_like(
+                    (n,), 1 - cond_drop_prob, device, generator=generator), batch_size)
             text_keep_mask_embed = text_keep_mask[:, None, None]
             text_keep_mask_hidden = text_keep_mask[:, None]
 

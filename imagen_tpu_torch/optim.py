@@ -27,6 +27,11 @@ weights bridge permutes axes: a Dense (I, O) is a Linear (O, I), HWIO is
 OIHW) factors the same two sizes as the JAX layout and gives the same
 update. The state per tensor is that of the optax bundle: the count, v_row
 and v_col or v, and the bf16 momentum.
+
+Under a mesh (`blocks`, a `parallel.layout.UnetLayout`) a tensor may be a
+rank's block of a larger one (ZeRO-1, FSDP): its factoring follows the full
+shape, and the means over a cut dim and the block RMS norms sum the ranks'
+partial sums, as GSPMD's reductions over sharded axes do.
 """
 from __future__ import annotations
 
@@ -66,10 +71,23 @@ class Adafactor(torch.optim.Optimizer):
 
     momentum_dtype = torch.bfloat16
 
-    def __init__(self, params, lr=1e-3, *, decay_rate=0.8, momentum=None, weight_decay=0.):
+    def __init__(self, params, lr=1e-3, *, decay_rate=0.8, momentum=None, weight_decay=0.,
+                 blocks=None):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
         self.decay_rate = decay_rate
         self.momentum = momentum
+        self.blocks = blocks
+
+    def _full_shape(self, p):
+        shape = self.blocks.full_shape(p) if exists(self.blocks) else None
+        return tuple(p.shape) if shape is None else shape
+
+    @staticmethod
+    def reduced_dim(key, full_shape):
+        """The dim of its parameter that state `key` is reduced over: the
+        largest for v_row, the second largest for v_col, else None."""
+        dims = factored_dims(full_shape)
+        return {'v_row': dims[1], 'v_col': dims[0]}.get(key) if exists(dims) else None
 
     @property
     def decay_kept(self):
@@ -81,7 +99,7 @@ class Adafactor(torch.optim.Optimizer):
     def _init_state(self, p):
         state = self.state[p]
         state['step'] = 0
-        dims = factored_dims(p.shape)
+        dims = factored_dims(self._full_shape(p))
         if exists(dims):
             d1, d0 = dims
             state['v_row'] = p.new_zeros([n for i, n in enumerate(p.shape) if i != d0])
@@ -99,16 +117,23 @@ class Adafactor(torch.optim.Optimizer):
         decay = f32(1.) - f32(state['step'] + 1) ** f32(-self.decay_rate)
         keep, take = float(decay), float(f32(1.) - decay)
         g2 = g * g + EPS
-        dims = factored_dims(p.shape)
+        full_shape = self._full_shape(p)
+        dims = factored_dims(full_shape)
         if not exists(dims):
             v = state['v']
             v.mul_(keep).add_(g2, alpha=take)
             return g * v ** -0.5
         d1, d0 = dims
+        if full_shape == tuple(p.shape):
+            def mean(x, dim, of, keepdim=False):
+                return x.mean(dim=dim, keepdim=keepdim)
+        else:   # a block: the mean over dim `of` of p sums the ranks' parts
+            def mean(x, dim, of, keepdim=False):
+                return self.blocks.sum(x.sum(dim=dim, keepdim=keepdim), p, (of,)) / full_shape[of]
         v_row, v_col = state['v_row'], state['v_col']
-        v_row.mul_(keep).add_(g2.mean(dim=d0), alpha=take)
-        v_col.mul_(keep).add_(g2.mean(dim=d1), alpha=take)
-        row_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+        v_row.mul_(keep).add_(mean(g2, d0, d0), alpha=take)
+        v_col.mul_(keep).add_(mean(g2, d1, d1), alpha=take)
+        row_mean = mean(v_row, d1 - 1 if d1 > d0 else d1, d1, keepdim=True)
         row_factor = (v_row / row_mean) ** -0.5
         return g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
 
@@ -125,10 +150,14 @@ class Adafactor(torch.optim.Optimizer):
             updates = [self._scaled_by_rms(p, g, s) for p, g, s in zip(params, grads, states)]
 
             # block-RMS clip, learning rate and parameter scale: one factor per tensor
-            sizes = torch.tensor([math.sqrt(p.numel()) for p in params],
+            sizes = torch.tensor([math.sqrt(math.prod(self._full_shape(p))) for p in params],
                                  device=params[0].device)
-            rms_u = torch.stack(torch._foreach_norm(updates)) / sizes
-            rms_p = torch.stack(torch._foreach_norm(params)) / sizes
+            norm_u = torch.stack(torch._foreach_norm(updates))
+            norm_p = torch.stack(torch._foreach_norm(params))
+            if exists(self.blocks):
+                norm_u = self.blocks.global_norms(params, norm_u)
+                norm_p = self.blocks.global_norms(params, norm_p)
+            rms_u, rms_p = norm_u / sizes, norm_p / sizes
             factor = (group['lr'] * rms_p.clamp(min=MIN_PARAM_SCALE)
                       / (rms_u / CLIPPING_THRESHOLD).clamp(min=1.))
             torch._foreach_mul_(updates, list(factor.unbind()))

@@ -1,5 +1,5 @@
 """ImagenTrainer: one-unet-at-a-time training; counterpart of
-`imagen_tpu/trainer.py` for one process on one device.
+`imagen_tpu/trainer.py`, on one device or, with `mesh`, one process per GPU.
 
 - Per unet, lazily: an optimiser (`optimizer='adam'`, or `'adafactor'`:
   `optim.Adafactor`, factored second moment and bf16 momentum), an EMA copy
@@ -16,7 +16,8 @@
   Batches are images or, for a video cascade, clips with their prompt
   frames, split along the batch axis only.
 - Data: `add_train_dataset` / `add_valid_dataset` (the train set split
-  with `split_valid_from_train`, the JAX rows) or dataloaders of one's own;
+  with `split_valid_from_train`, the JAX rows; under a mesh each rank reads
+  its rows, `_rank_rows`) or dataloaders of one's own;
   `train_step`, `valid_step` (no gradient, eval mode, the EMA unet with
   `use_ema_unets=True`) and `step_with_dl_iter` take the next batch, a dict
   or a tuple named by `dl_tuple_output_keywords_names`.
@@ -33,9 +34,35 @@
   optax optimiser state does not carry across, so a full load of one raises.
 
 The imagen may be an `Imagen` or an `ElucidatedImagen`: the loss is what
-`imagen(...)` returns. Multi-device training (`mesh`, `fsdp`,
-`shard_optimizer_states`, `checkpoint_backend='orbax'`) is not ported yet
-(ROADMAP.md queue 1, item 7): those options raise NotImplementedError.
+`imagen(...)` returns.
+
+Several GPUs (`mesh`, a `parallel.mesh.create_mesh()` ('data', 'model')
+`DeviceMesh`; one trainer a process, every rank calling every method):
+- Each rank's steps take its own rows of the global batch (`data` x the
+  local rows; the ranks of one 'model' group pass the same rows; ranks whose
+  row counts differ raise). `max_batch_size` is per rank: accumulation chunk
+  i is every rank's chunk i. Every draw is made over the global batch from
+  the generator every rank holds alike, each rank keeping its rows
+  (`parallel/rows.py`), so a step on the mesh equals a one-process step on
+  the ranks' rows concatenated in rank order. The loss returned is the
+  global mean.
+- Placement (`_placement_splits`, the counterpart of the JAX trainer's
+  `_placement_specs`): `fsdp` (True, or the least leaf size that shards)
+  cuts the parameters, their moments and the EMA over 'data'
+  (`fsdp_sharding_rules`); a 'model' axis cuts the large weights' output
+  features over 'model' (`param_sharding_rules`), gathered before use, so
+  every rank computes on whole weights; `shard_optimizer_states` (ZeRO-1)
+  cuts only the optimiser state over 'data' (`zero_sharding_rules`). With
+  none, or with data 1, the state is replicated and the gradients averaged
+  (data parallelism). `parallel/layout.py` holds the mechanics; the global
+  gradient norm sums the ranks' blocks.
+- Rank 0 prints and writes. A save is collective: every rank enters the
+  gather and rank 0 writes the same bundle, keys and layout as a
+  one-process trainer's, whatever the mesh, so it loads into any layout. A
+  load is symmetric: every rank reads. `checkpoint_backend='orbax'` writes
+  each rank's blocks with `torch.distributed.checkpoint` (no gather) into a
+  directory (`utils/sharded_ckpt.py`) and reads them back where the live
+  trainer holds them.
 """
 from __future__ import annotations
 
@@ -46,11 +73,15 @@ from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from imagen_tpu_torch.data import DataLoader, cycle, split_dataset
 from imagen_tpu_torch.ema import EMAConfig, ema_update
 from imagen_tpu_torch.models.unet2d import NullUnet
 from imagen_tpu_torch.optim import Adafactor
+from imagen_tpu_torch.parallel import mesh as mesh_lib
+from imagen_tpu_torch.parallel.layout import MeshComm, UnetLayout, splits_of
+from imagen_tpu_torch.parallel.rows import global_rows
 from imagen_tpu_torch.utils.checkpoint_io import as_list, get_fs, load_obj, save_obj, to_cpu
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 from imagen_tpu_torch.utils.load import (
@@ -58,13 +89,29 @@ from imagen_tpu_torch.utils.load import (
 from imagen_tpu_torch.utils.profiling import StepTimer
 from imagen_tpu_torch.version import __version__
 
-MULTI_DEVICE_NOT_PORTED = ('multi-device training ({}) is not ported yet '
-                           '(ROADMAP.md queue 1, item 7)')
+CHECKPOINT_BACKENDS = (None, 'msgpack', 'orbax')
 
 # keyword arguments of `sample` that carry one entry per sample, split by `max_batch_size`
 _BATCHED = ('text_embeds', 'text_masks', 'cond_images', 'inpaint_images', 'inpaint_videos',
             'inpaint_masks', 'init_images', 'start_image_or_video', 'cond_video_frames',
             'post_cond_video_frames', 'texts')
+
+
+def _prime(opt):
+    """Give every parameter of `opt` without state its initial state (what
+    its first step would make), so a sharded load has tensors to fill."""
+    for group in opt.param_groups:
+        for p in group['params']:
+            if opt.state[p]:
+                continue
+            if isinstance(opt, Adafactor):
+                opt._init_state(p)
+                continue
+            fused = group.get('fused') or group.get('capturable')
+            opt.state[p].update(
+                step=torch.zeros((), dtype=torch.float32, device=p.device if fused else 'cpu'),
+                exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format))
 
 
 def groupby_prefix_and_trim(prefix, d):
@@ -83,6 +130,12 @@ def _decays(p):
     while shape and shape[-1] == 1:
         shape.pop()
     return len(shape) >= 2
+
+
+def _min_shard_size(option):
+    """The least leaf size that an `fsdp` / `shard_optimizer_states` option
+    shards: the int given, or 2^15 for True (the JAX trainer's rule)."""
+    return int(option) if isinstance(option, int) and not isinstance(option, bool) else 2 ** 15
 
 
 def _batch_size(batch):
@@ -131,6 +184,9 @@ class ImagenTrainer:
     (`imagen_checkpoint_path`: its cascade and weights, built on `device`,
     None meaning the card, every unet's optimiser and EMA started from them)."""
 
+    # one trainer a process when distributed, as the reference's (its trainer.py:256)
+    locked = False
+
     def __init__(self, imagen=None, imagen_checkpoint_path=None, *, use_ema=True, lr=1e-4,
                  eps=1e-8, beta1=0.9, beta2=0.99, optimizer='adam', max_grad_norm=None,
                  weight_decay=0.0, group_wd_params=True, warmup_steps=None,
@@ -149,21 +205,25 @@ class ImagenTrainer:
         unknown = set(ema_kwargs) - set(EMAConfig.__dataclass_fields__)
         if unknown:
             raise TypeError(f'ImagenTrainer got unexpected ema_ arguments: {sorted(unknown)}')
-        for name, value in (('mesh', mesh), ('fsdp', fsdp),
-                            ('shard_optimizer_states', shard_optimizer_states)):
-            if value:
-                raise NotImplementedError(MULTI_DEVICE_NOT_PORTED.format(name))
-        if checkpoint_backend == 'orbax':
-            raise NotImplementedError(MULTI_DEVICE_NOT_PORTED.format("checkpoint_backend='orbax'"))
-        if checkpoint_backend is not None:
-            raise ValueError(f'unknown checkpoint_backend {checkpoint_backend!r}: checkpoints '
-                             'are single torch.save files')
+        if checkpoint_backend not in CHECKPOINT_BACKENDS:
+            raise ValueError(f'unknown checkpoint_backend {checkpoint_backend!r}: None or '
+                             "'msgpack' (one torch.save file) or 'orbax' (a sharded directory)")
+        if exists(mesh) and not (isinstance(mesh, mesh_lib.DeviceMesh)
+                                 and tuple(mesh.mesh_dim_names or ()) == mesh_lib.AXES):
+            raise TypeError(f'mesh must be a DeviceMesh with axes {mesh_lib.AXES} '
+                            f'(parallel.mesh.create_mesh), got {mesh!r}')
         if exists(imagen) == exists(imagen_checkpoint_path):
             raise ValueError('either pass an imagen instance or a checkpoint path')
         if exists(checkpoint_path) != exists(checkpoint_every):
             raise ValueError('checkpoint_path and checkpoint_every go together')
         if not 0 <= split_valid_fraction <= 1:
             raise ValueError(f'split_valid_fraction {split_valid_fraction} is not in [0, 1]')
+
+        if self.is_distributed:
+            if ImagenTrainer.locked:
+                raise RuntimeError('ImagenTrainer can only be initialized once per process '
+                                   'when distributed')
+            ImagenTrainer.locked = True
 
         self.fs = get_fs(default(checkpoint_path, './'), checkpoint_fs, fs_kwargs)
         if not exists(imagen):
@@ -203,6 +263,13 @@ class ImagenTrainer:
         self.ema_config = EMAConfig(**ema_kwargs)
         self.only_train_unet_number = only_train_unet_number
 
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.shard_optimizer_states = shard_optimizer_states
+        self.checkpoint_backend = checkpoint_backend
+        self.comm = MeshComm(mesh) if exists(mesh) else None
+        self.layouts = [None] * self.num_unets
+
         self.optimizers = [None] * self.num_unets
         self.ema_unets = [None] * self.num_unets
         self.steps = np.zeros(self.num_unets, dtype=np.int64)
@@ -232,12 +299,19 @@ class ImagenTrainer:
             self.fs.makedirs(checkpoint_path, exist_ok=True)
             self.load_from_checkpoint_folder()
 
-    # one process driving one device
-    is_main = is_local_main = True
-    is_distributed = False
+    @property
+    def is_distributed(self):
+        return dist.is_initialized() and dist.get_world_size() > 1
+
+    @property
+    def is_main(self):
+        return not dist.is_initialized() or dist.get_rank() == 0
+
+    is_local_main = is_main
+    can_checkpoint = is_main
 
     def print(self, msg):
-        if self.verbose:
+        if self.is_main and self.verbose:
             print(msg)
 
     def timings(self):
@@ -287,29 +361,79 @@ class ImagenTrainer:
         index = self.validate_unet_number(unet_number) - 1
         return self._lr(index, int(self.steps[index]))
 
-    def _make_optimizer(self, index):
-        params = self._params(index)
+    def _make_optimizer(self, index, params=None, decays=None):
+        """The optimiser of unet `index` over `params` (its trainable
+        parameters by default), grouped by `decays` (whether each is decayed;
+        `_decays` of each by default)."""
+        params = default(params, lambda: self._params(index))
+        decays = default(decays, lambda: [_decays(p) for p in params])
         wd = self.weight_decays[index]
         if self.group_wd_params:
-            groups = [{'params': [p for p in params if _decays(p)], 'weight_decay': wd},
-                      {'params': [p for p in params if not _decays(p)], 'weight_decay': 0.}]
+            groups = [{'params': [p for p, d in zip(params, decays) if d], 'weight_decay': wd},
+                      {'params': [p for p, d in zip(params, decays) if not d],
+                       'weight_decay': 0.}]
         else:
             groups = [{'params': params, 'weight_decay': wd}]
         if self.optimizer_kinds[index] == 'adafactor':
             # the JAX trainer's optax.adafactor: beta2 is the exponent of the
             # second moment's decay schedule, beta1 the bf16 momentum; no eps
             return Adafactor(groups, lr=self.lrs[index], decay_rate=self.beta2,
-                             momentum=self.beta1)
+                             momentum=self.beta1, blocks=self.layouts[index])
         return torch.optim.Adam(groups, lr=self.lrs[index], betas=(self.beta1, self.beta2),
                                 eps=self.optim_eps[index],
                                 fused=self.device.type == 'cuda')
 
+    def _zero_enabled(self):
+        return bool(self.shard_optimizer_states) and self._data_size() > 1
+
+    def _fsdp_enabled(self):
+        return bool(self.fsdp) and self._data_size() > 1
+
+    def _data_size(self):
+        return mesh_lib.axis_size(self.mesh, 'data') if exists(self.mesh) else 1
+
+    def _placement_splits(self, unet):
+        """Where the state of `unet` lives on the mesh: ({name: Split}s of its
+        parameters and EMA, {name: Split}s of their optimiser state}, decided
+        on the full parameters. Parameters: FSDP-cut over 'data' (and their
+        columns over 'model' when the mesh has one), else columns over
+        'model', else replicated. Optimiser state: the ZeRO layout under FSDP
+        or ZeRO-1 (under FSDP it is the parameters' layout), else the
+        parameters'."""
+        if self._fsdp_enabled():
+            params = mesh_lib.fsdp_sharding_rules(self.mesh, unet, _min_shard_size(self.fsdp))
+        else:
+            params = mesh_lib.param_sharding_rules(self.mesh, unet)
+        if self._fsdp_enabled() or self._zero_enabled():
+            option = self.fsdp if self._fsdp_enabled() else self.shard_optimizer_states
+            opt = mesh_lib.zero_sharding_rules(self.mesh, unet, _min_shard_size(option))
+        else:
+            opt = params
+        return ({k: splits_of(v) for k, v in params.items()},
+                {k: splits_of(v) for k, v in opt.items()})
+
     def _ensure_state(self, index):
+        """Make unet `index`'s optimiser and EMA; under a mesh first give
+        every rank rank 0's weights and place the unet and its EMA copy."""
         if exists(self.optimizers[index]):
             return
-        self.optimizers[index] = self._make_optimizer(index)
+        unet = self.unets[index]
+        names = [n for n, p in unet.named_parameters() if p.requires_grad]
+        decays = [_decays(p) for p in self._params(index)]
+        if exists(self.mesh):
+            mesh_lib.replicate(self.mesh, unet)
+            layout = UnetLayout(self.comm, *self._placement_splits(unet))
         if self.use_ema:
-            self.ema_unets[index] = copy.deepcopy(self.unets[index]).requires_grad_(False)
+            self.ema_unets[index] = copy.deepcopy(unet).requires_grad_(False)
+        if not exists(self.mesh):
+            self.optimizers[index] = self._make_optimizer(index, decays=decays)
+            return
+        layout.shard(unet)
+        if self.use_ema:
+            layout.shard(self.ema_unets[index])
+        self.layouts[index] = layout
+        self.optimizers[index] = self._make_optimizer(
+            index, layout.optimizer_tensors(self._params(index), names), decays)
 
     def prepare(self):
         """Make the state of `only_train_unet_number` now (else at its first step)."""
@@ -323,29 +447,42 @@ class ImagenTrainer:
         return [p for p in self.unets[index].parameters() if p.requires_grad]
 
     @torch.no_grad()
-    def _clip_grads(self, grads):
+    def _clip_grads(self, grads, params=None, layout=None):
         """optax.clip_by_global_norm: g * min(1, max_norm / |g|), the norm over
-        every gradient of the unet."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        every gradient of the unet (under a mesh, over the ranks' blocks of
+        the gradients of `params`)."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if exists(layout):
+            norms = layout.global_norms(params, norms)
+        norm = torch.linalg.vector_norm(norms)
         factor = (self.max_grad_norm / norm).clamp(max=1.)
         torch._foreach_mul_(grads, factor)
 
     def _apply_update(self, index):
-        """Clip, decay, Adam and EMA on the gradients in `.grad`."""
+        """Clip, decay, Adam and EMA on the gradients in `.grad` (under a mesh,
+        averaged over the ranks first)."""
         if self._ema_swapped:
             raise RuntimeError('cannot take train steps inside use_ema_unets()')
+        layout = self.layouts[index]
         params = self._params(index)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if exists(layout):
+            layout.release(self.unets[index])
+            layout.reduce_grads(params)
         if exists(self.max_grad_norm):
-            self._clip_grads([p.grad for p in params])
+            self._clip_grads([p.grad for p in params], params, layout)
         opt = self.optimizers[index]
         lr = self._lr(index, int(self.steps[index]))
         for group in opt.param_groups:
             group['lr'] = lr
+        if exists(layout):
+            layout.before_step()
         opt.step()
         opt.zero_grad(set_to_none=True)
+        if exists(layout):
+            layout.after_step()
         self.steps[index] += 1
         if self.use_ema:
             unet, ema = self.unets[index], self.ema_unets[index]
@@ -382,7 +519,8 @@ class ImagenTrainer:
                                          seed=self.split_random_seed)
             self.print(f'training with dataset of {len(ds)} samples and validating with '
                        f'randomly splitted {len(valid_ds)} samples')
-        self.add_train_dataloader(DataLoader(ds, batch_size=batch_size, **dl_kwargs))
+        self.add_train_dataloader(DataLoader(self._rank_rows(ds), batch_size=batch_size,
+                                             **dl_kwargs))
         if self.split_valid_from_train:
             self.add_valid_dataset(valid_ds, batch_size=batch_size, **dl_kwargs)
 
@@ -391,7 +529,18 @@ class ImagenTrainer:
             return
         if exists(self.valid_dl):
             raise RuntimeError('validation dataloader was already added')
-        self.add_valid_dataloader(DataLoader(ds, batch_size=batch_size, **dl_kwargs))
+        self.add_valid_dataloader(DataLoader(self._rank_rows(ds), batch_size=batch_size,
+                                             **dl_kwargs))
+
+    def _rank_rows(self, ds):
+        """Under a 'data' axis of n ranks, this rank's rows of `ds`: every n-th
+        row from its 'data' coordinate, of the first n * (len // n), so each
+        rank's loader reads as many rows, none of another's."""
+        n = self._data_size()
+        if n == 1:
+            return ds
+        from torch.utils.data import Subset
+        return Subset(ds, range(self.mesh.get_local_rank('data'), len(ds) - len(ds) % n, n))
 
     def create_train_iter(self):
         if not exists(self.train_dl):
@@ -420,8 +569,11 @@ class ImagenTrainer:
         if 'texts' in batch and 'text_embeds' not in batch and self.imagen.condition_on_text:
             batch['text_embeds'], batch['text_masks'] = self.encode_text(
                 batch.pop('texts'), return_attn_mask=True)
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                if isinstance(v, (torch.Tensor, np.ndarray)) else v for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                 if isinstance(v, (torch.Tensor, np.ndarray)) else v for k, v in batch.items()}
+        if exists(self.mesh):
+            mesh_lib.check_rows(self.mesh, _batch_size(batch))
+        return batch
 
     # --- training ------------------------------------------------------------------------
 
@@ -440,8 +592,24 @@ class ImagenTrainer:
         for chunk, weight in _chunks(tensors, max_batch_size):
             chunk = dict(chunk)
             images = chunk.pop('images')
-            yield self.imagen(images, unet_number=index + 1, generator=self.generator,
-                              **chunk, **options), weight
+            with self._global_rows():
+                loss = self.imagen(images, unet_number=index + 1, generator=self.generator,
+                                   **chunk, **options)
+            yield loss, weight
+
+    def _global_rows(self):
+        """Per-row draws over the global batch, keeping this rank's rows
+        (`parallel/rows.py`); nothing without a 'data' axis."""
+        if self._data_size() == 1:
+            return nullcontext()
+        return global_rows(self._data_size(), self.mesh.get_local_rank('data'))
+
+    def _global_mean(self, loss):
+        """The loss averaged over the 'data' ranks (each a mean over its rows)."""
+        if self._data_size() == 1:
+            return loss
+        loss = torch.as_tensor(loss, device=self.device, dtype=torch.float32).clone()
+        return self.comm.sum(loss, ('data',)) / self._data_size()
 
     def _backward(self, index, batch, max_batch_size, scale=1.):
         """Accumulate scale * d(loss)/d(params) into `.grad`; returns the loss."""
@@ -450,10 +618,14 @@ class ImagenTrainer:
         for chunk_loss, weight in self._chunk_losses(index, batch, max_batch_size):
             (chunk_loss * (weight * scale)).backward()
             loss = loss + chunk_loss.detach() * weight
+        if exists(self.layouts[index]):
+            self.layouts[index].release(self.unets[index])
         return loss
 
     def _loss_out(self, loss):
-        """A float, or with `sync_loss=False` the device scalar (no host sync)."""
+        """The global mean as a float, or with `sync_loss=False` the device
+        scalar (no host sync)."""
+        loss = self._global_mean(loss)
         return float(loss) if self.sync_loss else loss
 
     def train_step(self, *, unet_number=None, max_batch_size=None, **kwargs):
@@ -531,7 +703,7 @@ class ImagenTrainer:
         loss = self._backward(index, batch, max_batch_size, scale=float(b))
         weight = (self._pending[1] if exists(self._pending) else 0) + b
         self._pending = (index, weight)
-        return float(loss)
+        return float(self._global_mean(loss))
 
     def update(self, unet_number=None):
         """Apply the gradients of the forward() calls since the last update,
@@ -608,82 +780,143 @@ class ImagenTrainer:
     def state_dict(self, without_optim_and_sched=False):
         """The JAX trainer's bundle: `model` (one state_dict per unet),
         `version`, `steps`, `optim{i}` and `ema`, every state made first, and
-        `imagen_type` / `imagen_params` for an imagen built from a config."""
-        from imagen_tpu_torch.diffusion.elucidated import ElucidatedImagen
+        `imagen_type` / `imagen_params` for an imagen built from a config.
+        Under a mesh every block is gathered, so the bundle is a one-process
+        trainer's whatever the layout (a collective: every rank calls it)."""
         for i in range(self.num_unets):
             self._ensure_state(i)
-        bundle = dict(model=[u.state_dict() for u in self.unets], version=__version__,
-                      steps=np.array(self.steps))
+        return self._bundle(
+            without_optim_and_sched,
+            lambda i, m: self.layouts[i].full_state_dict(m) if self.layouts[i] else m.state_dict(),
+            lambda i, o: (self.layouts[i].full_optimizer_state(o) if self.layouts[i]
+                          else o.state_dict()))
+
+    def _sharded_state(self, without_optim_and_sched=False):
+        """The bundle with every block a DTensor sharing the live tensor's
+        storage (see `utils/sharded_ckpt.py`); no gather."""
+        for i in range(self.num_unets):
+            self._ensure_state(i)
+        return self._bundle(
+            without_optim_and_sched,
+            lambda i, m: (self.layouts[i].module_dtensors(m) if self.layouts[i] else
+                          {k: v.detach() for k, v in m.state_dict(keep_vars=True).items()}),
+            lambda i, o: (self.layouts[i].optimizer_dtensors(o) if self.layouts[i]
+                          else o.state_dict()))
+
+    def _bundle(self, without_optim_and_sched, module_state, optimizer_state):
+        from imagen_tpu_torch.diffusion.elucidated import ElucidatedImagen
+        bundle = dict(model=[module_state(i, u) for i, u in enumerate(self.unets)],
+                      version=__version__, steps=np.array(self.steps))
         if not without_optim_and_sched:
             for i, opt in enumerate(self.optimizers):
-                bundle[f'optim{i}'] = opt.state_dict()
+                bundle[f'optim{i}'] = optimizer_state(i, opt)
         if self.use_ema:
-            bundle['ema'] = [e.state_dict() for e in self.ema_unets]
+            bundle['ema'] = [module_state(i, e) for i, e in enumerate(self.ema_unets)]
         if hasattr(self.imagen, '_config'):
             bundle['imagen_type'] = ('elucidated' if isinstance(self.imagen, ElucidatedImagen)
                                      else 'original')
             bundle['imagen_params'] = self.imagen._config
         return bundle
 
+    def _load_module(self, index, module, state, strict):
+        """Load a bundle's entry (the port's state_dict or JAX flax
+        variables, whole) into `module`, this rank's blocks under a mesh."""
+        from imagen_tpu_torch.utils.port_weights import state_dict_from_jax
+        if isinstance(module, NullUnet):
+            return
+        video = self.imagen.is_video
+        if is_flax_state(state):
+            state = state_dict_from_jax(state, video=video)
+        if exists(self.layouts[index]):
+            state = self.layouts[index].local_state_dict(module, state)
+        load_unet_state(module, state, strict=strict, video=video)
+
     def load_state_dict(self, bundle, only_model=False, strict=True):
         """Restore from a bundle of `state_dict`, or the model and EMA weights
         of a JAX trainer's bundle with `only_model`. `strict=False` loads the
-        tensors whose names and shapes match and leaves the rest."""
+        tensors whose names and shapes match and leaves the rest. Under a
+        mesh every rank loads it, keeping its blocks."""
         models = as_list(bundle['model'])
         from_jax = any(is_flax_state(m) for m in models)
         if from_jax and not only_model:
             raise ValueError('this bundle was written by the JAX trainer: its optax optimizer '
                              'state does not carry across; load it with only_model=True for '
                              'its unet and EMA weights')
-        video = self.imagen.is_video
         for i in range(self.num_unets):
             self._ensure_state(i)
-            load_unet_state(self.unets[i], models[i], strict=strict, video=video)
+            self._load_module(i, self.unets[i], models[i], strict)
         if bundle.get('version') != __version__:
             self.print(f'loading checkpoint from version {bundle.get("version")}, '
                        f'current package version is {__version__}')
-        if only_model and not from_jax:
-            return
-        if not from_jax:
-            self.steps = np.array(bundle['steps'], dtype=np.int64)
-            for i, opt in enumerate(self.optimizers):
-                if f'optim{i}' in bundle:
-                    opt.load_state_dict(bundle[f'optim{i}'])
-        if self.use_ema and 'ema' in bundle:
-            for ema, state in zip(self.ema_unets, as_list(bundle['ema'])):
-                load_unet_state(ema, state, strict=strict, video=video)
+        if not (only_model and not from_jax):
+            if not from_jax:
+                self.steps = np.array(bundle['steps'], dtype=np.int64)
+                for i, opt in enumerate(self.optimizers):
+                    if f'optim{i}' in bundle:
+                        state = bundle[f'optim{i}']
+                        if exists(self.layouts[i]):
+                            state = self.layouts[i].local_optimizer_state(opt, state)
+                        opt.load_state_dict(state)
+            if self.use_ema and 'ema' in bundle:
+                for i, (ema, state) in enumerate(zip(self.ema_unets, as_list(bundle['ema']))):
+                    self._load_module(i, ema, state, strict)
+        for layout in self.layouts:
+            if exists(layout):
+                layout.resync()
 
     def save(self, path, overwrite=True, without_optim_and_sched=False, async_save=False,
              **kwargs):
         """Write the bundle (plus any extra `kwargs` entries) to `path`. The
         bundle is copied to the host first; with `async_save` a thread writes
-        it while training goes on, and the next save or load waits for it."""
+        it while training goes on, and the next save or load waits for it.
+        Under a mesh every rank calls it: every rank enters the gather and
+        rank 0 writes; it returns once the file is written (the next save or
+        load, with `async_save`). `checkpoint_backend='orbax'` writes a
+        directory, each rank its blocks, with no gather."""
         path = str(path)
         self._wait_for_pending_save()
+        if self.checkpoint_backend == 'orbax':
+            from imagen_tpu_torch.utils.sharded_ckpt import save_bundle
+            bundle = {**self._sharded_state(without_optim_and_sched), **kwargs}
+            self._pending_save = save_bundle(path, bundle, async_save=async_save)
+            self.print(f'checkpoint saved to {path} (sharded)')
+            return
         if self.fs.exists(path) and not overwrite:
             raise FileExistsError(f'{path} exists and overwrite is False')
-        bundle = to_cpu({**self.state_dict(without_optim_and_sched), **kwargs})
-        if 'imagen_params' in bundle:
-            self.print('this checkpoint is commandable from the CLI - '
-                       f'"python -m imagen_tpu_torch.cli sample --model {path} \\"<prompt>\\""')
-        if async_save:
-            if self._save_executor is None:
-                from concurrent.futures import ThreadPoolExecutor
-                self._save_executor = ThreadPoolExecutor(max_workers=1)
-            self._pending_save = self._save_executor.submit(save_obj, self.fs, path, bundle)
-        else:
-            save_obj(self.fs, path, bundle)
+        bundle = self.state_dict(without_optim_and_sched)
+        if self.can_checkpoint:
+            bundle = to_cpu({**bundle, **kwargs})
+            if 'imagen_params' in bundle:
+                self.print('this checkpoint is commandable from the CLI - '
+                           f'"python -m imagen_tpu_torch.cli sample --model {path} \\"<prompt>\\""')
+            if async_save:
+                if self._save_executor is None:
+                    from concurrent.futures import ThreadPoolExecutor
+                    self._save_executor = ThreadPoolExecutor(max_workers=1)
+                self._pending_save = self._save_executor.submit(save_obj, self.fs, path, bundle)
+            else:
+                save_obj(self.fs, path, bundle)
+        if not async_save:
+            self._barrier()
         self.print(f'checkpoint saved to {path}')
 
+    def _barrier(self):
+        if self.is_distributed:
+            dist.barrier()
+
     def _wait_for_pending_save(self):
-        """Wait for the writer of an `async_save`, raising what it raised."""
+        """Wait for the writer of an `async_save`, raising what it raised; under
+        a mesh, then for every rank."""
         pending, self._pending_save = self._pending_save, None
         if pending is not None:
             pending.result()
+        self._barrier()
 
     def load(self, path, only_model=False, strict=True, noop_if_not_exist=False):
         """Restore from the bundle at `path` (the port's, or a JAX trainer's
-        with `only_model`), its tensors placed on the imagen's device."""
+        with `only_model`), its tensors placed on the imagen's device; every
+        rank reads it. A sharded directory (`checkpoint_backend='orbax'`)
+        is read block by block into the live trainer's placement (strict)."""
         self._wait_for_pending_save()
         path = str(path)
         if not self.fs.exists(path):
@@ -691,10 +924,55 @@ class ImagenTrainer:
                 self.print(f'trainer checkpoint not found at {path}')
                 return None
             raise FileNotFoundError(f'{path} does not exist')
+        from imagen_tpu_torch.utils.sharded_ckpt import is_orbax_checkpoint
+        if self.checkpoint_backend == 'orbax' or is_orbax_checkpoint(path):
+            return self._load_sharded(path, only_model)
         bundle = load_obj(self.fs, path, map_location=self.device)
         self.load_state_dict(bundle, only_model=only_model, strict=strict)
         self.print(f'checkpoint loaded from {path}')
         return bundle
+
+    def _load_sharded(self, path, only_model=False):
+        """Each rank reads its blocks of a sharded directory in place."""
+        from imagen_tpu_torch.utils.sharded_ckpt import load_bundle
+        for i, opt in enumerate(self.optimizers):
+            self._ensure_state(i)
+            _prime(self.optimizers[i])
+        target = self._sharded_state()
+        if only_model:
+            target = {'model': target['model']}
+        loaded = load_bundle(path, target)
+        if not only_model:
+            self.steps = np.array(loaded['steps'], dtype=np.int64)
+        for layout in self.layouts:
+            if exists(layout):
+                layout.resync()
+        self.print(f'checkpoint loaded from {path} (sharded)')
+        return loaded
+
+    def reset_ema_unets_all_one_device(self, device=None):
+        """Make every unet's state now. The reference uses this to undo its
+        cascade's device juggling before a checkpoint; here the state already
+        lives where `_placement_splits` puts it."""
+        del device
+        for i in range(self.num_unets):
+            self._ensure_state(i)
+
+    def print_unet_devices(self):
+        """Log where each unet's (and EMA copy's) parameters live: the device
+        and, under a mesh, how many of its tensors are this rank's blocks."""
+        def placement(i, module):
+            params = list(module.parameters()) if exists(module) else []
+            if not params:
+                return 'no parameters' if exists(module) else 'not made'
+            layout = self.layouts[i]
+            blocks = sum(p in layout.info for p in params) if exists(layout) else 0
+            return f'{params[0].device}, {blocks} of {len(params)} tensors cut over the mesh'
+
+        for i in range(self.num_unets):
+            self.print(f'unet {i}: {placement(i, self.unets[i])}')
+            if self.use_ema:
+                self.print(f'ema unet {i}: {placement(i, self.ema_unets[i])}')
 
     # checkpoint folders: checkpoint.{total steps}.ckpt, the newest kept
 
@@ -719,10 +997,10 @@ class ImagenTrainer:
     def save_to_checkpoint_folder(self):
         total_steps = int(self.steps.sum())
         self.save(os.path.join(str(self.checkpoint_path), f'checkpoint.{total_steps}.ckpt'))
-        if self.max_checkpoints_keep <= 0:
+        if self.max_checkpoints_keep <= 0 or not self.can_checkpoint:
             return
         for checkpoint in self.all_checkpoints_sorted[self.max_checkpoints_keep:]:
-            self.fs.rm(checkpoint)
+            self.fs.rm(checkpoint, recursive=True)   # a sharded checkpoint is a directory
 
     def _maybe_checkpoint(self):
         if not exists(self.checkpoint_path) or int(self.steps.sum()) % self.checkpoint_every:

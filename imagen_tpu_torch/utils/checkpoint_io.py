@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import glob as _glob
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -31,8 +32,11 @@ class LocalFS:
     def glob(self, pattern):
         return sorted(_glob.glob(str(pattern)))
 
-    def rm(self, path):
-        os.remove(str(path))
+    def rm(self, path, recursive=False):
+        if recursive and os.path.isdir(str(path)):
+            shutil.rmtree(str(path))
+        else:
+            os.remove(str(path))
 
     def makedirs(self, path, exist_ok=False):
         os.makedirs(str(path), exist_ok=exist_ok)

@@ -14,7 +14,8 @@ package's, on the CPU.
 - the `config` command writes the JAX command's JSON; `train` runs two
   steps from a config file with `datasets.load_dataset` and T5 stood in,
   and `sample` draws from the checkpoint it wrote;
-- multi-device options raise NotImplementedError.
+- what the multi-device options still refuse: a layout without a process
+  group, a mesh of another kind, an unknown checkpoint backend.
 """
 import json
 import sys
@@ -259,15 +260,20 @@ def test_train_command_runs_two_steps(tmp_path, monkeypatch):
 
 
 def test_multi_device_options_raise():
-    with pytest.raises(NotImplementedError, match='item 7'):
-        configs.ParallelConfig(data=8)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        configs.apply_parallel({'parallel': {'data': 8}})
+    """What still raises: a `parallel` block or mesh without a process group
+    to lay out, a mesh that is not a ('data', 'model') DeviceMesh and an
+    unknown checkpoint backend. Without a mesh `fsdp` and ZeRO-1 cut
+    nothing, as in the JAX trainer."""
     assert configs.apply_parallel({'lr': 1e-4, 'parallel': None}) == {'lr': 1e-4}
-    with pytest.raises(NotImplementedError, match='item 7'):
-        configs.ImagenTrainerConfig(imagen=VIDEO, parallel={'data': 8, 'fsdp': True})
+    with pytest.raises(RuntimeError, match='needs a process group'):
+        configs.apply_parallel({'parallel': {'data': 8}}, device=CPU)
+    with pytest.raises(RuntimeError, match='needs a process group'):
+        configs.ImagenTrainerConfig(imagen=VIDEO, parallel={'data': 8, 'fsdp': True}).create(
+            device=CPU)
     imagen = configs.ImagenConfig(**VIDEO).create(device=CPU)
-    for option in (dict(mesh=object()), dict(fsdp=True), dict(shard_optimizer_states=64),
-                   dict(checkpoint_backend='orbax')):
-        with pytest.raises(NotImplementedError, match='item 7'):
-            it.ImagenTrainer(imagen, **option)
+    with pytest.raises(TypeError, match='DeviceMesh'):
+        it.ImagenTrainer(imagen, mesh=object())
+    with pytest.raises(ValueError, match='unknown checkpoint_backend'):
+        it.ImagenTrainer(imagen, checkpoint_backend='tensorstore')
+    trainer = it.ImagenTrainer(imagen, fsdp=True, shard_optimizer_states=64, verbose=False)
+    assert not trainer._fsdp_enabled() and not trainer._zero_enabled()
