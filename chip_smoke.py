@@ -5,6 +5,13 @@ Drives imagen_tpu_torch's paths at full width, with bf16 compute over fp32
 parameters and random weights from a seed:
 - serving: BaseUnet64 -> SRUnet256, an `ImagenServer` that warms up and
   answers three requests;
+- surface: the same cascade built anew; each unet's `forward_with_cond_scale`
+  at cond_scale 3 against the free function, bit for bit and launch for
+  launch; a `trace` of one guided forward of each unet in `annotate` spans,
+  whose file must name the spans and kernels 1, 6, 10 and 14;
+  `StepTimer.measure` of one guided forward; then `force_unconditional_`
+  and a sample at steps (4, 2), bit for bit the sample of a cascade built
+  with `condition_on_text=False` from the same weights and seed;
 - inpainting: the same cascade built anew, an `ImagenServer` warmed at
   cond_scales (3, 5) with a per-server `lowres_sample_noise_level`; then,
   batch 4 (8 with CFG), cond_scale 3: a plain `Imagen.sample` request, two
@@ -149,7 +156,10 @@ and gradients, both measured against fp32.
 Prints, in order: the card (nvidia-smi name and power limit) and CUDA
 version; the kernel build time; after each of the phases before the
 kernel phase, its wall time; per request latency, shape, finiteness and
-range; for each request of the inpainting, self_cond, video_inpainting and
+range; for surface, each unet's equality with the free function and its
+launches beside the free function's and the hooks', the trace's size,
+spans and kernels' CUDA functions, the timed forward against its CUDA
+events, and the forced sample's latency, shape, range and equality; for each request of the inpainting, self_cond, video_inpainting and
 edm_inpainting paths its latency, shapes, finiteness, range, the unet
 forwards it made per stage and, for inpainting, the worst difference of
 the known pixels from the input (1e-6 or FAIL), then the plain and
@@ -222,6 +232,7 @@ package beside this file; imports no JAX.
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -332,7 +343,7 @@ PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr102
          'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
          'video_edm', 'video_edm_training', 'video_edm_training_stills', 'train_loop',
          'train_loop_sampling', 'unet_options', 'unet_options_training',
-         'unet_options_video', 'parallel')
+         'unet_options_video', 'parallel', 'surface')
 # unet_options: SRUnet256's published widths with the options of the JAX parity
 # test's SR_CFG pattern (tests/test_reference_parity.py:38-46); linear attention
 # at its 64^2 and 32^2 levels (memory_efficient downsamples 256 -> 128 first)
@@ -543,6 +554,206 @@ def phase_serving(torch, it, build, results):
     log(f'serving: peak memory allocated during the requests: '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     results['counts']['serving'] = counts
+    return ok
+
+
+# --- the public surface: the U-Nets' and the cascade's methods, the profiling helpers --------
+
+SURFACE_STEPS = (4, 2)       # the forced-unconditional sample's timesteps
+SURFACE_BATCH = 4
+SURFACE_COND_SCALE = 3.
+SURFACE_SPAN = 'surface_cfg_forward'
+SURFACE_KERNELS = ('flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16', 'fused_feedforward_bf16',
+                   STEM_KERNEL)
+
+
+def surface_cascade(torch, it, condition_on_text=True):
+    """BaseUnet64 -> SRUnet256 as `phase_serving` builds them, or built
+    without text conditioning (`cond_on_text=False` unets, so the cascade
+    keeps them as they are)."""
+    bf16 = torch.bfloat16
+    text = (dict(text_embed_dim=768, max_text_len=256) if condition_on_text
+            else dict(cond_on_text=False, text_embed_dim=None))
+    base = it.BaseUnet64(dtype=bf16, **text)
+    sr = it.SRUnet256(dtype=bf16, lowres_cond=True, **text)
+    return it.Imagen((base, sr), image_sizes=(64, 256), timesteps=SURFACE_STEPS,
+                     cond_drop_prob=0.1, condition_on_text=condition_on_text).eval()
+
+
+def surface_inputs(torch, unet, size, g, emb, mask):
+    """A unet's guided-forward inputs at batch SURFACE_BATCH: noise, times,
+    the text and, for the SR unet, the noised low-res image and its times."""
+    b = SURFACE_BATCH
+    x = torch.randn((b, size, size, 3), generator=g, device='cuda')
+    times = torch.rand((b,), generator=g, device='cuda')
+    kw = dict(text_embeds=emb, text_mask=mask)
+    if unet.lowres_cond:
+        lowres = torch.rand((b, size, size, 3), generator=g, device='cuda') * 2 - 1
+        kw.update(lowres_cond_img=lowres,
+                  lowres_noise_times=torch.rand((b,), generator=g, device='cuda'))
+    return x, times, kw
+
+
+def trace_names(logdir):
+    """The event names and the CUDA kernels' names of the trace `trace`
+    wrote into `logdir` (one Chrome trace file)."""
+    files = sorted(logdir.glob('*.pt.trace.json'))
+    if len(files) != 1:
+        raise RuntimeError(f'expected one trace file in {logdir}, found {files}')
+    events = json.loads(files[0].read_text())['traceEvents']
+    names = {e.get('name', '') for e in events}
+    kernels = {e['name'] for e in events if e.get('cat') == 'kernel'}
+    return names, kernels, files[0].stat().st_size
+
+
+def phase_surface(torch, it, build, results):
+    """The methods that close the port's public surface, at full width
+    (`surface_cascade`: BaseUnet64 -> SRUnet256, bf16 over fp32 seeded
+    weights, batch 4, text embeds 256 x 768), counted as path surface:
+    - each unet's `forward_with_cond_scale` at cond_scale 3 (one doubled
+      batch of 8) against the free `unet_forward_with_cond_scale`, bit for
+      bit; the method's launches of kernels 1, 6, 10 and 14 against the
+      free function's (counted apart, not on the path) and against forward
+      hooks that count the calls each gate admits;
+    - `trace(logdir)` around one guided forward of each unet, each inside
+      its own `annotate` span: the trace file must name both spans and the
+      CUDA functions of kernels 1, 6, 10 and 14, each of which the hooks
+      must have counted there (BaseUnet64 holds the flash and feedforward
+      sites, SRUnet256 the conv's; both stems take kernel 14);
+    - `StepTimer.measure('cuda')` around one guided forward: its time must
+      cover the CUDA events' time of the forward inside it (synchronised);
+    - `force_unconditional_()`, then a 64 -> 256 sample at SURFACE_STEPS,
+      batch 4, cond_scale 3, from a seeded generator: finite, in [0, 1], of
+      shape (4, 256, 256, 3), and bit for bit the sample of a cascade built
+      with `condition_on_text=False` that loaded the same weights
+      non-strictly, from the same seed (its launches counted apart)."""
+    import shutil
+    from imagen_tpu_torch.diffusion.imagen import unet_forward_with_cond_scale
+    from imagen_tpu_torch.utils.profiling import StepTimer, annotate, trace
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    imagen = surface_cascade(torch, it)
+    for i, unet in enumerate(imagen.unets):
+        randomize_final_conv(unet, 1 + i)
+    torch.cuda.synchronize()
+    log(f'surface: cascade built in {time.perf_counter() - t0:.1f} s')
+    g = torch.Generator(device='cuda').manual_seed(4321)
+    emb, mask = text_batch(torch, g, SURFACE_BATCH)
+    shapes, counts, ok = results['shapes']['surface'], Counter(), True
+
+    for i, (unet, size) in enumerate(zip(imagen.unets, imagen.image_sizes)):
+        x, times, kw = surface_inputs(torch, unet, size, g, emb, mask)
+        calls, handles = train_loop_hooks(unet)
+        mine = Counter()
+        with torch.no_grad(), counting_path(build, shapes, mine):
+            out = unet.forward_with_cond_scale(x, times, cond_scale=SURFACE_COND_SCALE, **kw)
+        for h in handles:
+            h.remove()
+        free_counts = Counter()
+        with torch.no_grad(), counting_path(build, defaultdict(Counter), free_counts):
+            free = unet_forward_with_cond_scale(unet, x, times, cond_scale=SURFACE_COND_SCALE,
+                                                **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(out, free)
+        launches = {k: (mine[k], free_counts[k], calls[k]) for k in SURFACE_KERNELS}
+        good = same and all(a == b == c for a, b, c in launches.values()) and \
+            tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all())
+        ok &= good
+        log(f'surface: unet {i + 1} forward_with_cond_scale {tuple(out.shape)} equals the free '
+            f'function bit for bit {same}; launches (method, free function, hooks) {launches} '
+            f'-> {"ok" if good else "FAIL"}')
+        counts.update(mine)
+
+    inputs = [surface_inputs(torch, unet, size, g, emb, mask)
+              for unet, size in zip(imagen.unets, imagen.image_sizes)]
+    spans = [f'{SURFACE_SPAN}_unet{i + 1}' for i in range(len(imagen.unets))]
+    logdir = REPO / 'build' / 'surface_trace'
+    shutil.rmtree(logdir, ignore_errors=True)
+    hooked = [train_loop_hooks(unet) for unet in imagen.unets]
+    with torch.no_grad(), counting_path(build, shapes, counts):
+        with trace(logdir):
+            for unet, span, (x, times, kw) in zip(imagen.unets, spans, inputs):
+                with annotate(span):
+                    unet.forward_with_cond_scale(x, times, cond_scale=SURFACE_COND_SCALE, **kw)
+            torch.cuda.synchronize()
+    calls = Counter()
+    for unet_calls, handles in hooked:
+        calls.update(unet_calls)
+        for h in handles:
+            h.remove()
+    names, kernels, size = trace_names(logdir)
+    shutil.rmtree(logdir, ignore_errors=True)
+    found = {k: sorted({m.group(0) for n in kernels for m in
+                        [re.search(r'\w*' + KERNEL_INFO[k]['device_kernel'] + r'\w*', n)] if m})
+             for k in SURFACE_KERNELS}
+    good = all(span in names for span in spans) and \
+        all(calls[k] > 0 and found[k] for k in SURFACE_KERNELS)
+    ok &= good
+    log(f'surface: trace of one guided forward of each unet, {size} bytes, {len(kernels)} '
+        f'CUDA kernel names; spans {spans} present {[span in names for span in spans]}; the '
+        f'kernels the hooks counted ({dict((k, calls[k]) for k in SURFACE_KERNELS)}) by CUDA '
+        f'function: {found} -> {"ok" if good else "FAIL"}')
+
+    base, (x, times, kw) = imagen.unets[0], inputs[0]
+    timer = StepTimer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad(), counting_path(build, shapes, counts):
+        with timer.measure('cuda'):
+            start.record()
+            base.forward_with_cond_scale(x, times, cond_scale=SURFACE_COND_SCALE, **kw)
+            end.record()
+    wall_ms, event_ms = timer.times[-1] * 1e3, start.elapsed_time(end)
+    good = end.query() and wall_ms >= event_ms
+    ok &= good
+    log(f'surface: StepTimer.measure of one guided BaseUnet64 forward {wall_ms:.2f} ms, the '
+        f'CUDA events inside it {event_ms:.2f} ms -> {"ok" if good else "FAIL"}')
+
+    imagen.force_unconditional_()
+    forced = (not imagen.condition_on_text and imagen.unconditional
+              and not any(u.cond_on_text for u in imagen.unets))
+    ok &= forced
+    shape = (SURFACE_BATCH, imagen.image_sizes[-1], imagen.image_sizes[-1], 3)
+
+    def sample(cascade):
+        return cascade.sample(batch_size=SURFACE_BATCH, cond_scale=SURFACE_COND_SCALE,
+                              use_tqdm=False,
+                              generator=torch.Generator(device='cuda').manual_seed(99))
+
+    sample_counts = Counter()
+    with counting_path(build, shapes, sample_counts):
+        t1 = time.perf_counter()
+        out = sample(imagen)
+        torch.cuda.synchronize()
+        lat = time.perf_counter() - t1
+    counts.update(sample_counts)
+    finite = bool(torch.isfinite(out).all())
+    in_range = bool(out.min() >= 0. and out.max() <= 1.)
+    good = forced and tuple(out.shape) == shape and finite and in_range
+    ok &= good
+    log(f'surface: after force_unconditional_ (flags cleared {forced}), a sample at timesteps '
+        f'{SURFACE_STEPS}: latency {lat:.3f} s shape {tuple(out.shape)} finite {finite} in [0,1] '
+        f'{in_range} -> {"ok" if good else "FAIL"}')
+
+    t1 = time.perf_counter()
+    plain = surface_cascade(torch, it, condition_on_text=False)
+    loaded = plain.load_state_dict(imagen.state_dict(), strict=False)
+    plain_counts = Counter()
+    with counting_path(build, defaultdict(Counter), plain_counts):
+        same = sample(plain)
+    torch.cuda.synchronize()
+    equal = torch.equal(out, same)
+    same_launches = all(plain_counts[k] == sample_counts[k] for k in SURFACE_KERNELS)
+    good = equal and same_launches and not loaded.missing_keys and bool(loaded.unexpected_keys)
+    ok &= good
+    log(f'surface: a cascade built with condition_on_text=False ({time.perf_counter() - t1:.1f} '
+        f's to build, load and sample), {len(loaded.unexpected_keys)} text weights of the '
+        f'forced one not loaded, {len(loaded.missing_keys)} missing; its sample equals the '
+        f'forced one bit for bit {equal}; launches (forced, built so) '
+        f'{dict((k, (sample_counts[k], plain_counts[k])) for k in SURFACE_KERNELS)} '
+        f'-> {"ok" if good else "FAIL"}')
+    del plain
+    ok &= check_launched(counts, SURFACE_KERNELS, 'surface')
+    results['counts']['surface'] = counts
     return ok
 
 
@@ -3042,8 +3253,8 @@ def main():
         t0 = time.perf_counter()
         _build.library()
         log(f'kernel build: {time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})')
-        for phase in (phase_serving, phase_inpainting, phase_self_cond, phase_training,
-                      phase_video, phase_video_training, phase_edm_serving,
+        for phase in (phase_serving, phase_surface, phase_inpainting, phase_self_cond,
+                      phase_training, phase_video, phase_video_training, phase_edm_serving,
                       phase_edm_training, phase_video_edm, phase_video_edm_training,
                       phase_sr1024_serving, phase_train_loop, phase_unet_options,
                       phase_parallel):

@@ -138,8 +138,8 @@ class ElucidatedImagen(Imagen):
             kwargs['lowres_noise_times'] = self.lowres_noise_schedule.get_condition(
                 lowres_aug_times)
 
-        sigmas = default(sigmas, lambda: rows_of(lambda n: edm_math.noise_distribution(
-            hp.P_mean, hp.P_std, n, generator=generator, device=device), b))
+        sigmas = default(sigmas, lambda: rows_of(lambda n: self.noise_distribution(
+            hp.P_mean, hp.P_std, n, generator=generator), b))
         noise = default(noise, lambda: randn(images.shape, images.dtype))
         noised_images = images + right_pad_dims_to(images, sigmas) * noise
 
@@ -158,7 +158,19 @@ class ElucidatedImagen(Imagen):
                                                            **kwargs)
         losses = (denoised.float() - images.float()) ** 2
         losses = losses.reshape(b, -1).mean(dim=-1)
-        return (losses * edm_math.loss_weight(hp.sigma_data, sigmas.float())).mean()
+        return (losses * self.loss_weight(hp.sigma_data, sigmas.float())).mean()
+
+    def sample_schedule(self, num_sample_steps, rho, sigma_min, sigma_max):
+        return edm_math.sample_schedule(num_sample_steps, rho, sigma_min, sigma_max)
+
+    def loss_weight(self, sigma_data, sigma):
+        return edm_math.loss_weight(sigma_data, sigma)
+
+    def noise_distribution(self, P_mean, P_std, batch_size, generator=None):
+        """(batch_size,) log-normal training sigmas on the cascade's device,
+        drawn from `generator` (where the JAX method takes a key)."""
+        return edm_math.noise_distribution(P_mean, P_std, batch_size, generator=generator,
+                                           device=self.device)
 
     # --- preconditioning -----------------------------------------------------------------
 
@@ -226,8 +238,8 @@ class ElucidatedImagen(Imagen):
                 return noise[name][at].to(device)
             return torch.randn(shape, generator=generator, device=device)
 
-        sigmas = edm_math.sample_schedule(steps, hp.rho, default(sigma_min[index], hp.sigma_min),
-                                          default(sigma_max[index], hp.sigma_max))
+        sigmas = self.sample_schedule(steps, hp.rho, default(sigma_min[index], hp.sigma_min),
+                                      default(sigma_max[index], hp.sigma_max))
         gammas = edm_math.gammas_for_schedule(sigmas, steps, hp.S_churn, hp.S_tmin, hp.S_tmax)
         kwargs = dict(sigma_data=hp.sigma_data, clamp=True, cond_scale=cond_scale,
                       dynamic_threshold=self.dynamic_thresholding[index], **unet_kwargs)

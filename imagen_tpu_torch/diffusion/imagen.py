@@ -291,6 +291,25 @@ class Imagen(nn.Module):
     def device(self):
         return self._device_anchor.device
 
+    def get_unet(self, unet_number):
+        """The unet of stage `unet_number`, counted from 1."""
+        if not 0 < unet_number <= self.num_unets:
+            raise ValueError(f'unet_number {unet_number} is not in 1..{self.num_unets}')
+        return self.unets[unet_number - 1]
+
+    def force_unconditional_(self):
+        """Drop the text conditioning of the whole cascade in place: the
+        cascade then samples and trains without text, as one built with
+        `condition_on_text=False`. Each unet keeps its text modules and their
+        weights, which its forward no longer reads, so a state_dict still
+        loads strictly."""
+        self.condition_on_text = False
+        self.unconditional = True
+        for unet in self.unets:
+            if hasattr(unet, 'cond_on_text'):
+                unet.cond_on_text = False
+                unet._config['cond_on_text'] = False
+
     def encode_text(self, texts, **kwargs):
         """`texts` through the cascade's T5 encoder, on its device."""
         return t5_encode_text(texts, name=self.text_encoder_name, device=self.device, **kwargs)
@@ -681,7 +700,7 @@ class Imagen(nn.Module):
             if exists(lowres_cond_img):
                 lowres_cond_img = rest[0]
 
-        x_noisy, log_snr, alpha, sigma = noise_scheduler.q_sample(x_start, times, noise)
+        x_noisy, log_snr, *_ = noise_scheduler.q_sample(x_start, times, noise)
 
         lowres_cond_img_noisy = None
         if exists(lowres_cond_img):
@@ -719,7 +738,7 @@ class Imagen(nn.Module):
         elif pred_objective == 'x_start':
             target = x_start
         elif pred_objective == 'v':
-            target = alpha * noise - sigma * x_start
+            target = noise_scheduler.predict_v_from_start_and_noise(x_start, times, noise)
         else:
             raise ValueError(f'unknown objective {pred_objective}')
 

@@ -941,7 +941,13 @@ class UpsampleCombiner(nn.Module):
             Block(dim_in, dim_out, dtype=dtype, fused_film=fused_film)
             for dim_in, dim_out in zip(dim_ins, dim_outs)
         ]) if enabled else nn.ModuleList()
-        self.dim_out = dim + (sum(dim_outs) if enabled and len(dim_outs) > 0 else 0)
+        self.dim_out = self.combined_dim(dim, enabled, dim_ins, dim_outs)
+
+    @staticmethod
+    def combined_dim(dim, enabled, dim_ins, dim_outs):
+        """The channels out: `dim`, plus every upsample fmap's when enabled."""
+        dim_outs = cast_tuple(dim_outs, len(dim_ins))
+        return dim + (sum(dim_outs) if enabled and len(dim_outs) > 0 else 0)
 
     def forward(self, x, fmaps=None):
         fmaps = default(fmaps, tuple())

@@ -117,6 +117,21 @@ class ConditionedUnet(nn.Module):
                 Linear(time_cond_dim, time_cond_dim, dtype=dtype),
             )
 
+    @property
+    def has_cond_image(self):
+        return self.cond_images_channels > 0
+
+    @property
+    def channels_out_(self):
+        return self.channels_out
+
+    def forward_with_cond_scale(self, x, time, *, cond_scale=1., **kwargs):
+        """The classifier-free guided forward: `unet_forward_with_cond_scale`
+        (`diffusion/imagen.py`), the conditional and null halves as one
+        doubled-batch forward."""
+        from imagen_tpu_torch.diffusion.imagen import unet_forward_with_cond_scale
+        return unet_forward_with_cond_scale(self, x, time, cond_scale=cond_scale, **kwargs)
+
     def cast_model_parameters(self, *, lowres_cond, text_embed_dim, channels, channels_out,
                               cond_on_text):
         """A unet with the cascade-corrected conditioning config (a new module
@@ -536,6 +551,14 @@ class NullUnet(nn.Module):
         self.channels = channels
         self.channels_out = channels
         self.dummy = nn.Parameter(torch.zeros(1, device=resolve_device(device)))
+
+    @property
+    def has_cond_image(self):
+        return False
+
+    @property
+    def channels_out_(self):
+        return self.channels
 
     def cast_model_parameters(self, *, lowres_cond=False, **kwargs):
         if lowres_cond == self.lowres_cond:

@@ -165,7 +165,7 @@ class Unet3D(ConditionedUnet):
             layer_attns_depth = cast_tuple(layer_attns_depth, num_layers)
             layer_cross_attns = cast_tuple(layer_cross_attns, num_layers)
             temporal_strides = cast_tuple(temporal_strides, num_layers)
-            self.total_temporal_divisor = functools.reduce(operator.mul, temporal_strides, 1)
+            self.temporal_strides = temporal_strides
 
             dims = [init_dim, *(dim * m for m in dim_mults)]
             in_out = list(zip(dims[:-1], dims[1:]))
@@ -317,6 +317,12 @@ class Unet3D(ConditionedUnet):
                                               kernel=final_conv_kernel_size, dtype=dtype)
             nn.init.zeros_(self.final_conv.weight)
             nn.init.zeros_(self.final_conv.bias)
+
+    @property
+    def total_temporal_divisor(self):
+        """The product of the levels' temporal strides: the frames a clip
+        must be a multiple of."""
+        return functools.reduce(operator.mul, self.temporal_strides, 1)
 
     def forward(self, x, time, *, lowres_cond_img=None, lowres_noise_times=None,
                 text_embeds=None, text_mask=None, cond_images=None, self_cond=None,

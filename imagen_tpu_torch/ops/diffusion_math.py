@@ -106,6 +106,11 @@ class GaussianDiffusionContinuousTimes:
         alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_t, self.log_snr(t)))
         return alpha * x_t - sigma * v
 
+    def predict_v_from_start_and_noise(self, x_start, t, noise):
+        """v = alpha * noise - sigma * x_start, the v objective's target."""
+        alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_start, self.log_snr(t)))
+        return alpha * noise - sigma * x_start
+
     def predict_start_from_noise(self, x_t, t, noise):
         alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_t, self.log_snr(t)))
         return (x_t - sigma * noise) / alpha.clamp(min=1e-8)

@@ -62,7 +62,12 @@ Several GPUs (`mesh`, a `parallel.mesh.create_mesh()` ('data', 'model')
   load is symmetric: every rank reads. `checkpoint_backend='orbax'` writes
   each rank's blocks with `torch.distributed.checkpoint` (no gather) into a
   directory (`utils/sharded_ckpt.py`) and reads them back where the live
-  trainer holds them.
+  trainer holds them. It keeps the bundle's `overwrite=False` contract
+  (where the JAX orbax branch overwrites) and refuses a `checkpoint_fs`
+  other than the local filesystem, which it cannot write through.
+
+`split_batches` is accepted and read nowhere, as in the JAX trainer (an
+Accelerate option in lucidrains').
 """
 from __future__ import annotations
 
@@ -82,7 +87,14 @@ from imagen_tpu_torch.optim import Adafactor
 from imagen_tpu_torch.parallel import mesh as mesh_lib
 from imagen_tpu_torch.parallel.layout import MeshComm, UnetLayout, splits_of
 from imagen_tpu_torch.parallel.rows import global_rows
-from imagen_tpu_torch.utils.checkpoint_io import as_list, get_fs, load_obj, save_obj, to_cpu
+from imagen_tpu_torch.utils.checkpoint_io import (
+    as_list,
+    get_fs,
+    is_local_fs,
+    load_obj,
+    save_obj,
+    to_cpu,
+)
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
 from imagen_tpu_torch.utils.load import (
     is_flax_state, load_imagen_from_checkpoint, load_unet_state)
@@ -191,7 +203,7 @@ class ImagenTrainer:
                  eps=1e-8, beta1=0.9, beta2=0.99, optimizer='adam', max_grad_norm=None,
                  weight_decay=0.0, group_wd_params=True, warmup_steps=None,
                  cosine_decay_max_steps=None, only_train_unet_number=None, fp16=False,
-                 precision=None,
+                 precision=None, split_batches=True,
                  dl_tuple_output_keywords_names=('images', 'text_embeds', 'text_masks',
                                                  'cond_images'),
                  split_valid_fraction=0.025, split_valid_from_train=False, split_random_seed=42,
@@ -877,6 +889,13 @@ class ImagenTrainer:
         self._wait_for_pending_save()
         if self.checkpoint_backend == 'orbax':
             from imagen_tpu_torch.utils.sharded_ckpt import save_bundle
+            if not is_local_fs(self.fs):
+                raise ValueError("checkpoint_backend='orbax' writes to the local filesystem, "
+                                 f'not through the trainer\'s {type(self.fs).__name__}: save '
+                                 "with checkpoint_backend='msgpack' to use it")
+            if os.path.exists(path) and not overwrite:
+                raise FileExistsError(f'{path} exists and overwrite is False')
+            self._barrier()   # every rank has looked before rank 0 makes the directory
             bundle = {**self._sharded_state(without_optim_and_sched), **kwargs}
             self._pending_save = save_bundle(path, bundle, async_save=async_save)
             self.print(f'checkpoint saved to {path} (sharded)')

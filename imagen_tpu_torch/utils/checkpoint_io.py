@@ -3,7 +3,8 @@
 - `get_fs`: a local path gets `LocalFS`, a small object with the methods the
   trainer uses (`exists`, `glob`, `rm`, `makedirs`, `open`); a URL (or
   `fs_kwargs`) gets an fsspec filesystem, imported only then; a given `fs`
-  is used as it is.
+  is used as it is. `is_local_fs` tells the local filesystem (`LocalFS` or
+  fsspec's) from others.
 - `save_obj` / `load_obj`: the port's bundles are `torch.save` files.
   `load_obj` also reads the JAX package's flax-msgpack bundles, decoded here
   with `msgpack` (`read_flax_msgpack`): flax's ext types (ndarray, complex,
@@ -20,7 +21,7 @@ import shutil
 import numpy as np
 import torch
 
-from imagen_tpu_torch.utils.helpers import default
+from imagen_tpu_torch.utils.helpers import cast_tuple, default
 
 
 class LocalFS:
@@ -54,6 +55,11 @@ def get_fs(path_or_url, fs=None, fs_kwargs=None):
         from fsspec.core import url_to_fs
         return url_to_fs(str(path_or_url), **default(fs_kwargs, {}))[0]
     return LocalFS()
+
+
+def is_local_fs(fs):
+    """Whether `fs` is the local filesystem: `LocalFS`, or fsspec's."""
+    return isinstance(fs, LocalFS) or 'file' in cast_tuple(getattr(fs, 'protocol', ()))
 
 
 def to_cpu(obj):

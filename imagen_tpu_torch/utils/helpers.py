@@ -3,6 +3,7 @@
 Config-time helpers only; tensor-touching helpers live in
 `imagen_tpu_torch.ops.tensor_utils`.
 """
+from functools import wraps
 
 
 def exists(val):
@@ -13,6 +14,44 @@ def default(val, d):
     if exists(val):
         return val
     return d() if callable(d) else d
+
+
+def identity(t, *args, **kwargs):
+    return t
+
+
+def divisible_by(numer, denom):
+    return (numer % denom) == 0
+
+
+def first(arr, d=None):
+    if len(arr) == 0:
+        return d
+    return arr[0]
+
+
+def maybe(fn):
+    """`fn` that passes None through."""
+    @wraps(fn)
+    def inner(x):
+        if not exists(x):
+            return x
+        return fn(x)
+    return inner
+
+
+def once(fn):
+    """`fn` that runs on its first call only."""
+    called = False
+
+    @wraps(fn)
+    def inner(x):
+        nonlocal called
+        if called:
+            return
+        called = True
+        return fn(x)
+    return inner
 
 
 def cast_tuple(val, length=None):
@@ -28,11 +67,30 @@ def cast_tuple(val, length=None):
     return output
 
 
+def compact(input_dict):
+    return {key: value for key, value in input_dict.items() if exists(value)}
+
+
+def maybe_transform_dict_key(input_dict, key, fn):
+    """A copy of `input_dict` with `fn` applied to its `key`, if it has it."""
+    if key not in input_dict:
+        return input_dict
+    copied_dict = input_dict.copy()
+    copied_dict[key] = fn(copied_dict[key])
+    return copied_dict
+
+
 def pad_tuple_to_length(t, length, fillvalue=None):
     remain_length = length - len(t)
     if remain_length <= 0:
         return t
     return (*t, *((fillvalue,) * remain_length))
+
+
+def safe_get_tuple_index(tup, index, default=None):
+    if len(tup) <= index:
+        return default
+    return tup[index]
 
 
 def resolve_device(device=None):

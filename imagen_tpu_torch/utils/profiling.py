@@ -1,16 +1,59 @@
-"""Rolling step-time statistics; counterpart of `StepTimer` in
-`imagen_tpu/utils/profiling.py`.
+"""Tracing and timing helpers; counterpart of `imagen_tpu/utils/profiling.py`.
 
-`stop` synchronises the CUDA device first when given one, so a step's time is
-the time its device work took to finish, not the time it took to enqueue.
+- `trace(logdir)`: a `torch.profiler` trace (CPU and, where there is one, CUDA
+  activity) of the block, written into `logdir` as a Chrome trace that
+  TensorBoard's profiler plugin and Perfetto open.
+- `annotate(name)`: a named span on the trace's timeline.
+- `block_on(tree)`: waits for the devices of every tensor in a nested
+  structure, for honest timing.
+- `StepTimer`: wall time per step over a rolling window. `stop` synchronises
+  the CUDA device first when given one, so a step's time is the time its
+  device work took to finish, not the time it took to enqueue.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Trace the block into `logdir`."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir))):
+        yield
+
+
+def annotate(name: str):
+    """A named span of the profiler's timeline, as a context manager."""
+    return torch.profiler.record_function(name)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def block_on(tree):
+    """Wait until every CUDA device that holds a tensor of `tree` (nested
+    dicts, lists and tuples) has finished its queued work; returns `tree`."""
+    for device in {t.device for t in _leaves(tree) if t.device.type == 'cuda'}:
+        torch.cuda.synchronize(device)
+    return tree
 
 
 class StepTimer:
@@ -29,6 +72,13 @@ class StepTimer:
         dt = time.perf_counter() - self._t0
         self.times.append(dt)
         return dt
+
+    @contextlib.contextmanager
+    def measure(self, device=None):
+        """Time the block as one step, synchronising `device` at its end."""
+        self.start()
+        yield
+        self.stop(device)
 
     def summary(self):
         if not self.times:

@@ -261,6 +261,31 @@ def test_one_rank_sharded_checkpoint_round_trip(one_rank, tmp_path):
     assert trainer.step_with_batch(W.global_batch()) == fresh.step_with_batch(W.global_batch())
 
 
+def test_sharded_save_keeps_the_overwrite_contract(one_rank, tmp_path):
+    """A sharded save over an existing directory raises with overwrite=False,
+    as the bundle's does, and round-trips with overwrite=True; an fs other
+    than the local one, which the sharded writer cannot write through, is
+    refused before anything is written."""
+    trainer = W.make_trainer(mesh=one_rank, fsdp=64, checkpoint_backend='orbax')
+    W.steps(trainer, W.global_batch(), n=1)
+    trainer.save(tmp_path / 'ckpt')
+    with pytest.raises(FileExistsError):
+        trainer.save(tmp_path / 'ckpt', overwrite=False)
+    W.steps(trainer, W.global_batch(), n=1)
+    trainer.save(tmp_path / 'ckpt', overwrite=True)
+    fresh = W.make_trainer(mesh=one_rank, fsdp=64, checkpoint_backend='orbax')
+    fresh.load(tmp_path / 'ckpt')
+    assert fresh.steps.tolist() == [2]
+    for k, v in trainer.unets[0].state_dict().items():
+        assert torch.equal(fresh.unets[0].state_dict()[k], v), k
+
+    import fsspec
+    remote = W.make_trainer(checkpoint_backend='orbax', checkpoint_fs=fsspec.filesystem('memory'))
+    with pytest.raises(ValueError, match='local filesystem'):
+        remote.save(tmp_path / 'remote')
+    assert not (tmp_path / 'remote').exists()
+
+
 def test_host_offload_and_device_restore():
     unet = it.Unet(**W.TINY, device=CPU)
     assert tmesh.host_offload(unet) is unet

@@ -210,6 +210,8 @@ def test_trainer_rejects_unknown_options():
     with pytest.raises(ValueError, match='unknown optimizer'):
         _tiny_trainer(optimizer='lion')
     assert isinstance(_tiny_trainer(optimizer='adafactor')._make_optimizer(0), Adafactor)
+    # split_batches: taken and read nowhere, as the JAX trainer takes it
+    assert np.isfinite(_tiny_trainer(split_batches=True).step_with_batch(_batch(2)))
     trainer = _tiny_trainer(only_train_unet_number=1)
     with pytest.raises(ValueError):
         trainer.step_with_batch(_batch(2), unet_number=2)
