@@ -40,6 +40,7 @@ from imagen_tpu_torch.ops.edm_math import Hparams
 from imagen_tpu_torch.ops.tensor_utils import right_pad_dims_to
 from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
+from imagen_tpu_torch.utils.profiling import span
 
 _OVERRIDE_KEYS = ('init', 'eps', 'repaint', 'lowres')
 
@@ -251,37 +252,38 @@ class ElucidatedImagen(Imagen):
             images = images + init_images
         x_start = torch.zeros_like(images)
         for i in range(skip_steps, steps):
-            sigma, sigma_next = sigmas[i], sigmas[i + 1]
-            sigma_hat = sigma + gammas[i] * sigma
-            churn = np.sqrt(np.maximum(sigma_hat ** 2 - sigma ** 2, f(0.)))
-            for r in range(resample_times):
-                images_hat, known = images, inpaint_images
-                if churn > 0:   # the stochastic churn: sigma_hat > sigma only where gamma > 0
-                    added = float(churn) * (float(s_noise) * draw('eps', i - skip_steps, r))
-                    images_hat = images + added
-                    known = inpaint_images + added if inpainting else None
-                if inpainting:
-                    images_hat = torch.where(inpaint_masks, known, images_hat)
+            with span('sample.step'):
+                sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                sigma_hat = sigma + gammas[i] * sigma
+                churn = np.sqrt(np.maximum(sigma_hat ** 2 - sigma ** 2, f(0.)))
+                for r in range(resample_times):
+                    images_hat, known = images, inpaint_images
+                    if churn > 0:   # the stochastic churn: sigma_hat > sigma only where gamma > 0
+                        added = float(churn) * (float(s_noise) * draw('eps', i - skip_steps, r))
+                        images_hat = images + added
+                        known = inpaint_images + added if inpainting else None
+                    if inpainting:
+                        images_hat = torch.where(inpaint_masks, known, images_hat)
 
-                self_cond = dict(self_cond=x_start) if unet.self_cond else {}
-                model_output = self.preconditioned_network_forward(
-                    unet, images_hat, sigma_hat, **self_cond, **kwargs)
-                denoised_over_sigma = (images_hat - model_output) / float(sigma_hat)
-                images_next = images_hat + float(sigma_next - sigma_hat) * denoised_over_sigma
+                    self_cond = dict(self_cond=x_start) if unet.self_cond else {}
+                    model_output = self.preconditioned_network_forward(
+                        unet, images_hat, sigma_hat, **self_cond, **kwargs)
+                    denoised_over_sigma = (images_hat - model_output) / float(sigma_hat)
+                    images_next = images_hat + float(sigma_next - sigma_hat) * denoised_over_sigma
 
-                if sigma_next != 0:   # the Heun correction
-                    self_cond = dict(self_cond=model_output) if unet.self_cond else {}
-                    x_start = self.preconditioned_network_forward(
-                        unet, images_next, sigma_next, **self_cond, **kwargs)
-                    denoised_prime = (images_next - x_start) / float(sigma_next)
-                    images = images_hat + float(f(0.5) * (sigma_next - sigma_hat)) * (
-                        denoised_over_sigma + denoised_prime)
-                else:
-                    images, x_start = images_next, model_output
+                    if sigma_next != 0:   # the Heun correction
+                        self_cond = dict(self_cond=model_output) if unet.self_cond else {}
+                        x_start = self.preconditioned_network_forward(
+                            unet, images_next, sigma_next, **self_cond, **kwargs)
+                        denoised_prime = (images_next - x_start) / float(sigma_next)
+                        images = images_hat + float(f(0.5) * (sigma_next - sigma_hat)) * (
+                            denoised_over_sigma + denoised_prime)
+                    else:
+                        images, x_start = images_next, model_output
 
-                if inpainting and r < resample_times - 1 and i < steps - 1:
-                    images = images + float(sigma - sigma_next) * draw('repaint',
-                                                                       i - skip_steps, r)
+                    if inpainting and r < resample_times - 1 and i < steps - 1:
+                        images = images + float(sigma - sigma_next) * draw('repaint',
+                                                                           i - skip_steps, r)
         images = images.clamp(-1., 1.)
         if inpainting:
             images = torch.where(inpaint_masks, inpaint_images, images)

@@ -53,6 +53,7 @@ from imagen_tpu_torch.utils.helpers import (
     resolve_device,
     stage_progress,
 )
+from imagen_tpu_torch.utils.profiling import span
 
 @contextmanager
 def on_device(module, device):
@@ -386,13 +387,14 @@ class Imagen(nn.Module):
     def p_sample(self, unet, x, t, *, noise, noise_scheduler, t_next=None, cond_scale=1.,
                  pred_objective='noise', dynamic_threshold=True, **unet_kwargs):
         """One ancestral sampling step with the given step noise."""
-        (model_mean, _, model_log_variance), x_start = self.p_mean_variance(
-            unet, x, t, noise_scheduler=noise_scheduler, t_next=t_next,
-            cond_scale=cond_scale, pred_objective=pred_objective,
-            dynamic_threshold=dynamic_threshold, **unet_kwargs)
-        nonzero_mask = right_pad_dims_to(x, 1. - (t_next == 0).to(x.dtype))
-        pred_img = model_mean + nonzero_mask * torch.exp(0.5 * model_log_variance) * noise
-        return pred_img, x_start
+        with span('sample.step'):
+            (model_mean, _, model_log_variance), x_start = self.p_mean_variance(
+                unet, x, t, noise_scheduler=noise_scheduler, t_next=t_next,
+                cond_scale=cond_scale, pred_objective=pred_objective,
+                dynamic_threshold=dynamic_threshold, **unet_kwargs)
+            nonzero_mask = right_pad_dims_to(x, 1. - (t_next == 0).to(x.dtype))
+            pred_img = model_mean + nonzero_mask * torch.exp(0.5 * model_log_variance) * noise
+            return pred_img, x_start
 
     # --- one cascade stage ---------------------------------------------------------------
 
@@ -543,127 +545,128 @@ class Imagen(nn.Module):
         `noise_override[index]` (made a dict by `self._override_dict`) less
         its 'lowres' draw as `noise` and `stage_options` passed through, the
         unet in eval mode; `use_tqdm` wraps the stage loop in a progress bar."""
-        if exists(texts) and not exists(text_embeds) and not self.unconditional:
-            text_embeds, text_masks = self.encode_text(texts, return_attn_mask=True)
-        device = self.device
-        if not self.unconditional:
-            if not exists(text_embeds):
-                raise ValueError('text embeddings must be passed to a conditional imagen')
-            text_embeds = text_embeds.to(device)
-            text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
-                else text_masks.to(device)
-            batch_size = text_embeds.shape[0]
-            if text_embeds.shape[-1] != self.text_embed_dim:
-                raise ValueError(f'text embeddings of dim {text_embeds.shape[-1]}, '
-                                 f'expected {self.text_embed_dim}')
-        elif exists(text_embeds):
-            raise ValueError('unconditional imagen cannot take text embeddings')
-
-        inpainting = exists(inpaint_images)
-        if inpainting != exists(inpaint_masks):
-            raise ValueError('inpaint_images and inpaint_masks go together')
-        resample_times = inpaint_resample_times if inpainting else 1
-        if inpainting:
-            inpaint_images, inpaint_masks = inpaint_images.to(device), inpaint_masks.to(device)
-            if self.unconditional and batch_size == 1:
-                batch_size = inpaint_images.shape[0]
-            if self.is_video:
-                video_frames = inpaint_images.shape[1]
-                if inpaint_masks.ndim == 3:   # one mask for every frame
-                    inpaint_masks = inpaint_masks[:, None].expand(-1, video_frames, -1, -1)
-                if inpaint_masks.shape[1] != video_frames:
-                    raise ValueError(f'inpaint masks of {inpaint_masks.shape[1]} frames for '
-                                     f'{video_frames} frames of video')
-        if self.is_video and not exists(video_frames):
-            raise ValueError('video_frames must be passed for a video imagen')
-        if exists(cond_images):
-            cond_images = cast_uint8_images_to_float(cond_images.to(device))
-
-        all_frame_dims = self._calc_all_frame_dims(video_frames if self.is_video else None)
-        num_unets = self.num_unets
-        cond_scale = cast_tuple(cond_scale, num_unets)
-        init_images = [None if im is None else self.normalize_img(im.to(device))
-                       for im in cast_tuple(init_images, num_unets)]
-        skip_steps = cast_tuple(default(skip_steps, 0), num_unets)
-        lowres_sample_noise_level = default(lowres_sample_noise_level,
-                                            self.lowres_sample_noise_level)
-        noise_override = default(noise_override, (None,) * num_unets)
-        if len(noise_override) != num_unets:
-            raise ValueError('noise_override must be a per-stage list (entries may be None)')
-
-        img = None
-        if start_at_unet_number > 1:
-            if not exists(start_image_or_video):
-                raise ValueError('starting image must be supplied if only doing upscaling')
-            img = self.resize_to(start_image_or_video.to(device),
-                                 self.image_sizes[start_at_unet_number - 2],
-                                 target_frames=all_frame_dims[start_at_unet_number - 2])
-
-        outputs = []
-        stages = range(start_at_unet_number, num_unets + 1)
-        for unet_number in stage_progress(stages, enabled=use_tqdm, desc='sampling cascade',
-                                          total=len(stages)):
-            index = unet_number - 1
-            unet = self.unets[index]
-            if isinstance(unet, NullUnet):
-                raise ValueError('cannot sample from a NullUnet')
-            image_size = self.image_sizes[index]
-            frames = all_frame_dims[index]
-            noise = self._override_dict(noise_override[index])
-            lowres_noise = noise.pop('lowres', None)
-
-            unet_kwargs = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
+        with span('sample'):
+            if exists(texts) and not exists(text_embeds) and not self.unconditional:
+                text_embeds, text_masks = self.encode_text(texts, return_attn_mask=True)
+            device = self.device
             if not self.unconditional:
-                unet_kwargs.update(text_embeds=text_embeds, text_mask=text_masks)
-            if exists(cond_images):
-                unet_kwargs.update(cond_images=cond_images)
-            if unet.lowres_cond:
-                lowres_noise_times = self.lowres_noise_schedule.get_times(
-                    batch_size, lowres_sample_noise_level, device=device)
-                lowres_cond_img = self.normalize_img(self.resize_to(
-                    img, image_size, target_frames=frames))
-                if exists(lowres_noise):
-                    if lowres_noise.shape != lowres_cond_img.shape:
-                        raise ValueError(f'low-res noise of stage {unet_number} is '
-                                         f'{tuple(lowres_noise.shape)}, expected '
-                                         f'{tuple(lowres_cond_img.shape)}')
-                    lowres_noise = lowres_noise.to(device)
-                else:
-                    lowres_noise = torch.randn(lowres_cond_img.shape, generator=generator,
-                                               device=device)
-                lowres_cond_img, *_ = self.lowres_noise_schedule.q_sample(
-                    lowres_cond_img, lowres_noise_times, lowres_noise)
-                unet_kwargs.update(
-                    lowres_cond_img=lowres_cond_img,
-                    lowres_noise_times=self.lowres_noise_schedule.get_condition(
-                        lowres_noise_times))
+                if not exists(text_embeds):
+                    raise ValueError('text embeddings must be passed to a conditional imagen')
+                text_embeds = text_embeds.to(device)
+                text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
+                    else text_masks.to(device)
+                batch_size = text_embeds.shape[0]
+                if text_embeds.shape[-1] != self.text_embed_dim:
+                    raise ValueError(f'text embeddings of dim {text_embeds.shape[-1]}, '
+                                     f'expected {self.text_embed_dim}')
+            elif exists(text_embeds):
+                raise ValueError('unconditional imagen cannot take text embeddings')
 
-            stage_init = init_images[index]
-            if exists(stage_init):
-                stage_init = self.resize_to(stage_init, image_size, target_frames=frames)
-            stage_inpaint = stage_masks = None
+            inpainting = exists(inpaint_images)
+            if inpainting != exists(inpaint_masks):
+                raise ValueError('inpaint_images and inpaint_masks go together')
+            resample_times = inpaint_resample_times if inpainting else 1
             if inpainting:
-                stage_inpaint = self.normalize_img(
-                    self.resize_to(inpaint_images, image_size, target_frames=frames))
-                stage_masks = self.resize_to(inpaint_masks[..., None].float(), image_size,
-                                             target_frames=frames).bool()
+                inpaint_images, inpaint_masks = inpaint_images.to(device), inpaint_masks.to(device)
+                if self.unconditional and batch_size == 1:
+                    batch_size = inpaint_images.shape[0]
+                if self.is_video:
+                    video_frames = inpaint_images.shape[1]
+                    if inpaint_masks.ndim == 3:   # one mask for every frame
+                        inpaint_masks = inpaint_masks[:, None].expand(-1, video_frames, -1, -1)
+                    if inpaint_masks.shape[1] != video_frames:
+                        raise ValueError(f'inpaint masks of {inpaint_masks.shape[1]} frames for '
+                                         f'{video_frames} frames of video')
+            if self.is_video and not exists(video_frames):
+                raise ValueError('video_frames must be passed for a video imagen')
+            if exists(cond_images):
+                cond_images = cast_uint8_images_to_float(cond_images.to(device))
 
-            with on_device(unet, device) if offload_inactive_unets else nullcontext(), \
-                    unet_mode(unet, False):
-                img = self._sample_stage(
-                    index, batch_size=batch_size, frames=frames, cond_scale=cond_scale[index],
-                    unet_kwargs=unet_kwargs, noise=noise, generator=generator,
-                    inpaint_images=stage_inpaint, inpaint_masks=stage_masks,
-                    resample_times=resample_times, init_images=stage_init,
-                    skip_steps=skip_steps[index], **stage_options)
-            outputs.append(img)
+            all_frame_dims = self._calc_all_frame_dims(video_frames if self.is_video else None)
+            num_unets = self.num_unets
+            cond_scale = cast_tuple(cond_scale, num_unets)
+            init_images = [None if im is None else self.normalize_img(im.to(device))
+                           for im in cast_tuple(init_images, num_unets)]
+            skip_steps = cast_tuple(default(skip_steps, 0), num_unets)
+            lowres_sample_noise_level = default(lowres_sample_noise_level,
+                                                self.lowres_sample_noise_level)
+            noise_override = default(noise_override, (None,) * num_unets)
+            if len(noise_override) != num_unets:
+                raise ValueError('noise_override must be a per-stage list (entries may be None)')
 
-            if exists(stop_at_unet_number) and stop_at_unet_number == unet_number:
-                break
+            img = None
+            if start_at_unet_number > 1:
+                if not exists(start_image_or_video):
+                    raise ValueError('starting image must be supplied if only doing upscaling')
+                img = self.resize_to(start_image_or_video.to(device),
+                                     self.image_sizes[start_at_unet_number - 2],
+                                     target_frames=all_frame_dims[start_at_unet_number - 2])
 
-        if return_pil_images:
-            outputs = [to_pil_images(out, self.is_video) for out in outputs]
-        return outputs if return_all_unet_outputs else outputs[-1]
+            outputs = []
+            stages = range(start_at_unet_number, num_unets + 1)
+            for unet_number in stage_progress(stages, enabled=use_tqdm, desc='sampling cascade',
+                                              total=len(stages)):
+                index = unet_number - 1
+                unet = self.unets[index]
+                if isinstance(unet, NullUnet):
+                    raise ValueError('cannot sample from a NullUnet')
+                image_size = self.image_sizes[index]
+                frames = all_frame_dims[index]
+                noise = self._override_dict(noise_override[index])
+                lowres_noise = noise.pop('lowres', None)
+
+                unet_kwargs = self._prompt_frames(index, cond_video_frames, post_cond_video_frames)
+                if not self.unconditional:
+                    unet_kwargs.update(text_embeds=text_embeds, text_mask=text_masks)
+                if exists(cond_images):
+                    unet_kwargs.update(cond_images=cond_images)
+                if unet.lowres_cond:
+                    lowres_noise_times = self.lowres_noise_schedule.get_times(
+                        batch_size, lowres_sample_noise_level, device=device)
+                    lowres_cond_img = self.normalize_img(self.resize_to(
+                        img, image_size, target_frames=frames))
+                    if exists(lowres_noise):
+                        if lowres_noise.shape != lowres_cond_img.shape:
+                            raise ValueError(f'low-res noise of stage {unet_number} is '
+                                             f'{tuple(lowres_noise.shape)}, expected '
+                                             f'{tuple(lowres_cond_img.shape)}')
+                        lowres_noise = lowres_noise.to(device)
+                    else:
+                        lowres_noise = torch.randn(lowres_cond_img.shape, generator=generator,
+                                                   device=device)
+                    lowres_cond_img, *_ = self.lowres_noise_schedule.q_sample(
+                        lowres_cond_img, lowres_noise_times, lowres_noise)
+                    unet_kwargs.update(
+                        lowres_cond_img=lowres_cond_img,
+                        lowres_noise_times=self.lowres_noise_schedule.get_condition(
+                            lowres_noise_times))
+
+                stage_init = init_images[index]
+                if exists(stage_init):
+                    stage_init = self.resize_to(stage_init, image_size, target_frames=frames)
+                stage_inpaint = stage_masks = None
+                if inpainting:
+                    stage_inpaint = self.normalize_img(
+                        self.resize_to(inpaint_images, image_size, target_frames=frames))
+                    stage_masks = self.resize_to(inpaint_masks[..., None].float(), image_size,
+                                                 target_frames=frames).bool()
+
+                with on_device(unet, device) if offload_inactive_unets else nullcontext(), \
+                        unet_mode(unet, False):
+                    img = self._sample_stage(
+                        index, batch_size=batch_size, frames=frames, cond_scale=cond_scale[index],
+                        unet_kwargs=unet_kwargs, noise=noise, generator=generator,
+                        inpaint_images=stage_inpaint, inpaint_masks=stage_masks,
+                        resample_times=resample_times, init_images=stage_init,
+                        skip_steps=skip_steps[index], **stage_options)
+                outputs.append(img)
+
+                if exists(stop_at_unet_number) and stop_at_unet_number == unet_number:
+                    break
+
+            if return_pil_images:
+                outputs = [to_pil_images(out, self.is_video) for out in outputs]
+            return outputs if return_all_unet_outputs else outputs[-1]
 
     # --- training loss ---------------------------------------------------------------------
 

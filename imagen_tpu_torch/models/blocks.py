@@ -54,6 +54,7 @@ from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
 from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to, wants_grad
 from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
+from imagen_tpu_torch.utils.profiling import count
 
 F32 = torch.float32
 
@@ -211,8 +212,13 @@ class SameConv3x3(Conv2d):
     def forward(self, x):
         dt = self.compute_dtype
         x = x.to(dt)
-        w_shape = (3, 3, self.in_channels, self.out_channels)
-        if conv2d_same_available(tuple(x.shape), w_shape, dt, x.device.type):
+        cin, cout = self.in_channels, self.out_channels
+        w_shape = (3, 3, cin, cout)
+        kernel = conv2d_same_available(tuple(x.shape), w_shape, dt, x.device.type)
+        b, H, W = x.shape[:3]
+        count('conv3x3', 'kernel' if kernel else 'cudnn', (b, H, W, cin, cout),
+              18 * b * H * W * cin * cout)
+        if kernel:
             return conv2d_same(x, self.weight.to(dt).permute(2, 3, 1, 0), self.bias)
         return super().forward(x)
 

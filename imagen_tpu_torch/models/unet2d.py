@@ -32,6 +32,7 @@ from imagen_tpu_torch.models.blocks import (
 from imagen_tpu_torch.ops.tensor_utils import prob_mask_like, resize_image_to, resize_kernel
 from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
+from imagen_tpu_torch.utils.profiling import span
 
 DEFAULT_TEXT_EMBED_DIM = 768  # t5-v1_1-base d_model
 
@@ -471,72 +472,75 @@ class Unet(ConditionedUnet):
         doubled-batch forward. `cond_images` (b, h, w, cond_images_channels),
         resized to x, and `self_cond` (b, H, W, c), the previous x_start, go
         in on the channel axis."""
-        if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
-            raise ValueError('low resolution conditioning image and noise times must be present')
-        self._check_cond_images(cond_images, 4)
-        x = self._append_self_cond(x, self_cond)
-        if exists(lowres_cond_img):
-            x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
-        if exists(cond_images):
-            cond_images = resize_image_to(cond_images, x.shape[-2], method=self.resize_mode)
-            x = torch.cat((cond_images.to(x.dtype), x), dim=-1)
+        with span('unet.forward'):
+            if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
+                raise ValueError('low resolution conditioning image and noise times must be '
+                                 'present')
+            self._check_cond_images(cond_images, 4)
+            x = self._append_self_cond(x, self_cond)
+            if exists(lowres_cond_img):
+                x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+            if exists(cond_images):
+                cond_images = resize_image_to(cond_images, x.shape[-2], method=self.resize_mode)
+                x = torch.cat((cond_images.to(x.dtype), x), dim=-1)
 
-        x = self.init_conv(x)
-        init_conv_residual = x if self.init_conv_to_final_conv_residual else None
+            x = self.init_conv(x)
+            init_conv_residual = x if self.init_conv_to_final_conv_residual else None
 
-        t, c = self._condition(
-            time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
-            text_mask=text_mask, cond_drop_prob=cond_drop_prob,
-            force_text_drop_mask=force_text_drop_mask, generator=generator)
+            t, c = self._condition(
+                time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
+                text_mask=text_mask, cond_drop_prob=cond_drop_prob,
+                force_text_drop_mask=force_text_drop_mask, generator=generator)
 
-        if exists(self.init_resnet_block):
-            x = self.init_resnet_block(x, time_emb=t)
+            if exists(self.init_resnet_block):
+                x = self.init_resnet_block(x, time_emb=t)
 
-        hiddens = []
-        for pre_downsample, init_block, resnet_blocks, attn_block, post_downsample in self.downs:
-            if exists(pre_downsample):
-                x = pre_downsample(x)
-            x = init_block(x, time_emb=t, cond=c)
-            for resnet_block in resnet_blocks:
-                x = resnet_block(x, time_emb=t)
+            hiddens = []
+            for (pre_downsample, init_block, resnet_blocks, attn_block,
+                 post_downsample) in self.downs:
+                if exists(pre_downsample):
+                    x = pre_downsample(x)
+                x = init_block(x, time_emb=t, cond=c)
+                for resnet_block in resnet_blocks:
+                    x = resnet_block(x, time_emb=t)
+                    hiddens.append(x)
+                if exists(attn_block):
+                    x = attn_block(x, context=c, generator=generator)
                 hiddens.append(x)
-            if exists(attn_block):
-                x = attn_block(x, context=c, generator=generator)
-            hiddens.append(x)
-            if exists(post_downsample):
-                x = post_downsample(x)
+                if exists(post_downsample):
+                    x = post_downsample(x)
 
-        x = self.mid_block1(x, time_emb=t, cond=c)
-        if exists(self.mid_attn):
-            x = self.mid_attn(x)
-        x = self.mid_block2(x, time_emb=t, cond=c)
+            x = self.mid_block1(x, time_emb=t, cond=c)
+            if exists(self.mid_attn):
+                x = self.mid_attn(x)
+            x = self.mid_block2(x, time_emb=t, cond=c)
 
-        def add_skip(x):
-            return torch.cat((x, hiddens.pop() * self.skip_connect_scale), dim=-1)
+            def add_skip(x):
+                return torch.cat((x, hiddens.pop() * self.skip_connect_scale), dim=-1)
 
-        up_hiddens = []
-        for init_block, resnet_blocks, attn_block, upsample in self.ups:
-            x = init_block(add_skip(x), time_emb=t, cond=c)
-            for resnet_block in resnet_blocks:
-                x = resnet_block(add_skip(x), time_emb=t)
-            if exists(attn_block):
-                x = attn_block(x, context=c, generator=generator)
-            up_hiddens.append(x)
-            if exists(upsample):
-                x = upsample(x)
+            up_hiddens = []
+            for init_block, resnet_blocks, attn_block, upsample in self.ups:
+                x = init_block(add_skip(x), time_emb=t, cond=c)
+                for resnet_block in resnet_blocks:
+                    x = resnet_block(add_skip(x), time_emb=t)
+                if exists(attn_block):
+                    x = attn_block(x, context=c, generator=generator)
+                up_hiddens.append(x)
+                if exists(upsample):
+                    x = upsample(x)
 
-        x = self.upsample_combiner(x, up_hiddens)
+            x = self.upsample_combiner(x, up_hiddens)
 
-        if exists(init_conv_residual):
-            x = torch.cat((x, init_conv_residual), dim=-1)
+            if exists(init_conv_residual):
+                x = torch.cat((x, init_conv_residual), dim=-1)
 
-        if exists(self.final_res_block):
-            x = self.final_res_block(x, time_emb=t)
+            if exists(self.final_res_block):
+                x = self.final_res_block(x, time_emb=t)
 
-        if exists(lowres_cond_img):
-            x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+            if exists(lowres_cond_img):
+                x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
 
-        return self.final_conv(x)
+            return self.final_conv(x)
 
 
 class NullUnet(nn.Module):

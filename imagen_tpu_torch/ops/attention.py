@@ -5,6 +5,8 @@ scale 8), an fp32 softmax, a learned null KV token, and multi-query
 attention (one KV head shared by all query heads). Long unmasked
 multi-query attention goes to the flash kernel (`ops/flash_attention.py`)
 at the rows-reshape dispatch point of `multiquery_attention_packed`.
+Each call is counted once under `attention` (`utils.profiling.count`),
+route `flash` or `plain`, at the function that decides its route.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from imagen_tpu_torch.ops.flash_attention import (
 )
 from imagen_tpu_torch.ops.tensor_utils import l2norm
 from imagen_tpu_torch.utils.helpers import exists
+from imagen_tpu_torch.utils.profiling import count
 
 
 def _masked_softmax_fp32(sim, mask=None, null_tokens: int = 0):
@@ -33,15 +36,29 @@ def _masked_softmax_fp32(sim, mask=None, null_tokens: int = 0):
     return torch.softmax(sim.float(), dim=-1).to(dtype)
 
 
+def _count(route, b, heads, i, j, d, mask, attn_bias):
+    """One attention call for the `attention` counter: QK^T and PV, 4 b h i j d."""
+    count('attention', route, (b, heads, i, j, d, exists(mask), exists(attn_bias)),
+          4 * b * heads * i * j * d)
+
+
 def multiquery_attention(q, k, v, *, scale, mask=None, attn_bias=None, null_tokens=0,
                          q_scale=None, k_scale=None):
     """q (b, h, i, d); k, v (b, j, d). With q_scale/k_scale, q and k arrive raw
     and the cosine prologue is applied here (inside the kernel on the flash route)."""
-    cosine = exists(q_scale)
+    flash = flash_attention_available(q.shape[-2], q.shape[-1], exists(mask),
+                                      exists(attn_bias), dtype=q.dtype,
+                                      device_type=q.device.type)
+    _count('flash' if flash else 'plain', *q.shape[:3], k.shape[-2], q.shape[-1], mask,
+           attn_bias)
+    return _multiquery_attention(q, k, v, flash, scale=scale, mask=mask, attn_bias=attn_bias,
+                                 null_tokens=null_tokens, q_scale=q_scale, k_scale=k_scale)
 
-    if flash_attention_available(q.shape[-2], q.shape[-1], exists(mask),
-                                 exists(attn_bias), dtype=q.dtype,
-                                 device_type=q.device.type):
+
+def _multiquery_attention(q, k, v, flash, *, scale, mask, attn_bias, null_tokens, q_scale,
+                          k_scale):
+    cosine = exists(q_scale)
+    if flash:
         if cosine:
             return flash_cosine_mqa(q, k, v, q_scale, k_scale, scale)
         return flash_multiquery_attention(q, k, v, scale)
@@ -66,8 +83,10 @@ def multiquery_attention_packed(q, k, v, heads, *, scale, mask=None, attn_bias=N
     (b, n * h, d), so the head transposes never happen."""
     b, n, hd = q.shape
     d = hd // heads
-    if flash_attention_available(n, d, exists(mask), exists(attn_bias), heads=heads,
-                                 dtype=q.dtype, device_type=q.device.type):
+    flash = flash_attention_available(n, d, exists(mask), exists(attn_bias), heads=heads,
+                                      dtype=q.dtype, device_type=q.device.type)
+    _count('flash' if flash else 'plain', b, heads, n, k.shape[-2], d, mask, attn_bias)
+    if flash:
         q_rows = q.reshape(b, n * heads, d)
         if exists(q_scale):
             out = flash_cosine_mqa_rows(q_rows, k, v, q_scale, k_scale, scale)
@@ -75,14 +94,17 @@ def multiquery_attention_packed(q, k, v, heads, *, scale, mask=None, attn_bias=N
             out = flash_mqa_rows(q_rows, k, v, scale)
         return out.reshape(b, n, hd)
 
+    # the plain route: where the rows gate refuses, so does the (b, h, n, d) one (a block
+    # that divides n divides n * heads)
     q4 = q.reshape(b, n, heads, d).transpose(1, 2)
-    out = multiquery_attention(q4, k, v, scale=scale, mask=mask, attn_bias=attn_bias,
-                               null_tokens=null_tokens, q_scale=q_scale, k_scale=k_scale)
+    out = _multiquery_attention(q4, k, v, False, scale=scale, mask=mask, attn_bias=attn_bias,
+                                null_tokens=null_tokens, q_scale=q_scale, k_scale=k_scale)
     return out.transpose(1, 2).reshape(b, n, hd)
 
 
 def multihead_attention(q, k, v, *, scale, mask=None, attn_bias=None, null_tokens=0):
-    """Full multi-head attention: q, k, v are (b, h, n, d)."""
+    """Full multi-head attention: q, k, v are (b, h, n, d); always the plain route."""
+    _count('plain', *q.shape[:3], k.shape[-2], q.shape[-1], mask, attn_bias)
     sim = torch.einsum('bhid,bhjd->bhij', q, k) * scale
     if exists(attn_bias):
         sim = sim + attn_bias

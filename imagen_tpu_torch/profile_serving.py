@@ -14,10 +14,16 @@ with a server at batch 1 (a request of 1 prompt), or (`--sr1024`)
 `chip_smoke.py`'s SR-1024 tail, `NullUnet` + `SRUnet1024`, whose request
 is `Imagen.sample` from `start_at_unet_number=2` on a 256 px image, batch 1
 (the server takes no start image). Warms up, then times one request unprofiled, then one
-under `torch.profiler` (device activity only). Prints both wall times, the summed device time of
-the kernels (and so the device idle share), device time by category (the
-port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies)
-and the top kernels by device time. Needs a GPU; imports no JAX.
+under `torch.profiler` (device activity only) inside a recording of the program's spans and
+counters (`utils.profiling.recording`). Prints both wall times, the summed device time of
+the kernels and the device idle share (1 - busy over the unprofiled request's wall time: the
+profiler stretches the host's side of a request, not the device's work), device time by
+category (the port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies) and
+the top kernels by device time; then the profiled request's host self time by span name
+(`serve.generate`, `sample`, `sample.step`, `unet.forward`) and its route counters
+(`conv3x3`: `kernel` or `cudnn`; `attention`: `flash` or `plain`) by shape, with each
+counter's share of work on its kernel route, and its launches of the hand-written kernels.
+Needs a GPU; imports no JAX.
 """
 import argparse
 import sys
@@ -27,6 +33,7 @@ from collections import defaultdict
 import torch
 
 import imagen_tpu_torch as it
+from imagen_tpu_torch.utils.profiling import recording
 
 STEPS = (16, 8)  # the steps of chip_smoke.py, cut from (1000, 1000) for time
 EDM_STEPS = (16, 8)  # chip_smoke.py's EDM steps, cut from edm_paper's (64, 32)
@@ -143,7 +150,8 @@ def main():
     request()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with recording() as rec, \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         request()
         torch.cuda.synchronize()
@@ -153,7 +161,8 @@ def main():
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     print(f'{torch.cuda.get_device_name(0)}; {label}')
     print(f'request wall {plain_wall_ms:.1f} ms unprofiled, {wall_ms:.1f} ms profiled; '
-          f'device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}')
+          f'device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / plain_wall_ms:.3f} '
+          '(of the unprofiled request)')
     by_cat = defaultdict(float)
     for e in kernels:
         by_cat[category(e.key)] += device_us(e) / 1e3
@@ -162,6 +171,30 @@ def main():
     print('top kernels by device time:')
     for e in sorted(kernels, key=device_us, reverse=True)[:25]:
         print(f'  {device_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:110]}')
+    print_recording(rec)
+
+
+def print_recording(rec):
+    """The profiled request's host self time by span name, its route counters
+    by shape with each counter's share of work on its kernel route, and its
+    launches of the hand-written kernels."""
+    names = {s.id: s.name for s in rec.spans}
+    own, calls = defaultdict(float), defaultdict(int)
+    for sid, ns in rec.self_ns().items():
+        own[names[sid]] += ns / 1e6
+        calls[names[sid]] += 1
+    print('host self time by span (profiled request):')
+    for name, ms in sorted(own.items(), key=lambda kv: -kv[1]):
+        print(f'  {name:16s} x{calls[name]:<5d} {ms:9.1f} ms')
+    print('routes by shape (calls, GFLOP):')
+    for (name, route, key), (n, work) in sorted(rec.counters.items(), key=lambda kv: -kv[1][1]):
+        print(f'  {name:10s} {route:7s} {str(key):44s} x{n:<5d} {work / 1e9:10.2f}')
+    for name, route in (('conv3x3', 'kernel'), ('attention', 'flash')):
+        share = rec.share(name, route)
+        if share is not None:
+            print(f'{name} work on the {route} route: {share:.1f}%')
+    print('launches of the hand-written kernels: ' + ', '.join(
+        f'{name} x{n}' for name, n in rec.launches.most_common()))
 
 
 if __name__ == '__main__':

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
+from imagen_tpu_torch.utils.profiling import span
 
 
 class ImagenServer:
@@ -107,20 +108,21 @@ class ImagenServer:
         in [0, 1], or (n, video_frames, H, W, C) from a video cascade.
         `cond_scale` defaults to the server's; one outside the warmed
         `cond_scales` runs all the same."""
-        if exists(texts):
-            if exists(text_embeds):
-                raise ValueError('pass texts or text_embeds, not both')
-            text_embeds, text_masks = self.imagen.encode_text(texts, return_attn_mask=True)
-        if not exists(text_embeds):
-            raise ValueError('texts or text_embeds required')
-        text_embeds = torch.as_tensor(text_embeds, device=self.device).float()
-        text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
-            else torch.as_tensor(text_masks, device=self.device).bool()
+        with span('serve.generate'):
+            if exists(texts):
+                if exists(text_embeds):
+                    raise ValueError('pass texts or text_embeds, not both')
+                text_embeds, text_masks = self.imagen.encode_text(texts, return_attn_mask=True)
+            if not exists(text_embeds):
+                raise ValueError('texts or text_embeds required')
+            text_embeds = torch.as_tensor(text_embeds, device=self.device).float()
+            text_masks = (text_embeds != 0.).any(dim=-1) if text_masks is None \
+                else torch.as_tensor(text_masks, device=self.device).bool()
 
-        text_embeds, text_masks, n = self._pad_request(text_embeds, text_masks)
+            text_embeds, text_masks, n = self._pad_request(text_embeds, text_masks)
 
-        with self._lock:
-            out = self._sample(text_embeds, text_masks, default(generator, self.generator),
-                               default(cond_scale, self.cond_scale))
-            images = out[:n].float().cpu().numpy()
-        return images
+            with self._lock:
+                out = self._sample(text_embeds, text_masks, default(generator, self.generator),
+                                   default(cond_scale, self.cond_scale))
+                images = out[:n].float().cpu().numpy()
+            return images
