@@ -204,7 +204,10 @@ larger of its operations at the dense bf16 peak and its bytes (each input
 read once, each output written once) at the HBM rate; `bound_by` says which of
 the two bounds most of it. `library_ms` times one PyTorch call that computes
 the same function (`F.scaled_dot_product_attention`, its backward,
-`F.conv2d`, `F.layer_norm` for kernel 9 without the stable division; for
+`F.conv2d`, `F.layer_norm` for kernel 9 without the stable division, two
+`torch.kthvalue`s over |x| in fp32 for the order statistics (also their plain
+version, whose bits they must give, at the paths' rows and the benchmark
+cells', `THRESHOLD_CELL_ROWS`); for
 the temporal kernel SDPA on the pre-normalised q and k, K and V expanded
 over the heads, with the bias table as `attn_mask`; for kernel 7
 `F.conv2d` on the NHWC view, whose result is the channel-first output),
@@ -312,6 +315,11 @@ KERNEL_INFO = {
     'conv2d_same_cf_bf16': dict(
         source='imagen_tpu_torch/csrc/conv2d_same_cf.cu',
         replaces='imagen_tpu/ops/conv2d.py:403', device_kernel='conv2d_same_cf_kernel'),
+    # dynamic thresholding's order statistics: the scratch's zero fill and the
+    # three digit passes (every CUDA function of the call)
+    'nonneg_order_stats': dict(
+        source='imagen_tpu_torch/csrc/order_stats.cu',
+        replaces='imagen_tpu/ops/tensor_utils.py:110', device_kernel=None),
 }
 STEM_KERNEL = 'cross_embed_stem_bf16'   # every path's stem: its gate admits them all
 IMAGE_KERNELS = ('flash_rows_fwd_bf16', 'flash_rows_bwd_bf16', 'conv2d_same_3x3_bf16',
@@ -336,9 +344,15 @@ LOG_ONLY_SHAPES = {CF_KERNEL: ((2, 1024, 1024, 128, 3, 3),),
                                               (8192, 384, 768, 1e-3), (288, 1024, 1024, 1e-3)),
                    'fused_ln_matmul_bf16': ((8192, 256, 8192, 1e-3),),
                    'fused_matmul_ln_bf16': ((1024, 256, 8192, 1e-3),)}
+ORDER_STATS = 'nonneg_order_stats'
+# the order-statistics kernel's rows in the benchmark's cells, (b, n), measured and
+# logged beside the paths' rows: SR-1024's 3 x 1024^2, the cascade's 8 at 256^2 and 64^2
+THRESHOLD_CELL_ROWS = ((1, 3 * 1024 ** 2), (8, 3 * 256 ** 2), (8, 3 * 64 ** 2))
 # kernels whose result must be the same bits on a second call
 DETERMINISTIC = ('fused_feedforward_bf16', 'cross_embed_stem_bf16', 'fused_ln_matmul_bf16',
-                 'fused_matmul_ln_bf16', CF_KERNEL)
+                 'fused_matmul_ln_bf16', CF_KERNEL, ORDER_STATS)
+# kernels whose result must be the plain version's bits
+EXACT = (ORDER_STATS,)
 PATHS = ('serving', 'training', 'video', 'video_training', 'edm_serving', 'sr1024_serving',
          'inpainting', 'self_cond', 'edm_inpainting', 'video_inpainting', 'edm_training',
          'video_edm', 'video_edm_training', 'video_edm_training_stills', 'train_loop',
@@ -2715,6 +2729,7 @@ def kernel_cases(torch, name, dims, g):
     from imagen_tpu_torch.ops import fused_norm as fn
     from imagen_tpu_torch.ops import stem_conv as stem
     from imagen_tpu_torch.ops import temporal_layout as tl
+    from imagen_tpu_torch.ops import tensor_utils as tu
     from imagen_tpu_torch.ops.tensor_utils import l2norm
     bf16 = torch.bfloat16
     unfused = None
@@ -2723,7 +2738,19 @@ def kernel_cases(torch, name, dims, g):
         return torch.randn(shape, generator=g, device='cuda') * scale
 
     served = None
-    if name == fa.KERNEL:
+    if name == ORDER_STATS:
+        b, n, lo, is_bf16 = dims[:4]   # then the grid's blocks a row and the scratch words
+        inputs = [rnd(b, n, scale=2.5).to(bf16 if is_bf16 else torch.float32)]
+
+        def kernel(x):
+            return tu.nonneg_order_stats(x, lo)
+
+        def plain(x):
+            return tu.order_stats_reference(x, lo)
+        library = plain   # torch.kthvalue, twice
+        flops = 0
+        nbytes = b * n * inputs[0].element_size() + 8 * b   # one read of the rows
+    elif name == fa.KERNEL:
         b, rows, nk, d, scale2 = dims
         scale = scale2 / fa.LOG2E
         qs, ks = 1. + rnd(d, scale=0.1), 1. + rnd(d, scale=0.1)
@@ -3017,7 +3044,7 @@ def measure_shape(torch, name, info, dims, counts, g, totals, with_lse=0):
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     bound = max(bound_ops, bound_bytes)
-    bounds = [max(2 * e, 1e-3) for e in errs_p]
+    bounds = [0. if name in EXACT else max(2 * e, 1e-3) for e in errs_p]
     good = same and all(e <= b for e, b in zip(errs_k, bounds))
     totals['ms'] += (count * ms if served_ms is None else
                      (count - with_lse) * served_ms + with_lse * ms)
@@ -3054,11 +3081,22 @@ def measure_shape(torch, name, info, dims, counts, g, totals, with_lse=0):
     return good, max(errs_k), None if lib_ms is None else count * lib_ms
 
 
+def threshold_cell_dims(torch):
+    """The order-statistics kernel's size arguments at `THRESHOLD_CELL_ROWS`, fp32,
+    at dynamic thresholding's 0.95, as the wrapper passes them on this card."""
+    from imagen_tpu_torch.ops import _build
+    from imagen_tpu_torch.ops import tensor_utils as tu
+    sms = _build.sm_count(torch.cuda.current_device())
+    return tuple((b, n, tu.quantile_position(n, 0.95)[0], 0, tu.order_stats_blocks(b, n, sms),
+                  tu.ORDER_STATS_WORDS) for b, n in THRESHOLD_CELL_ROWS)
+
+
 def phase_kernels(torch, results):
     g = torch.Generator(device='cuda').manual_seed(7)
     ok = True
     summary = []
     log_weight_copy(torch)
+    log_only = {**LOG_ONLY_SHAPES, ORDER_STATS: threshold_cell_dims(torch)}
     for name, info in KERNEL_INFO.items():
         worst = 0.
         totals = defaultdict(float)
@@ -3071,7 +3109,7 @@ def phase_kernels(torch, results):
         for path, sites in results['sites'].items():
             for dims, count in sites.get(name, {}).items():
                 by_dims[dims][f'{path} sites'] += count
-        for dims in LOG_ONLY_SHAPES.get(name, ()):
+        for dims in log_only.get(name, ()):
             by_dims[dims]['log only'] += 0
         for dims, counts in sorted(by_dims.items()):
             try:

@@ -353,11 +353,12 @@ class Imagen(nn.Module):
     # --- dynamic thresholding ------------------------------------------------------------
 
     def threshold_x_start(self, x_start, dynamic_threshold=True):
-        """Static clamp, or the dynamic percentile threshold (torch.quantile's
-        linear interpolation, by two `kthvalue` order statistics)."""
+        """Static clamp, or the dynamic percentile threshold: torch.quantile's
+        linear interpolation of |x_start| per image, between two exact order
+        statistics (`ops.tensor_utils.nonneg_order_stats`)."""
         if not dynamic_threshold:
             return x_start.clamp(-1., 1.)
-        flat = x_start.reshape(x_start.shape[0], -1).abs().float()
+        flat = x_start.reshape(x_start.shape[0], -1)
         s = quantile_rows(flat, self.dynamic_thresholding_percentile).clamp(min=1.)
         s = right_pad_dims_to(x_start, s).to(x_start.dtype)
         return torch.maximum(torch.minimum(x_start, s), -s) / s

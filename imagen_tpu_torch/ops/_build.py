@@ -79,6 +79,9 @@ SIGNATURES = {
     # x (b, H, W, cin), packed w, bias (nullable), out (b, cout, H, W), b, H, W, cin,
     # cout, k, stream
     'conv2d_same_cf_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x (b, n) fp32 or bf16, scratch (b, words) int32 zeroed, out (b, 2) fp32, b, n, lo,
+    # bf16, blocks a row, words, stream
+    'nonneg_order_stats': (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
 }
 
 # The tiling queries of the kernels whose C entries compute their own (kernel

@@ -10,7 +10,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.utils.helpers import exists
+from imagen_tpu_torch.utils.profiling import count
 
 
 def wants_grad(*tensors):
@@ -183,19 +185,84 @@ def prob_mask_like(shape, prob, device, generator=None):
     return torch.rand(shape, device=device, generator=generator) < prob
 
 
-def quantile_rows(flat, q):
-    """Per-row `q`-quantile of a (b, n) tensor, with torch.quantile's linear
-    interpolation between the two bracketing order statistics.
+# `nonneg_order_stats`'s CUDA kernel (`csrc/order_stats.cu`): its C entry, the
+# scratch words it keeps a row, and its threads a block.
+ORDER_STATS_KERNEL = 'nonneg_order_stats'
+ORDER_STATS_WORDS = 4102
+ORDER_STATS_THREADS = 512
 
-    `torch.kthvalue` picks the two order statistics; `torch.quantile` is
-    avoided because it refuses inputs of more than 2**24 elements.
+
+def order_stats_blocks(b, n, sms):
+    """Blocks a row of the order-statistics kernel's grid: about 16
+    elements a thread, and at most 4 blocks an SM over the b rows. A row of
+    12,288 gets 2 blocks, one of 3 x 1024^2 384 (the whole card)."""
+    return max(1, min(-(-n // (16 * ORDER_STATS_THREADS)), 4 * sms // b))
+
+
+def nonneg_order_stats(flat, lo):
+    """Exact ascending order statistics (x_(lo), x_(lo+1)) of each row of
+    |flat|, a (b, n) tensor, as two fp32 (b,) tensors; 0 <= lo < n - 1.
+
+    On a non-negative fp32 tensor this is the JAX function's contract; a
+    signed one gives the statistics of its magnitudes (-0.0 counts as 0.0),
+    and any float dtype is widened to fp32, so the results are
+    `torch.kthvalue`'s over `flat.abs().float()`, bit for bit. A CUDA
+    tensor takes the radix-select kernel, which reads fp32 and bf16 as they
+    are (other dtypes are cast to fp32 first); other devices take
+    `kthvalue`. Each call is counted under `threshold`, route `kernel` or
+    `kthvalue`, with its b * n elements as its work.
     """
-    n = flat.shape[-1]
+    b, n = flat.shape
+    if not 0 <= lo < n - 1:
+        raise ValueError(f'nonneg_order_stats: lo {lo} outside [0, {n - 1}) for rows of {n}')
+    if flat.device.type == 'cuda':
+        count('threshold', 'kernel', (b, n), b * n)
+        return _order_stats_kernel(flat, lo)
+    count('threshold', 'kthvalue', (b, n), b * n)
+    return order_stats_reference(flat, lo)
+
+
+def order_stats_reference(flat, lo):
+    """`nonneg_order_stats` in plain PyTorch: two `torch.kthvalue`s over
+    |flat| in fp32."""
+    mags = flat.abs().float()
+    return (torch.kthvalue(mags, lo + 1, dim=-1).values,
+            torch.kthvalue(mags, lo + 2, dim=-1).values)
+
+
+def _order_stats_kernel(flat, lo):
+    if flat.dtype not in (torch.float32, torch.bfloat16):
+        flat = flat.float()
+    flat = flat.contiguous()
+    b, n = flat.shape
+    scratch = torch.zeros((b, ORDER_STATS_WORDS), dtype=torch.int32, device=flat.device)
+    out = torch.empty((b, 2), dtype=torch.float32, device=flat.device)
+    _build.launch(ORDER_STATS_KERNEL, flat.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, n,
+                  lo, int(flat.dtype == torch.bfloat16),
+                  order_stats_blocks(b, n, _build.sm_count(flat.device.index)),
+                  ORDER_STATS_WORDS)
+    return out[:, 0], out[:, 1]
+
+
+def quantile_position(n, q):
+    """(lo, frac): the `q`-quantile of n ascending values x_(0..n-1) is
+    x_(lo) + frac (x_(lo+1) - x_(lo)), torch.quantile's linear interpolation."""
     pos = q * (n - 1)
     lo = int(pos // 1)
-    frac = pos - lo
+    return lo, pos - lo
+
+
+def quantile_rows(flat, q):
+    """Per-row `q`-quantile of the magnitudes |flat| of a (b, n) tensor, in
+    fp32, with torch.quantile's linear interpolation between the two
+    bracketing order statistics (`nonneg_order_stats`).
+
+    `torch.quantile` is avoided because it sorts, and refuses inputs of more
+    than 2**24 elements.
+    """
+    n = flat.shape[-1]
+    lo, frac = quantile_position(n, q)
     if lo >= n - 1:
-        return flat.amax(dim=-1)
-    v_lo = torch.kthvalue(flat, lo + 1, dim=-1).values
-    v_hi = torch.kthvalue(flat, lo + 2, dim=-1).values
+        return flat.abs().float().amax(dim=-1)
+    v_lo, v_hi = nonneg_order_stats(flat, lo)
     return v_lo + frac * (v_hi - v_lo)

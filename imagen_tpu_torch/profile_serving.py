@@ -43,7 +43,7 @@ SR_STEPS = 8  # chip_smoke.py's SR-1024 steps, cut from the JAX bench's 32
 CATEGORIES = (
     ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn',
                       'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul',
-                      'cross_embed_scale', 'conv2d_same_cf')),
+                      'cross_embed_scale', 'conv2d_same_cf', 'radix_select')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),
@@ -186,7 +186,7 @@ def print_recording(rec):
     print('host self time by span (profiled request):')
     for name, ms in sorted(own.items(), key=lambda kv: -kv[1]):
         print(f'  {name:16s} x{calls[name]:<5d} {ms:9.1f} ms')
-    print('routes by shape (calls, GFLOP):')
+    print('routes by shape (calls, work / 1e9: operations; elements for threshold):')
     for (name, route, key), (n, work) in sorted(rec.counters.items(), key=lambda kv: -kv[1][1]):
         print(f'  {name:10s} {route:7s} {str(key):44s} x{n:<5d} {work / 1e9:10.2f}')
     for name, route in (('conv3x3', 'kernel'), ('attention', 'flash')):

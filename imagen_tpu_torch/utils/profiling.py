@@ -20,8 +20,9 @@ The program's own spans and counters, and the recording that keeps them:
   `record_function` of the same name on the trace's timeline.
 - `count(name, route, key, work)`: one gate decision, by the route it took
   and the shape `key`, with its work (operations); kept only under a
-  recording. `conv3x3` (routes `kernel`, `cudnn`) and `attention` (routes
-  `flash`, `plain`) are counted where their routes are decided.
+  recording. `conv3x3` (routes `kernel`, `cudnn`), `attention` (routes
+  `flash`, `plain`) and `threshold` (routes `kernel`, `kthvalue`; its work
+  is elements) are counted where their routes are decided.
 - `recording()` (or `start_recording()` ... `stop_recording()`): turns the
   recording on for the block and yields its `Recording`: the spans, the
   counters, and the launches of the hand-written kernels

@@ -55,8 +55,6 @@ NOT_PORTED = {
         'copies a flax tree to host numpy; the port saves state_dicts (`to_cpu`)'),
     'utils.checkpoint_io.restore_parts': (
         "fills a flax target tree from a msgpack bundle; the port loads state_dicts"),
-    'ops.tensor_utils.nonneg_order_stats': (
-        "`quantile_rows` computes the same order statistics with `kthvalue`"),
     'ops.flash_attention.flash_temporal_rows': (
         'the TPU-only rows layout behind IMAGEN_TPU_TEMPORAL_ROWS, a TPU A/B knob; '
         '`temporal_attn_fwd.cu` computes its function'),

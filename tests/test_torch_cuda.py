@@ -24,6 +24,8 @@ from imagen_tpu_torch.ops import flash_attention as fa
 from imagen_tpu_torch.ops import fused_norm as fn
 from imagen_tpu_torch.ops import stem_conv as stem
 from imagen_tpu_torch.ops import temporal_layout as tl
+from imagen_tpu_torch.ops import tensor_utils as tu
+from imagen_tpu_torch.utils.profiling import recording
 
 BF16 = torch.bfloat16
 
@@ -947,3 +949,73 @@ def test_offloaded_sr_cascade_samples_through_the_stem_kernel(cuda):
     assert all(p.device.type == 'cpu' for p in imagen.unets[1].parameters())
     assert on_card.shape == (2, 64, 64, 3) and bool(torch.isfinite(on_card).all())
     assert torch.equal(on_card, offloaded)
+
+
+# --- kernel 15: dynamic thresholding's order statistics (radix select) -------------------
+
+# (b, n): the benchmark's rows (SR-1024's one row of 3 x 1024^2 with CFG folded, the
+# cascade's 8 rows at 256^2 and 64^2), a video row (3 x 16 x 64^2), a row the 16-byte
+# loads do not tile (1001), and the shortest rows
+ORDER_STATS_ROWS = [(1, 3 * 1024 ** 2), (8, 3 * 256 ** 2), (8, 3 * 64 ** 2),
+                    (2, 3 * 16 * 64 ** 2), (3, 1001), (2, 2), (2, 3)]
+
+
+def _signed_rows(b, n, dtype, g):
+    """Signed rows with ties (a quarter of the values on a grid of 1/8), zeros
+    and -0.0 (a twentieth, each with its sign kept)."""
+    x = torch.randn((b, n), generator=g, device='cuda') * 2.5
+    grid = torch.rand((b, n), generator=g, device='cuda') < 0.25
+    x = torch.where(grid, (x * 8).round() / 8, x)
+    zero = torch.rand((b, n), generator=g, device='cuda') < 0.05
+    return torch.where(zero, x * 0., x).to(dtype)
+
+
+def _held_to_kthvalue(x, lo):
+    """The kernel's pair at rank lo, one launch, bit for bit `torch.kthvalue`'s
+    over |x| in fp32."""
+    before = _build.LAUNCHES[tu.ORDER_STATS_KERNEL]
+    v_lo, v_hi = tu.nonneg_order_stats(x, lo)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tu.ORDER_STATS_KERNEL] == before + 1
+    mags = x.abs().float()
+    for got, k in ((v_lo, lo + 1), (v_hi, lo + 2)):
+        want = torch.kthvalue(mags, k, dim=-1).values
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (lo, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,n', ORDER_STATS_ROWS)
+@pytest.mark.parametrize('dtype', [torch.float32, BF16], ids=['fp32', 'bf16'])
+def test_order_stats_kernel_matches_kthvalue(cuda, b, n, dtype):
+    x = _signed_rows(b, n, dtype, torch.Generator(device=cuda).manual_seed(n + b))
+    for lo in sorted({0, tu.quantile_position(n, 0.95)[0], (n - 1) // 2, n - 2}):
+        _held_to_kthvalue(x, lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, BF16], ids=['fp32', 'bf16'])
+def test_order_stats_kernel_on_zero_and_equal_rows(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sign = torch.where(torch.rand((2, 4096), generator=g, device=cuda) < 0.5, -1., 1.)
+    x = torch.stack([sign[0] * 0., sign[1] * 1.5]).to(dtype)   # -0.0 and 0.0; +-1.5
+    for lo in (0, tu.quantile_position(4096, 0.95)[0], 4094):
+        _held_to_kthvalue(x, lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 1024, 1024, 3), (8, 64, 64, 3), (2, 16, 64, 64, 3)])
+def test_threshold_x_start_on_the_card_matches_the_cpu(cuda, shape):
+    tiny = dict(dim=8, dim_mults=(1, 2), text_embed_dim=16, cond_dim=8, attn_dim_head=4,
+                attn_heads=2, attn_pool_num_latents=2, max_text_len=8, layer_attns=False,
+                layer_cross_attns=(False, True), device='cpu')
+    imagen = it.Imagen(it.Unet(**tiny), image_sizes=(16,), text_embed_dim=16, timesteps=4,
+                       device='cpu')
+    g = torch.Generator(device=cuda).manual_seed(len(shape) + shape[0])
+    x = torch.randn(shape, generator=g, device=cuda) * 2.5
+    with recording() as rec:
+        got = imagen.threshold_x_start(x)
+        want = imagen.threshold_x_start(x.cpu())
+    assert torch.equal(got.cpu(), want)
+    b, n = shape[0], x[0].numel()
+    assert rec.counters == {('threshold', 'kernel', (b, n)): [1, b * n],
+                            ('threshold', 'kthvalue', (b, n)): [1, b * n]}

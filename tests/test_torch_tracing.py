@@ -13,6 +13,9 @@
   U-Net forward;
 - the `attention` counter once a call on the flash, plain-masked, direct
   and `CrossAttention` paths;
+- the `threshold` counter on its CPU route (`kthvalue`) at a direct call,
+  by shape, and once a step of a sampled cascade (the card's route,
+  `kernel`, is held in `test_torch_cuda.py`);
 - one traced run of the benchmark harness at its tiny size, in its own
   process (the harness refuses a process that has JAX loaded), whose result
   holds the four metrics that read these spans and counters.
@@ -242,6 +245,23 @@ def test_attention_routes_counted_once_each():
     # the null key is prepended: 7 keys
     assert rec.counters == {
         ('attention', 'plain', (b, heads, 20, 7, d, True, False)): [1, 4 * b * heads * 20 * 7 * d]}
+
+
+def test_threshold_counted_by_route():
+    imagen = _cascade()
+    x = torch.randn(2, 8, 8, 3, generator=torch.Generator().manual_seed(8))
+    with recording() as rec:
+        imagen.threshold_x_start(x)
+        imagen.threshold_x_start(x, dynamic_threshold=False)
+    assert rec.counters == {('threshold', 'kthvalue', (2, 192)): [1, 384]}
+
+    with recording() as rec:
+        imagen.sample(text_embeds=_embeds(), cond_scale=3., use_tqdm=False,
+                      generator=torch.Generator().manual_seed(4))
+    # one call a step: 2 images of 8 x 8 x 3 at the first stage, of 16 x 16 x 3 at the second
+    kept = {key: v for key, v in rec.counters.items() if key[0] == 'threshold'}
+    assert kept == {('threshold', 'kthvalue', (2, 192)): [STEPS[0], STEPS[0] * 384],
+                    ('threshold', 'kthvalue', (2, 768)): [STEPS[1], STEPS[1] * 1536]}
 
 
 HARNESS = '''
