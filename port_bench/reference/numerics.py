@@ -4,7 +4,10 @@ The reference computes in float32 with TF32 off. The control, which stands
 in for a program that computes below the precision its configuration states,
 runs the same code with every operand of every product (linear, conv and
 both attention products) rounded to float8 e4m3 on a per-tensor scale, and
-accumulates in float32: `with precision('fp8'): ...`.
+accumulates in float32: `with precision('fp8'): ...`. In a training step the
+gradients that reach those operands are rounded the same way. `precision('bf16')`
+rounds them to bfloat16 instead, the precision the configurations state: a
+witness of what that rounding alone does to a reading.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ FP8_MAX = 448.   # the largest finite float8 e4m3fn value
 
 @contextlib.contextmanager
 def precision(name):
-    """Products inside the block round their operands to `name` ('fp32' or 'fp8')."""
-    if name not in ('fp32', 'fp8'):
+    """Products inside the block round their operands to `name` ('fp32',
+    'bf16' or 'fp8')."""
+    if name not in ('fp32', 'bf16', 'fp8'):
         raise ValueError(f'unknown precision {name!r}')
     token = _PRECISION.set(name)
     try:
@@ -36,13 +40,39 @@ def no_tf32():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def rounded(t):
-    """`t` as the current precision holds it, back in float32."""
-    t = t.float()
-    if _PRECISION.get() == 'fp32':
-        return t
+def _fp8(t):
     scale = t.abs().amax().clamp(min=1e-30) / FP8_MAX
     return (t / scale).to(torch.float8_e4m3fn).float() * scale
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+ROUNDING = {'fp8': _fp8, 'bf16': _bf16}
+
+
+class _Rounded(torch.autograd.Function):
+    """Rounds as `how` names, and so the gradient on its way back."""
+
+    @staticmethod
+    def forward(ctx, t, how):
+        ctx.how = how
+        return ROUNDING[how](t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ROUNDING[ctx.how](grad), None
+
+
+def rounded(t):
+    """`t` as the current precision holds it, back in float32. Under
+    autograd, the gradient that reaches a product's operand is rounded too."""
+    t = t.float()
+    how = _PRECISION.get()
+    if how == 'fp32':
+        return t
+    return _Rounded.apply(t, how) if t.requires_grad else ROUNDING[how](t)
 
 
 def linear(x, w, b=None):

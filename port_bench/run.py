@@ -10,8 +10,13 @@ one request at a time, for `--seconds` (the request in flight at the close
 finishes). With `--trace 0` the result holds the end-to-end metrics;
 with `--trace 1` the per-layer ones, which need hooks during the window and
 then a profiled slice of whole requests. After the window the program is
-freed and the plain reference judges the checked requests, drawn from the
-seed, step by step (`port_bench/correctness.py`). The last line of standard
+freed and the plain reference judges what the system kept for the check:
+a sampling system (`port_bench/systems/imagen_sample.py`) the checked
+requests, drawn from the seed, step by step (`port_bench/correctness.py`); a
+training system (`port_bench/systems/imagen_train.py`) set-up's first steps
+and one step after the window. The system adapter picks its warm-up, the
+requests the window keeps, what it finishes after the window and how it is
+judged. The last line of standard
 output is the result as JSON; the compared numbers and their limits are the
 last lines of standard error. A run without the cards it asks for, or that
 finds JAX or the JAX package loaded, exits non-zero and prints no result.
@@ -75,17 +80,6 @@ def forbidden_modules():
     return sorted({name.split('.')[0] for name in sys.modules} & set(FORBIDDEN))
 
 
-def checked_indices(seed, mix):
-    """The requests whose answers are judged: `check_requests` of the first
-    `check_from`, drawn from the seed."""
-    import numpy as np
-
-    from port_bench.weights import derive
-    rng = np.random.default_rng(derive(seed, 'check'))
-    return sorted(int(i) for i in rng.choice(mix['check_from'], mix['check_requests'],
-                                             replace=False))
-
-
 class Hooks:
     """The harness's own instrumentation of the program: forward hooks on the
     U-Nets (rows counted; in the slice, a span each), and in the slice the
@@ -129,8 +123,10 @@ class Hooks:
                     work = sites.get(type(module).__name__)
                     if work is not None:
                         self._watch(module, metric, work)
-            for method in getattr(reader, 'METHODS', ()):
-                self._wrap(method, f'pb.call.{metric}')
+            target = getattr(reader, 'TARGET', None)
+            if target is None or target in getattr(self.system, 'targets', {}):
+                for method in getattr(reader, 'METHODS', ()):
+                    self._wrap(target, method, f'pb.call.{metric}')
 
     def _watch(self, module, metric, work):
         works = self.record.sites[metric]
@@ -146,8 +142,9 @@ class Hooks:
         self.handles.append(module.register_forward_pre_hook(pre, with_kwargs=True))
         self.handles.append(module.register_forward_hook(post, with_kwargs=True))
 
-    def _wrap(self, method, name):
-        target = self.system.imagen
+    def _wrap(self, target, method, name):
+        """A span around `method` of the cascade, or of the system's `targets[target]`."""
+        target = self.system.imagen if target is None else self.system.targets[target]
         inner = getattr(target, method)
         torch = self.torch
 
@@ -232,6 +229,9 @@ def run(argv=None, *, root=ROOT, device=None):
                for m in registry.per_layer(args.workload, root)} if args.trace else {}
     record = Record(config, mix)
 
+    def request_of(i):
+        return traffic.request(mix, config, args.seed, i, device)
+
     # --- set-up: build, weights from the seed, the program's own warm-up
     phases = [('imports', time.perf_counter() - T0)]
     system = drv.build(config, mix, device)
@@ -239,7 +239,7 @@ def run(argv=None, *, root=ROOT, device=None):
     drv.load_weights(system, args.seed, device)
     sync(torch, device)
     phases.append(('weights', time.perf_counter() - T0))
-    drv.warm(system, traffic.request(mix, config, args.seed, -1, device))
+    drv.warm_up(system, request_of)
     sync(torch, device)
     phases.append(('warm-up', time.perf_counter() - T0))
     if device.type == 'cuda':
@@ -247,13 +247,13 @@ def run(argv=None, *, root=ROOT, device=None):
     setup_s = time.perf_counter() - T0
 
     # --- the window: a closed loop of one client
-    check = checked_indices(args.seed, mix)
+    check = drv.checked(args.seed, mix)
     kept, failed, index = {}, 0, 0
     hooks = Hooks(torch, system, record) if args.trace else None
     w0 = time.perf_counter()
     last = w0
     while True:
-        request = traffic.request(mix, config, args.seed, index, device)
+        request = request_of(index)
         states = [] if index in check else None
         sent = time.perf_counter()
         try:
@@ -278,37 +278,29 @@ def run(argv=None, *, root=ROOT, device=None):
           file=sys.stderr)
     if hooks:
         hooks.remove()
+        hooks = None   # it holds the system, which the check frees
     # an answer still due is waited for, up to a minute past the close
     while any(i not in kept for i in check) and time.perf_counter() - last < 60:
         states = []
-        images = drv.serve(system, traffic.request(mix, config, args.seed, index, device),
-                           states)
+        images = drv.serve(system, request_of(index), states)
         if index in check:
             kept[index] = (images, [[x.cpu() for x in trail] for trail in states])
         index += 1
     if device.type == 'cuda':
         record.peak_bytes = torch.cuda.max_memory_allocated(device)
+    index = drv.settle(system, request_of, index)
 
     if args.trace:
         record.trace = traced_slice(torch, drv, system, mix, config, args.seed, index, readers,
                                     record, device, root)
 
-    # --- the check: the program freed, the reference follows each checked request
+    # --- the check: the program freed, the reference follows what the system kept
+    found = drv.findings(system, check, kept)
     del system
     gc.collect()
     if device.type == 'cuda':
         torch.cuda.empty_cache()
-    unets = drv.reference_unets(config, args.seed, device)
-    readings = []
-    for i in check:
-        if i not in kept:
-            readings.append(dict(correctness.FAILED))
-            continue
-        images, states = kept[i]
-        request = traffic.request(mix, config, args.seed, i, device)
-        readings.append(correctness.numbers(images, drv.follow(unets, config, mix, request,
-                                                               states)))
-    del unets
+    readings = drv.judge(config, mix, args.seed, device, request_of, found)
     correct, checks = correctness.judge(correctness.worst(readings), limits)
     correct = correct and failed == 0
 

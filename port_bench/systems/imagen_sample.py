@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-from port_bench import weights
+from port_bench import correctness, weights
 from port_bench.reference import build as build_reference, ddpm, numerics, specs
 
 
@@ -110,6 +110,31 @@ def warm(system, request):
         serve(system, request)
 
 
+def warm_up(system, request_of):
+    """`warm` on request -1, which the window never sends."""
+    warm(system, request_of(-1))
+
+
+def checked(seed, mix):
+    """The requests whose answers are judged: `check_requests` of the first
+    `check_from`, drawn from the seed."""
+    import numpy as np
+    rng = np.random.default_rng(weights.derive(seed, 'check'))
+    return sorted(int(i) for i in rng.choice(mix['check_from'], mix['check_requests'],
+                                             replace=False))
+
+
+def settle(system, request_of, index):
+    """Nothing to finish after the window; returns the next request's index."""
+    return index
+
+
+def findings(system, check, kept):
+    """What the check needs once the program is freed: the checked requests
+    and, for each that came, its images and states."""
+    return check, kept
+
+
 def serve(system, request, states=None):
     """One request through the mix's entry; the images (n, H, W, 3) in [0, 1]
     on the host. A list `states` receives the request's states (`record_steps`)."""
@@ -147,6 +172,21 @@ def _sample_kwargs(config, mix, request):
 def reference_unets(config, seed, device):
     numerics.no_tf32()
     return build_reference(config, weights_of(seed, device), device)
+
+
+def judge(config, mix, seed, device, request_of, found):
+    """The numbers of each checked request, the reference following its states."""
+    check, kept = found
+    unets = reference_unets(config, seed, device)
+    readings = []
+    for i in check:
+        if i not in kept:
+            readings.append(dict(correctness.FAILED))
+            continue
+        images, states = kept[i]
+        readings.append(correctness.numbers(images, follow(unets, config, mix, request_of(i),
+                                                           states)))
+    return readings
 
 
 def follow(unets, config, mix, request, states):

@@ -128,3 +128,16 @@ def test_a_sound_tiny_run_of_each_kind_is_correct(tmp_path, capsys, kind):
     result, _ = result_of(capsys, tiny.make_root(tmp_path, kind=kind))
     assert result['correct'] is True
     assert result['checks']['step_rms']['value'] < 1e-5
+
+
+# each tiny serving kind's checks at ARGS's seed, as the harness before the
+# training cell's adapter interface printed them (CPU, float32)
+BEFORE = {'cascade': dict(start=0.0, answer=0.0, step_rms=2.4841500165068135e-06),
+          'sr': dict(start=0.0, answer=0.0, step_rms=5.664703915540376e-07)}
+
+
+@pytest.mark.parametrize('kind', sorted(BEFORE))
+def test_a_tiny_serving_run_checks_as_before(tmp_path, capsys, kind):
+    result, _ = result_of(capsys, tiny.make_root(tmp_path, kind=kind))
+    assert result['correct'] is True
+    assert {k: v['value'] for k, v in result['checks'].items()} == BEFORE[kind]

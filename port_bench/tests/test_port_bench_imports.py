@@ -34,7 +34,7 @@ def test_the_harness_and_the_program_load_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    names = loaded_after('from port_bench.reference import ddpm, numerics, unet, build\n'
+    names = loaded_after('from port_bench.reference import ddpm, numerics, train, unet, build\n'
                          'from port_bench import weights\n')
     assert 'torch' in names
     assert not names & (FORBIDDEN | {'imagen_tpu_torch'})

@@ -92,3 +92,42 @@ def test_a_reader_with_nothing_to_read_returns_nothing(run):
     for name in ('conv3x3_roofline', 'attn_roofline', 'sample.threshold_ms',
                  'unet.launches_per_fwd', 'device.idle_share'):
         assert read(name, run) is None, name
+
+
+def training_slice():
+    """Two training steps of 1000 us: each a `_backward` span holding a U-Net
+    forward, then the optimiser's step and the EMA call, which updates in the
+    second step only; times in us."""
+    events = [span('pb.slice', 0, 2000)]
+    launches, kernels = [], []
+    for k, at in enumerate((0, 1000)):
+        events += [span('pb.request', at, 990), span('pb.call.train.backward_ms', at + 10, 600),
+                   span('pb.unet0', at + 20, 200), span('pb.call.train.optimizer_ms', at + 700, 100),
+                   span('pb.call.train.ema_ms', at + 850, 50)]
+        corr = 10 * k
+        launches += [(corr + 1, at + 30), (corr + 2, at + 300), (corr + 3, at + 710)]
+        kernels += [kernel(corr + 1, at + 40, 100, name='flash_rows_fwd_kernel'),
+                    kernel(corr + 2, at + 320, 250, name='flash_rows_bwd_dq_kernel'),
+                    kernel(corr + 3, at + 720, 60, name='multi_tensor_apply_kernel')]
+    launches.append((30, 1860))
+    kernels.append(kernel(30, 1870, 20, name='vectorized_elementwise_kernel'))
+    return events + [launch(c, t) for c, t in launches] + kernels
+
+
+def test_the_training_readers(tmp_path):
+    path = tmp_path / 'trace.json'
+    path.write_text(json.dumps(dict(traceEvents=training_slice())))
+    mix = dict(unet_number=1, train_flops_per_row=3e12)
+    run = Record({}, mix, latencies=[1.] * 5, images=160, window_s=10., trace=Trace.load(path),
+                 slice_requests=2)
+    # the backward span less its nested forward: 250 us a step
+    assert read('train.backward_ms', run) == pytest.approx(0.25)
+    assert read('train.optimizer_ms', run) == pytest.approx(0.06)
+    # one EMA call of two launched anything
+    assert read('train.ema_ms', run) == pytest.approx(0.02)
+    assert read('train.step_mfu', run) == pytest.approx(100 * 160 * 3e12 / (10 * 989e12))
+    assert category('radix_select_kernel<0, false, 4>') == 'port kernels'
+    assert category('multi_tensor_apply_kernel') == 'optimizer'
+    run.trace, run.mix = Trace([]), {}
+    for name in ('train.backward_ms', 'train.optimizer_ms', 'train.ema_ms', 'train.step_mfu'):
+        assert read(name, run) is None, name

@@ -78,3 +78,38 @@ def make_root(tmp, compute_dtype='float32', step_rms_limit=1e-4, kind='cascade')
         shutil.copytree(REAL / folder, root / 'port_bench' / folder,
                         ignore=shutil.ignore_patterns('__pycache__'))
     return root
+
+
+def tiny_train_mix():
+    """The training mix at the tiny size: 4 rows of 16 px, the EMA's first
+    update with a decay above 0 at step 4."""
+    return dict(registry.traffic('train-b32'), prompts=4, tokens_min=2, tokens_max=6,
+                start_image_size=16, trace_requests=2, reference_rows=3,
+                train=dict(registry.traffic('train-b32')['train'],
+                           ema=dict(update_after_step=1, update_every=2)))
+
+
+TRAIN_LIMITS = dict(draws=0., change=0.1, late_loss=1e-5, late_grad_median=1e-3, late_change=0.1,
+                    ema=1e-5)
+
+
+def make_train_root(tmp, limits=TRAIN_LIMITS):
+    """A root with BENCHMARK.json naming one training cell, `tiny-train`: the
+    tiny configuration's first U-Net trained in float32 on the tiny mix."""
+    root = Path(tmp)
+    bench = registry.benchmark()
+    bench['configs'] = [dict(bench['configs'][0], name='tiny',
+                             file='port_bench/configs/tiny.json')]
+    bench['workloads'] = [dict(name='tiny-train', config='tiny', traffic='tiny', chips=1,
+                               why='a tiny training step for the CPU tests')]
+    for m in bench['per_layer']:
+        m['workloads'] = ['tiny-train']
+    write(root / 'BENCHMARK.json', bench)
+    write(root / 'port_bench' / 'configs' / 'tiny.json', tiny_config())
+    write(root / 'port_bench' / 'traffic' / 'tiny.json', tiny_train_mix())
+    write(root / 'port_bench' / 'cells' / 'tiny-train.json',
+          dict(limits={k: dict(limit=v) for k, v in limits.items()}))
+    for folder in ('metrics', 'systems'):
+        shutil.copytree(REAL / folder, root / 'port_bench' / folder,
+                        ignore=shutil.ignore_patterns('__pycache__'))
+    return root

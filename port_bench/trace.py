@@ -16,16 +16,17 @@ from collections import defaultdict
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 # The device operations' categories, by name, first match wins (a frozen copy
-# of the table that `imagen_tpu_torch/profile_serving.py` used).
+# of the table that `imagen_tpu_torch/profile_serving.py` used, with the
+# radix select among the port's kernels).
 CATEGORIES = (
     ('port kernels', ('conv2d_same_3x3', 'flash_rows_', 'fused_feedforward', 'temporal_attn',
                       'ln_relayout', 'film_norm', 'layernorm_rows', 'ln_matmul',
-                      'cross_embed', 'conv2d_same_cf')),
+                      'cross_embed', 'conv2d_same_cf', 'radix_select')),
     ('optimizer', ('multi_tensor', 'adam')),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'winograd')),
     ('GEMM', ('gemm', 'cutlass', 'nvjet', 'cublas')),
     ('copy / cast', ('copy', 'memcpy', 'memset', 'cat', 'pad')),
-    ('reduction', ('reduce', 'softmax', 'norm', 'kthvalue', 'sort', 'radix')),
+    ('reduction', ('reduce', 'softmax', 'norm', 'kthvalue', 'sort')),
     ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
 )
 
@@ -84,16 +85,25 @@ class Trace:
     def device_seconds_in(self, prefix):
         """{span name: seconds of device operations launched inside it} for
         spans of `prefix`, which must not nest in one another."""
+        out = defaultdict(float)
+        for (name, _, _), spent in zip(self.spans_of(prefix), self.device_seconds_each(prefix)):
+            if spent:
+                out[name] += spent
+        return dict(out)
+
+    def device_seconds_each(self, prefix):
+        """[seconds of device operations launched inside each span] for the
+        spans of `prefix` (which must not nest), by start."""
         spans = self.spans_of(prefix)
         starts = [s for _, s, _ in spans]
-        out = defaultdict(float)
+        out = [0.] * len(spans)
         for (ts, dur, *_), at in zip(self.ops, self.launched):
             if at is None:
                 continue
             i = bisect.bisect_right(starts, at) - 1
             if i >= 0 and at <= spans[i][2]:
-                out[spans[i][0]] += dur
-        return dict(out)
+                out[i] += dur
+        return out
 
     def kernels(self):
         """The number of kernels (not copies or fills) in the slice."""
