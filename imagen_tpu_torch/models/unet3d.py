@@ -73,6 +73,13 @@ from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_
 from imagen_tpu_torch.utils.profiling import span
 
 
+def temporal(peg, attn, x):
+    """A level's temporal PEG, then its temporal attention, in a
+    `video.temporal` span."""
+    with span('video.temporal'):
+        return attn(peg(x))
+
+
 class Unet3D(ConditionedUnet):
     """The video denoiser. Keyword names mirror the JAX `Unet3D` attributes."""
 
@@ -384,7 +391,7 @@ class Unet3D(ConditionedUnet):
 
             x = spatial(self.init_conv, x)
             if not ignore_time:
-                x = self.init_temporal_attn(self.init_temporal_peg(x))
+                x = temporal(self.init_temporal_peg, self.init_temporal_attn, x)
             init_conv_residual = x if self.init_conv_to_final_conv_residual else None
 
             t, c = self._condition(
@@ -407,7 +414,7 @@ class Unet3D(ConditionedUnet):
                 if exists(attn_block):
                     x = attn_block(x, context=c, generator=generator)
                 if not ignore_time:
-                    x = temporal_attn(temporal_peg(x))
+                    x = temporal(temporal_peg, temporal_attn, x)
                 hiddens.append(x)
                 if exists(temporal_down) and not ignore_time:
                     x = temporal_down(x)
@@ -419,7 +426,7 @@ class Unet3D(ConditionedUnet):
                 b, f, hh, ww, ch = x.shape
                 x = self.mid_attn(x.reshape(b, f * hh * ww, ch)).reshape(b, f, hh, ww, ch)
             if not ignore_time:
-                x = self.mid_temporal_attn(self.mid_temporal_peg(x))
+                x = temporal(self.mid_temporal_peg, self.mid_temporal_attn, x)
             x = self.mid_block2(x, t, c, ignore_time=ignore_time)
 
             def add_skip(x):
@@ -436,7 +443,7 @@ class Unet3D(ConditionedUnet):
                 if exists(attn_block):
                     x = attn_block(x, context=c, generator=generator)
                 if not ignore_time:
-                    x = temporal_attn(temporal_peg(x))
+                    x = temporal(temporal_peg, temporal_attn, x)
                 up_hiddens.append(x)
                 if exists(upsample):
                     x = spatial(upsample, x)

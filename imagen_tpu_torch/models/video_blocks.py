@@ -9,7 +9,7 @@ width, channels); counterpart of `imagen_tpu/models/video_blocks.py`.
 - Parameters keep lucidrains' `imagen_video` key names and torch shapes.
   Its video `Conv2d` is an `nn.Conv3d` with a unit time kernel, so the 2D
   blocks' convs are given 5-D weights (O, I, 1, kh, kw) by `unit_time`;
-  the pseudo-3D conv keeps an `nn.Conv2d` and an `nn.Conv1d`.
+  the pseudo-3D conv keeps a 2D conv's (O, I, kh, kw) and a Conv1d's.
 - Where the JAX package departs from lucidrains the port follows it: the
   causal temporal conv starts as a true identity (delta at the last tap), and
   `null_attn_bias` exists only where a relative position bias uses it.
@@ -41,6 +41,7 @@ from imagen_tpu_torch.models.blocks import (
     LayerNorm,
     Linear,
     LinearAttention,
+    SameConv3x3,
     TorchLayerNorm,
     ln_eps,
     recomputed,
@@ -56,6 +57,7 @@ from imagen_tpu_torch.ops.flash_attention import (
 from imagen_tpu_torch.ops.temporal_layout import fused_norm_untranspose, temporal_layout_available
 from imagen_tpu_torch.ops.tensor_utils import l2norm, resize_axes, resize_kernel
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
+from imagen_tpu_torch.utils.profiling import count, span
 
 
 # --- video resize helpers -------------------------------------------------------------------
@@ -119,24 +121,41 @@ def _shift_frames(x, s):
 
 # --- pseudo-3D conv -------------------------------------------------------------------------
 
+class CausalTemporalConv(nn.Conv1d):
+    """The causal temporal conv of `PseudoConv3d` over (b, f, h, w, c):
+    out[f] = sum_j x[f + j - (k - 1)] W[:, :, j] + bias, zeros before the
+    first frame, as one product over the k shifted copies stacked on the
+    channel axis. It starts as the identity: a delta at its last tap, which
+    with left-only padding passes each frame through."""
+
+    def __init__(self, dim, kernel_size, dtype=F32):
+        super().__init__(dim, dim, kernel_size)
+        self.compute_dtype = dtype
+        with torch.no_grad():
+            self.weight.zero_()
+            self.weight[:, :, -1] = torch.eye(dim)
+            self.bias.zero_()
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        o, i, tk = self.weight.shape
+        xs = torch.cat([_shift_frames(x, tk - 1 - j) for j in range(tk)], dim=-1)
+        return F.linear(xs, self.weight.permute(0, 2, 1).reshape(o, tk * i).to(dt),
+                        self.bias.to(dt))
+
+
 class PseudoConv3d(nn.Module):
-    """Spatial k x k conv per frame, then a causal temporal conv over frames
-    per pixel. The temporal conv starts as the identity: a delta at its last
-    tap, which with left-only padding passes each frame through."""
+    """Spatial k x k conv per frame (a 3x3 through `SameConv3x3`'s gate),
+    then a causal temporal conv over frames per pixel, in a `video.temporal`
+    span."""
 
     def __init__(self, dim, dim_out, kernel_size=3, temporal_kernel_size=None, dtype=F32):
         super().__init__()
-        self.compute_dtype = dtype
-        self.spatial_conv = Conv2d(dim, dim_out, kernel_size, padding=kernel_size // 2,
-                                   dtype=dtype)
-        self.temporal_conv = None
-        if kernel_size > 1:
-            tk = default(temporal_kernel_size, kernel_size)
-            self.temporal_conv = nn.Conv1d(dim_out, dim_out, tk)
-            with torch.no_grad():
-                self.temporal_conv.weight.zero_()
-                self.temporal_conv.weight[:, :, -1] = torch.eye(dim_out)
-                self.temporal_conv.bias.zero_()
+        self.spatial_conv = SameConv3x3(dim, dim_out, dtype=dtype) if kernel_size == 3 else \
+            Conv2d(dim, dim_out, kernel_size, padding=kernel_size // 2, dtype=dtype)
+        self.temporal_conv = CausalTemporalConv(
+            dim_out, default(temporal_kernel_size, kernel_size), dtype=dtype) \
+            if kernel_size > 1 else None
 
     def forward(self, x, ignore_time=False):
         if x.ndim != 5:
@@ -144,13 +163,8 @@ class PseudoConv3d(nn.Module):
         x = spatial(self.spatial_conv, x)
         if ignore_time or self.temporal_conv is None:
             return x
-        dt = self.compute_dtype
-        w, bias = self.temporal_conv.weight, self.temporal_conv.bias
-        o, i, tk = w.shape
-        # causal: out[f] = sum_j x[f + j - (tk - 1)] W[:, :, j], as one product
-        # over the tk shifted copies stacked on the channel axis
-        xs = torch.cat([_shift_frames(x, tk - 1 - j) for j in range(tk)], dim=-1)
-        return F.linear(xs, w.permute(0, 2, 1).reshape(o, tk * i).to(dt), bias.to(dt))
+        with span('video.temporal'):
+            return self.temporal_conv(x)
 
 
 class SpatialConvIn3d(Conv2d):
@@ -233,6 +247,21 @@ class VideoAttention(nn.Module):
         if init_zero:
             nn.init.zeros_(self.to_out[1].g)
 
+    def _count(self, flash, grouped, b, n, nk, mask, bias):
+        """One call for the route counters, with QK^T and PV as its work
+        (4 b h n nk d): per-pixel attention over the frames (the temporal
+        kernel's calls, and every call with a relative position bias) under
+        `temporal_attention`, routes `kernel` and `plain`, keyed (pixels,
+        frames, heads, nk, d); the flat attention under `attention`, routes
+        `flash` and `plain`, keyed as `ops.attention` keys it."""
+        h, d = self.heads, self.dim_head
+        work = 4 * b * h * n * nk * d
+        if grouped or (not flash and exists(self.rel_pos_bias)):
+            count('temporal_attention', 'kernel' if grouped else 'plain', (b, n, h, nk, d), work)
+        else:
+            count('attention', 'flash' if flash else 'plain',
+                  (b, h, n, nk, d, exists(mask), exists(bias)), work)
+
     def forward(self, x, context=None, mask=None, fused_ln=False):
         x_native = None
         if fused_ln:
@@ -269,11 +298,15 @@ class VideoAttention(nn.Module):
         plain = not (exists(bias_full) or self.causal or not per_pixel)
         causal_mask = (torch.ones((n, nk), dtype=torch.bool, device=x.device)
                        .triu(nk - n + 1) if self.causal else None)
-        if plain and flash_attention_available(n, dh, False, False, heads=h, dtype=q.dtype,
-                                               device_type=q.device.type):
+        flash = plain and flash_attention_available(n, dh, False, False, heads=h, dtype=q.dtype,
+                                                    device_type=q.device.type)
+        grouped = not flash and per_pixel and grouped_temporal_available(
+            n, h, nk, dh, q.dtype, q.device.type)
+        self._count(flash, grouped, b, n, nk, mask, bias_full)
+        if flash:
             out = flash_cosine_mqa_rows(q.reshape(b, n * h, dh), k, v, self.q_scale,
                                         self.k_scale, self.scale).reshape(b, n, h * dh)
-        elif per_pixel and grouped_temporal_available(n, h, nk, dh, q.dtype, q.device.type):
+        elif grouped:
             bias_hfj = bias_full if exists(bias_full) else torch.zeros(
                 (h, n, nk), device=x.device)
             out = flash_grouped_cosine(q, k, v, self.q_scale, self.k_scale,

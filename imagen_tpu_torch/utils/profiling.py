@@ -13,7 +13,9 @@
 The program's own spans and counters, and the recording that keeps them:
 
 - `span(name)`: a context manager at a layer boundary of the program
-  (`serve.generate`, `sample`, `sample.step`, `unet.forward`). With nothing
+  (`serve.generate`, `sample`, `sample.step`, `unet.forward`, and in the
+  video U-Net `video.temporal` around each temporal PEG and attention pair
+  and each pseudo-3D conv's temporal conv). With nothing
   recording and no torch profiler on, it returns one shared no-op object.
   Under a recording it keeps the span's host times; under a torch profiler
   (`trace`, or any `torch.profiler.profile`) it is also a
@@ -21,8 +23,10 @@ The program's own spans and counters, and the recording that keeps them:
 - `count(name, route, key, work)`: one gate decision, by the route it took
   and the shape `key`, with its work (operations); kept only under a
   recording. `conv3x3` (routes `kernel`, `cudnn`), `attention` (routes
-  `flash`, `plain`) and `threshold` (routes `kernel`, `kthvalue`; its work
-  is elements) are counted where their routes are decided.
+  `flash`, `plain`), `temporal_attention` (the video U-Net's attention over
+  the frames of each pixel, routes `kernel`, `plain`) and `threshold`
+  (routes `kernel`, `kthvalue`; its work is elements) are counted where
+  their routes are decided.
 - `recording()` (or `start_recording()` ... `stop_recording()`): turns the
   recording on for the block and yields its `Recording`: the spans, the
   counters, and the launches of the hand-written kernels
