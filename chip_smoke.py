@@ -140,8 +140,12 @@ parameters and random weights from a seed:
   parallel and an FSDP step.
 Every path's cross-embed stem runs kernel 14: its gate admits the stem of
 every U-Net above.
-The launch counts are set to 0 just before each path and read just after;
-each path checks that the kernels it must run were launched.
+The launch counts are set to 0 just before each path and read just after,
+the launches the wrappers issued apart from those that CUDA graph replays
+of the U-Net forwards ran (`models/unet_graphs.py`); each path checks that
+the kernels it must run ran. A launch's shape is kept through the
+program's counters, which a graph's capture keeps on its tape and each
+replay counts again, so a replayed launch has its shape too.
 Then it holds each hand-written kernel, at every shape the paths launched
 it at (kernels 9, 11 and 7 at every recorded site shape; kernel 7 also at
 the (2, 1024, 1024, 128) -> 3 shape that the JAX gate admits, kernel
@@ -193,9 +197,11 @@ raises is logged as failed and the next one measured); the small nets'
 errors; then the card again, one JSON line of kernel results and, last,
 the result line {"ok": ..., "device": {...}}.
 
-In the kernel line, `launches` is the sum over the paths (split in
-`launches_by_path`); `ms`, `plain_ms`, `library_ms` and `bound_ms` are per-call
-times at each launched shape times that shape's launches in the paths,
+In the kernel line, `launches` is the sum over the paths of the launches
+the wrappers issued and `replayed` of those that graph replays ran (split in
+`launches_by_path` and `replayed_by_path`); `ms`, `plain_ms`, `library_ms` and
+`bound_ms` are per-call times at each launched shape times that shape's
+launches and replays in the paths,
 summed (for kernels 9, 11 and 7, `on_path` false, times that shape's site
 count, `sites`, keyed by the path that recorded them, since they launch
 nowhere on a path). `bound_ms` is the
@@ -442,37 +448,92 @@ def text_batch(torch, g, n):
     return emb * mask[..., None], mask
 
 
-@contextmanager
-def counting_path(build, shapes, counts):
-    """Set the launch counts to 0, record the size arguments (those after the
-    leading pointers) of every launch into `shapes`, and add the counts of
-    the block to `counts`; the wrapped launch still counts."""
+SHAPES = 'chip_smoke.launch'   # the counter that keeps each launch's shape
+SHAPELESS = []                   # blocks whose launches outran their shapes
+
+
+class Launches(Counter):
+    """Kernel launches by name that the wrappers issued, and apart, in
+    `replayed`, those that CUDA graph replays ran."""
+
+    def __init__(self, *args, **kwargs):
+        self.replayed = Counter()
+        super().__init__(*args, **kwargs)
+
+    def update(self, other=(), /, **kwargs):
+        super().update(other, **kwargs)
+        if isinstance(other, Launches):
+            self.replayed.update(other.replayed)
+
+    def ran(self, name):
+        return self[name] + self.replayed[name]
+
+
+def count_shapes(build):
+    """Wrap `build.launch`, once, so that each launch counts its size
+    arguments (those after the leading pointers) as counter SHAPES: under a
+    recording they are kept, under a CUDA graph's capture they go on its tape
+    and count again at each replay."""
     import ctypes
+    from imagen_tpu_torch.utils.profiling import count
     original = build.launch
+    if getattr(original, 'counts_shapes', False):
+        return
 
     def launch(name, *args):
         sig = build.SIGNATURES[name]
         n_ptr = next(i for i, a in enumerate(sig) if a is not ctypes.c_void_p)
-        shapes[name][tuple(args[n_ptr:])] += 1
+        dims = tuple(args[n_ptr:])
+        count(SHAPES, name, dims, 1)
         if name == 'flash_rows_fwd_bf16' and args[5] is not None:   # the LSE pointer
-            shapes[FLASH_WITH_LSE][tuple(args[n_ptr:])] += 1
+            count(SHAPES, FLASH_WITH_LSE, dims, 1)
         return original(name, *args)
 
-    build.reset_launches()
+    launch.counts_shapes = True
     build.launch = launch
+
+
+@contextmanager
+def counting_path(build, shapes, counts):
+    """Set the launch counts to 0, record the size arguments of every launch
+    that ran in the block, issued or replayed, into `shapes`, and add the
+    block's launches to `counts` (a `Launches`), the replayed ones apart."""
+    from imagen_tpu_torch.utils import profiling
+    count_shapes(build)
+    rec = profiling.active_recording()
+    own = rec is None
+    if own:
+        rec = profiling.start_recording()
+    before = {k: v[0] for k, v in rec.counters.items() if k[0] == SHAPES}
+    build.reset_launches()
     try:
         yield
     finally:
-        build.launch = original
+        if own:
+            profiling.stop_recording()
+        seen = Counter()
+        for key, (calls, _) in list(rec.counters.items()):
+            if key[0] == SHAPES and calls > before.get(key, 0):
+                shapes[key[1]][key[2]] += calls - before.get(key, 0)
+                seen[key[1]] += calls - before.get(key, 0)
         counts.update(build.LAUNCHES)
+        counts.replayed.update(build.REPLAYED)
+        for name in build.LAUNCHES.keys() | build.REPLAYED.keys():
+            ran = build.LAUNCHES[name] + build.REPLAYED[name]
+            if seen[name] != ran:
+                SHAPELESS.append(name)
+                log(f'{name}: {ran} launches ran ({build.LAUNCHES[name]} issued, '
+                    f'{build.REPLAYED[name]} replayed) but {seen[name]} shapes were kept: '
+                    f'a graph captured without count_shapes -> FAIL')
 
 
 def check_launched(counts, names, path):
     ok = True
     for name in names:
-        c = counts.get(name, 0)
+        c = counts.ran(name)
         ok &= c > 0
-        log(f'{path} launches {name}: {c}{"" if c > 0 else " -> FAIL: not on the path"}')
+        log(f'{path} launches {name}: {c} ({counts[name]} issued, {counts.replayed[name]} '
+            f'replayed){"" if c > 0 else " -> FAIL: not on the path"}')
     return ok
 
 
@@ -549,7 +610,7 @@ def phase_serving(torch, it, build, results):
     g = torch.Generator(device='cuda').manual_seed(1234)
     requests = [text_batch(torch, g, n) for n in REQUEST_SIZES]
 
-    counts = Counter()
+    counts = Launches()
     torch.cuda.reset_peak_memory_stats()
     ok = True
     with counting_path(build, results['shapes']['serving'], counts):
@@ -653,23 +714,23 @@ def phase_surface(torch, it, build, results):
     log(f'surface: cascade built in {time.perf_counter() - t0:.1f} s')
     g = torch.Generator(device='cuda').manual_seed(4321)
     emb, mask = text_batch(torch, g, SURFACE_BATCH)
-    shapes, counts, ok = results['shapes']['surface'], Counter(), True
+    shapes, counts, ok = results['shapes']['surface'], Launches(), True
 
     for i, (unet, size) in enumerate(zip(imagen.unets, imagen.image_sizes)):
         x, times, kw = surface_inputs(torch, unet, size, g, emb, mask)
         calls, handles = train_loop_hooks(unet)
-        mine = Counter()
+        mine = Launches()
         with torch.no_grad(), counting_path(build, shapes, mine):
             out = unet.forward_with_cond_scale(x, times, cond_scale=SURFACE_COND_SCALE, **kw)
         for h in handles:
             h.remove()
-        free_counts = Counter()
+        free_counts = Launches()
         with torch.no_grad(), counting_path(build, defaultdict(Counter), free_counts):
             free = unet_forward_with_cond_scale(unet, x, times, cond_scale=SURFACE_COND_SCALE,
                                                 **kw)
         torch.cuda.synchronize()
         same = torch.equal(out, free)
-        launches = {k: (mine[k], free_counts[k], calls[k]) for k in SURFACE_KERNELS}
+        launches = {k: (mine.ran(k), free_counts.ran(k), calls[k]) for k in SURFACE_KERNELS}
         good = same and all(a == b == c for a, b, c in launches.values()) and \
             tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all())
         ok &= good
@@ -733,7 +794,7 @@ def phase_surface(torch, it, build, results):
                               use_tqdm=False,
                               generator=torch.Generator(device='cuda').manual_seed(99))
 
-    sample_counts = Counter()
+    sample_counts = Launches()
     with counting_path(build, shapes, sample_counts):
         t1 = time.perf_counter()
         out = sample(imagen)
@@ -751,19 +812,19 @@ def phase_surface(torch, it, build, results):
     t1 = time.perf_counter()
     plain = surface_cascade(torch, it, condition_on_text=False)
     loaded = plain.load_state_dict(imagen.state_dict(), strict=False)
-    plain_counts = Counter()
+    plain_counts = Launches()
     with counting_path(build, defaultdict(Counter), plain_counts):
         same = sample(plain)
     torch.cuda.synchronize()
     equal = torch.equal(out, same)
-    same_launches = all(plain_counts[k] == sample_counts[k] for k in SURFACE_KERNELS)
+    same_launches = all(plain_counts.ran(k) == sample_counts.ran(k) for k in SURFACE_KERNELS)
     good = equal and same_launches and not loaded.missing_keys and bool(loaded.unexpected_keys)
     ok &= good
     log(f'surface: a cascade built with condition_on_text=False ({time.perf_counter() - t1:.1f} '
         f's to build, load and sample), {len(loaded.unexpected_keys)} text weights of the '
         f'forced one not loaded, {len(loaded.missing_keys)} missing; its sample equals the '
         f'forced one bit for bit {equal}; launches (forced, built so) '
-        f'{dict((k, (sample_counts[k], plain_counts[k])) for k in SURFACE_KERNELS)} '
+        f'{dict((k, (sample_counts.ran(k), plain_counts.ran(k))) for k in SURFACE_KERNELS)} '
         f'-> {"ok" if good else "FAIL"}')
     del plain
     ok &= check_launched(counts, SURFACE_KERNELS, 'surface')
@@ -807,7 +868,7 @@ def phase_inpainting(torch, it, build, results):
         return imagen.sample(text_embeds=emb, text_masks=mask, cond_scale=3.,
                              generator=torch.Generator(device='cuda').manual_seed(71), **kw)
 
-    counts = Counter()
+    counts = Launches()
     calls, handles = forward_calls(imagen)
     ok = True
     lats = defaultdict(list)
@@ -875,7 +936,7 @@ def phase_self_cond(torch, it, build, results):
                              generator=torch.Generator(device='cuda').manual_seed(81))
 
     ok = sampled(torch, 'self_cond warm-up', sample, [(4, 64, 64, 3)])[0]
-    counts = Counter()
+    counts = Launches()
     calls, handles = forward_calls(imagen)
     try:
         with counting_path(build, results['shapes']['self_cond'], counts):
@@ -885,9 +946,9 @@ def phase_self_cond(torch, it, build, results):
             h.remove()
     ok &= check_launched(counts, ['flash_rows_fwd_bf16', 'conv2d_same_3x3_bf16',
                                   'fused_feedforward_bf16'], 'self_cond')
-    unfused = counts[STEM_KERNEL] == 0
+    unfused = counts.ran(STEM_KERNEL) == 0
     ok &= unfused
-    log(f'self_cond: {STEM_KERNEL} launches {counts[STEM_KERNEL]}: the stem ran the unfused '
+    log(f'self_cond: {STEM_KERNEL} launches {counts.ran(STEM_KERNEL)}: the stem ran the unfused '
         f'route (9 input channels, gate c * 16 <= 128) -> {"ok" if unfused else "FAIL"}')
     results['counts']['self_cond'] = counts
     return ok
@@ -982,7 +1043,7 @@ def train_steps(torch, it, build, shapes, counts, label, imagen, unet_number, da
 
 def phase_training(torch, it, build, results):
     ok = True
-    counts = Counter()
+    counts = Launches()
     for unet_number, batch in TRAIN_CONFIGS:
         ok &= train_config(torch, it, build, results, counts, unet_number, batch)
         free_cuda()
@@ -1021,7 +1082,7 @@ def phase_video(torch, it, build, results):
 
     g = torch.Generator(device='cuda').manual_seed(4321)
     requests = [text_batch(torch, g, 1) for _ in range(3)]
-    counts = Counter()
+    counts = Launches()
     ok = True
     with counting_path(build, results['shapes']['video'], counts):
         for i, (emb, mask) in enumerate(requests):
@@ -1040,9 +1101,9 @@ def phase_video(torch, it, build, results):
     ok &= check_launched(counts, ['temporal_attn_fwd_bf16', 'flash_rows_fwd_bf16', STEM_KERNEL],
                          'video')
     expected = VIDEO_TEMPORAL_SITES * VIDEO_STEPS * len(requests)
-    per_step = counts['temporal_attn_fwd_bf16'] == expected
+    per_step = counts.ran('temporal_attn_fwd_bf16') == expected
     ok &= per_step
-    log(f'video: temporal kernel launches {counts["temporal_attn_fwd_bf16"]}, expected '
+    log(f'video: temporal kernel launches {counts.ran("temporal_attn_fwd_bf16")}, expected '
         f'{VIDEO_TEMPORAL_SITES} per step x {VIDEO_STEPS} steps x {len(requests)} requests = '
         f'{expected} -> {"ok" if per_step else "FAIL"}')
     results['counts']['video'] = counts
@@ -1051,7 +1112,7 @@ def phase_video(torch, it, build, results):
     emb, mask = requests[0]
     clip = torch.rand((1, VIDEO_FRAMES, 64, 64, 3), generator=g, device='cuda')
     known = half_mask(torch, 1, 64)
-    counts = Counter()
+    counts = Launches()
     calls, handles = forward_calls(imagen)
     try:
         with counting_path(build, results['shapes']['video_inpainting'], counts):
@@ -1105,7 +1166,7 @@ def phase_video_training(torch, it, build, results):
                 text_embeds=emb, text_masks=mask)
     label = (f'video train (Unet3D {sum(p.numel() for p in unet.parameters()) / 1e6:.1f} M, '
              f'batch {VIDEO_TRAIN_BATCH} x {VIDEO_FRAMES} frames, 64px)')
-    counts = Counter()
+    counts = Launches()
     calls, handles = fused_site_calls(unet)
     try:
         ok = train_steps(torch, it, build, results['shapes']['video_training'], counts, label,
@@ -1234,7 +1295,7 @@ def phase_edm_serving(torch, it, build, results):
 
     g = torch.Generator(device='cuda').manual_seed(5678)
     requests = [text_batch(torch, g, n) for n in REQUEST_SIZES]
-    counts = Counter()
+    counts = Launches()
     ok = True
     film_calls, sites, refused, handles = site_hooks(imagen)
     try:
@@ -1249,10 +1310,10 @@ def phase_edm_serving(torch, it, build, results):
     forwards = [2 * n - 1 for n in EDM_STEPS]
     per_forward = {i: film_calls[i] / (forwards[i] * len(requests)) for i in range(2)}
     expected = sum(film_calls.values())
-    exact = counts[FILM_KERNEL] == expected > 0 and all(
+    exact = counts.ran(FILM_KERNEL) == expected > 0 and all(
         film_calls[i] % (forwards[i] * len(requests)) == 0 for i in range(2))
     ok &= exact
-    log(f'edm_serving: {FILM_KERNEL} launches {counts[FILM_KERNEL]}, expected {expected} = '
+    log(f'edm_serving: {FILM_KERNEL} launches {counts.ran(FILM_KERNEL)}, expected {expected} = '
         f'fused sites per forward {per_forward} (BaseUnet64, SRUnet256) x forwards {forwards} '
         f'(2N - 1) x {len(requests)} requests -> {"ok" if exact else "FAIL"}')
     for name in NORM_UNWIRED:
@@ -1268,8 +1329,9 @@ def phase_edm_serving(torch, it, build, results):
     for fused in (True, False, False, True, True, False):
         for unet in imagen.unets:
             film_norms(unet, fused)
-        good, outputs[fused], lat = edm_request(torch, server, emb, mask,
-                                                f'edm A/B fused_film={fused}')
+        with eager_forwards():
+            good, outputs[fused], lat = edm_request(torch, server, emb, mask,
+                                                    f'edm A/B fused_film={fused}')
         ok &= good
         lats[fused].append(lat)
     log(f'edm_serving A/B: fused_film on {[round(x, 3) for x in lats[True]]} s, off '
@@ -1296,7 +1358,7 @@ def phase_edm_serving(torch, it, build, results):
     init = torch.rand((4, 256, 256, 3), generator=g, device='cuda')
     known = half_mask(torch, 4, 256)
     skip = tuple(n // 2 for n in EDM_STEPS)
-    counts = Counter()
+    counts = Launches()
     calls, handles = forward_calls(imagen)
     try:
         with counting_path(build, results['shapes']['edm_inpainting'], counts):
@@ -1333,7 +1395,7 @@ def phase_edm_training(torch, it, build, results):
     batch 4, 256 px, with Adam; TRAIN_STEPS steps each. Kernel 8's launches
     are held to forward hooks that count the fused norm calls."""
     common = dict(dtype=torch.bfloat16, text_embed_dim=768, max_text_len=256, fused_film=True)
-    counts = Counter()
+    counts = Launches()
     ok = True
     for unet_number, batch, optimizer in ((1, 8, 'adafactor'), (2, 4, 'adam')):
         torch.manual_seed(60 + unet_number)
@@ -1403,7 +1465,7 @@ def phase_video_edm(torch, it, build, results):
         f'serving batch 1, cond_scale 3)')
     g = torch.Generator(device='cuda').manual_seed(7071)
     requests = [text_batch(torch, g, 1) for _ in range(3)]
-    counts = Counter()
+    counts = Launches()
     ok = True
     calls, handles = forward_calls(imagen)
     try:
@@ -1415,9 +1477,9 @@ def phase_video_edm(torch, it, build, results):
                                   text_embeds=emb, text_masks=mask)),
                               [(1, VIDEO_FRAMES, 64, 64, 3)], calls)[0]
         expected = VIDEO_TEMPORAL_SITES * (2 * VIDEO_STEPS - 1) * len(requests)
-        exact = counts['temporal_attn_fwd_bf16'] == expected
+        exact = counts.ran('temporal_attn_fwd_bf16') == expected
         ok &= exact
-        log(f'video_edm: temporal kernel launches {counts["temporal_attn_fwd_bf16"]}, expected '
+        log(f'video_edm: temporal kernel launches {counts.ran("temporal_attn_fwd_bf16")}, expected '
             f'{VIDEO_TEMPORAL_SITES} per forward x {2 * VIDEO_STEPS - 1} forwards x '
             f'{len(requests)} requests = {expected} -> {"ok" if exact else "FAIL"}')
         emb, mask = requests[0]
@@ -1458,7 +1520,7 @@ def phase_video_edm_training(torch, it, build, results):
                 text_embeds=emb, text_masks=mask)
     label = (f'video edm train (Unet3D, batch {VIDEO_TRAIN_BATCH} x {VIDEO_FRAMES} frames, '
              f'64px)')
-    counts = Counter()
+    counts = Launches()
     calls, handles = fused_site_calls(unet)
     try:
         ok, trainer = train_steps(torch, it, build, results['shapes']['video_edm_training'],
@@ -1478,7 +1540,7 @@ def phase_video_edm_training(torch, it, build, results):
 
     stills = dict(images=torch.rand((VIDEO_TRAIN_BATCH, 64, 64, 3), generator=g, device='cuda'),
                   text_embeds=emb, text_masks=mask)
-    counts = Counter()
+    counts = Launches()
     with counting_path(build, results['shapes']['video_edm_training_stills'], counts):
         torch.cuda.reset_peak_memory_stats()
         loss = trainer.step_with_batch(stills, unet_number=1)
@@ -1575,7 +1637,7 @@ def phase_sr1024_serving(torch, it, build, results):
     start = torch.rand((1, 256, 256, 3), generator=g, device='cuda')
     ok = sr1024_request(torch, imagen, emb, mask, start, 'sr1024 warm-up')[0]
 
-    counts = Counter()
+    counts = Launches()
     calls, final_sites, handles = sr1024_hooks(unet)
     try:
         with counting_path(build, results['shapes']['sr1024_serving'], counts):
@@ -1588,9 +1650,9 @@ def phase_sr1024_serving(torch, it, build, results):
     ok &= check_launched(counts, [STEM_KERNEL, 'conv2d_same_3x3_bf16', 'flash_rows_fwd_bf16',
                                   'fused_feedforward_bf16'], 'sr1024_serving')
     for name in (STEM_KERNEL, 'conv2d_same_3x3_bf16'):
-        exact = counts[name] == calls[name] > 0
+        exact = counts.ran(name) == calls[name] > 0
         ok &= exact
-        log(f'sr1024_serving: {name} launches {counts[name]}, hook count {calls[name]} '
+        log(f'sr1024_serving: {name} launches {counts.ran(name)}, hook count {calls[name]} '
             f'({calls[name] / (3 * SR_STEPS):g} a forward x {SR_STEPS} steps x 3 requests) '
             f'-> {"ok" if exact else "FAIL"}')
     log(f'sr1024_serving: {CF_KERNEL} site (no launch: wired nowhere, as in JAX) '
@@ -1754,9 +1816,9 @@ def held_to_hooks(counts, calls, label, kernels=IMAGE_KERNELS):
     admits (0 where it admits none: then the kernel must not launch)."""
     ok = True
     for name in kernels:
-        exact = counts[name] == calls[name]
+        exact = counts.ran(name) == calls[name]
         ok &= exact
-        log(f'{label}: {name} launches {counts[name]}, hook count {calls[name]} '
+        log(f'{label}: {name} launches {counts.ran(name)}, hook count {calls[name]} '
             f'-> {"ok" if exact else "FAIL"}')
     return ok
 
@@ -1854,7 +1916,7 @@ def train_loop(torch, it, build, results, root, folder, t_loop):
 
     trainer.save = timed_save
 
-    counts_train = Counter()
+    counts_train = Launches()
     calls, handles = train_loop_hooks(unet)
     losses = []
     try:
@@ -1936,7 +1998,7 @@ def train_loop(torch, it, build, results, root, folder, t_loop):
     g = torch.Generator(device='cuda').manual_seed(75)
     emb, mask = text_batch(torch, g, 2)
     start = torch.rand((2, 64, 64, 3), generator=g, device='cuda')
-    counts_sample = Counter()
+    counts_sample = Launches()
     calls, handles = train_loop_hooks(imagen.unets[1])
     with counting_path(build, results['shapes']['train_loop_sampling'], counts_sample):
         good, _ = sampled(torch, f'train_loop sample (256 px from 64 px, {SR_STEPS} steps, '
@@ -2069,7 +2131,7 @@ def options_serving(torch, it, build, results):
     torch.cuda.reset_peak_memory_stats()
     ok, lat = sampled(torch, 'unet_options warm-up request', lambda: request(0),
                       [(2, 256, 256, 3)])
-    counts = Counter()
+    counts = Launches()
     calls = Counter()
     handle_sets = [options_hooks(u) for u in imagen.unets]
     try:
@@ -2116,7 +2178,7 @@ def options_training(torch, it, build, results):
     data = dict(images=torch.rand((OPTIONS_TRAIN_BATCH, 256, 256, 3), generator=g,
                                   device='cuda'), text_embeds=emb, text_masks=mask)
     ok, peaks, firsts, later, by_remat, left, busy = True, {}, {}, {}, {}, {}, {}
-    counts = Counter()
+    counts = Launches()
     for remat in REMATS:
         torch.manual_seed(61)
         imagen = it.Imagen((it.NullUnet(), options_sr(torch, it, remat=remat)),
@@ -2130,7 +2192,7 @@ def options_training(torch, it, build, results):
         ends = []
         handles.append(unet.register_forward_hook(
             lambda *_: ends.append(torch.cuda.memory_allocated() / 2 ** 30)))
-        path_counts = Counter()
+        path_counts = Launches()
         losses, step_peaks = [], []
         try:
             with counting_path(build, results['shapes']['unet_options_training'], path_counts):
@@ -2205,7 +2267,7 @@ def options_video(torch, it, build, results):
     emb, mask = text_batch(torch, g, OPTIONS_VIDEO_BATCH)
     clips = torch.rand((OPTIONS_VIDEO_BATCH, VIDEO_FRAMES, 128, 128, 3), generator=g,
                        device='cuda')
-    counts = Counter()
+    counts = Launches()
     calls, handles = options_hooks(unet)
     ok = True
     try:
@@ -2421,7 +2483,7 @@ def parallel_worker(rank, folder):
         mine = batch if data == 1 else {k: v[rank * 2:rank * 2 + 2] for k, v in batch.items()}
         calls, handles = train_loop_hooks(trainer.unets[1])
         rows, more = rows_hooks(trainer.unets[1])
-        counts, losses, peaks, mode = Counter(), [], [], {}
+        counts, losses, peaks, mode = Launches(), [], [], {}
         for step in range(1, n + 1):
             if name == 'fsdp' and step == 3:
                 mode.update(fsdp_save(torch, trainer, folder))
@@ -2590,7 +2652,7 @@ def run_parallel(torch, it, results, folder):
             log(f'parallel worker {r} -> FAIL; the end of its log:\n'
                 f'{(folder / f"worker{r}.log").read_text()[-4000:]}')
 
-    counts = Counter()
+    counts = Launches()
     for r, out in enumerate(ranks):
         for name, dims, c in out.get('shapes', []):
             results['shapes']['parallel'][name][tuple(dims)] += c
@@ -2633,7 +2695,7 @@ def parallel_mode_ok(name, rank, mode, ref, counts):
         f'the steps {mode["step_peak_gib"]:.2f} GiB (in the mode {mode["peak_gib"]:.2f}), '
         f'bytes {mode["bytes"]}, built and stepped in {mode["build_and_steps_s"]:.1f} s')
     counts.update(mode['counts'])
-    good &= held_to_hooks(Counter(mode['counts']), Counter(mode['calls']), label,
+    good &= held_to_hooks(Launches(mode['counts']), Counter(mode['calls']), label,
                           kernels=PARALLEL_KERNELS)
     if name == 'fsdp':
         resume_ok = (mode['resumed_loss'] == mode['losses'][2] and mode['loaded_steps'] == 2
@@ -3124,10 +3186,12 @@ def phase_kernels(torch, results):
             if lib is not None:
                 lib_total = (lib_total or 0.) + lib
             free_cuda()
-        launches = {path: c.get(name, 0) for path, c in results['counts'].items()}
+        launches = {path: c[name] for path, c in results['counts'].items()}
+        replayed = {path: c.replayed[name] for path, c in results['counts'].items()}
         summary.append(dict(
             name=name, route='cuda', source=info['source'], replaces=info['replaces'],
             launches=sum(launches.values()), launches_by_path=launches,
+            replayed=sum(replayed.values()), replayed_by_path=replayed,
             on_path=name not in UNWIRED, max_abs_err=worst,
             ms=totals['ms'], plain_ms=totals['plain_ms'],
             bound_ms=totals['operations'] + totals['bytes'],
@@ -3153,10 +3217,25 @@ GATES = ('blocks.conv2d_same_available', 'blocks.fused_feedforward_available',
 
 
 @contextmanager
+def eager_forwards():
+    """Every U-Net forward in the block dispatched eagerly, none replayed
+    from a CUDA graph (`models/unet_graphs.py`): a global module hook keeps
+    them off the graph route, so a gate or module switch made for an A/B
+    takes effect at the next call."""
+    import torch
+    handle = torch.nn.modules.module.register_module_forward_hook(lambda *args: None)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+@contextmanager
 def open_or_closed(is_open, *names):
     """With `is_open` false, the named kernel gates (of `GATES`, by the name
     after the module) closed, so the nets take those sites' plain PyTorch
-    path; with it true, nothing changed."""
+    path; with it true, nothing changed. Either way the forwards run
+    eagerly (`eager_forwards`), so both sides dispatch alike."""
     from imagen_tpu_torch.models import blocks, video_blocks
     import imagen_tpu_torch.ops.attention as attention
     modules = dict(blocks=blocks, video_blocks=video_blocks, attention=attention)
@@ -3165,7 +3244,8 @@ def open_or_closed(is_open, *names):
     try:
         for m, n, _ in saved:
             setattr(m, n, lambda *a, **k: False)
-        yield
+        with eager_forwards():
+            yield
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
@@ -3291,6 +3371,7 @@ def main():
         t0 = time.perf_counter()
         _build.library()
         log(f'kernel build: {time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})')
+        count_shapes(_build)   # before any capture, so that every replay keeps its shapes
         for phase in (phase_serving, phase_surface, phase_inpainting, phase_self_cond,
                       phase_training, phase_video, phase_video_training, phase_edm_serving,
                       phase_edm_training, phase_video_edm, phase_video_edm_training,
@@ -3300,6 +3381,7 @@ def main():
             ok &= phase(torch, it, _build, results)
             free_cuda()
             log(f'{phase.__name__}: {time.perf_counter() - t0:.1f} s of wall time')
+        ok &= not SHAPELESS
         ok &= phase_kernels(torch, results)
         ok &= phase_small_unet(torch, it)
         ok &= phase_small_unet3d(torch, it)

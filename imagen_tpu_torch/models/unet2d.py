@@ -29,6 +29,7 @@ from imagen_tpu_torch.models.blocks import (
     Upsample,
     UpsampleCombiner,
 )
+from imagen_tpu_torch.models.unet_graphs import ForwardGraphs
 from imagen_tpu_torch.ops.tensor_utils import prob_mask_like, resize_image_to, resize_kernel
 from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists, resolve_device
@@ -62,7 +63,37 @@ class ConditionedUnet(nn.Module):
     dtype. A subclass keeps its constructor arguments in `_config` and sets
     `channels`, `channels_out`, `lowres_cond`, `cond_on_text`,
     `text_embed_dim`, `max_text_len`, `self_cond`, `cond_images_channels`
-    and `dtype`."""
+    and `dtype`. The inference forward replays a CUDA graph where it can
+    (`models/unet_graphs.py`)."""
+
+    _forward_graphs = None   # a ForwardGraphs, made at the first forward
+
+    def _apply(self, fn, *args, **kwargs):
+        self._forward_graphs = None   # `.to()` and the like: the graphs read the old memory
+        return super()._apply(fn, *args, **kwargs)
+
+    def _graphed(self, run, **inputs):
+        """`run(**inputs)`, or the replay of its CUDA graph (`ForwardGraphs`),
+        with the text at `max_text_len` (`_fixed_text`)."""
+        inputs['text_embeds'], inputs['text_mask'] = self._fixed_text(inputs['text_embeds'],
+                                                                      inputs['text_mask'])
+        if self._forward_graphs is None:
+            self._forward_graphs = ForwardGraphs()
+        return self._forward_graphs(self, run, **inputs)
+
+    def _fixed_text(self, text_embeds, text_mask):
+        """The text padded (masked off) or cut to `max_text_len` before its
+        projection, as `_condition` pads and cuts the projected tokens: the
+        forward's shapes then do not follow the prompt's length, and one CUDA
+        graph serves every length. Only with a mask: without one the padded
+        rows' projection (the bias) would differ from `_condition`'s zeros."""
+        if not (self.cond_on_text and exists(text_embeds) and exists(text_mask)):
+            return text_embeds, text_mask
+        remainder = self.max_text_len - text_embeds.shape[1]
+        if remainder > 0:
+            text_embeds = F.pad(text_embeds, (0, 0, 0, remainder))
+            text_mask = F.pad(text_mask, (0, remainder), value=False)
+        return text_embeds[:, :self.max_text_len], text_mask[:, :self.max_text_len]
 
     def _append_self_cond(self, x, self_cond):
         """x with the self-conditioning x_start (zeros when None) appended on
@@ -471,76 +502,86 @@ class Unet(ConditionedUnet):
         classifier-free guidance runs the conditional and null halves as one
         doubled-batch forward. `cond_images` (b, h, w, cond_images_channels),
         resized to x, and `self_cond` (b, H, W, c), the previous x_start, go
-        in on the channel axis."""
+        in on the channel axis. An inference call on the card may replay a
+        CUDA graph of this forward (`models/unet_graphs.py`)."""
         with span('unet.forward'):
-            if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
-                raise ValueError('low resolution conditioning image and noise times must be '
-                                 'present')
-            self._check_cond_images(cond_images, 4)
-            x = self._append_self_cond(x, self_cond)
-            if exists(lowres_cond_img):
-                x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
-            if exists(cond_images):
-                cond_images = resize_image_to(cond_images, x.shape[-2], method=self.resize_mode)
-                x = torch.cat((cond_images.to(x.dtype), x), dim=-1)
+            return self._graphed(
+                self._forward, x=x, time=time, lowres_cond_img=lowres_cond_img,
+                lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
+                text_mask=text_mask, cond_images=cond_images, self_cond=self_cond,
+                cond_drop_prob=cond_drop_prob, force_text_drop_mask=force_text_drop_mask,
+                generator=generator)
 
-            x = self.init_conv(x)
-            init_conv_residual = x if self.init_conv_to_final_conv_residual else None
+    def _forward(self, x, time, *, lowres_cond_img, lowres_noise_times, text_embeds, text_mask,
+                 cond_images, self_cond, cond_drop_prob, force_text_drop_mask, generator=None):
+        if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
+            raise ValueError('low resolution conditioning image and noise times must be '
+                             'present')
+        self._check_cond_images(cond_images, 4)
+        x = self._append_self_cond(x, self_cond)
+        if exists(lowres_cond_img):
+            x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+        if exists(cond_images):
+            cond_images = resize_image_to(cond_images, x.shape[-2], method=self.resize_mode)
+            x = torch.cat((cond_images.to(x.dtype), x), dim=-1)
 
-            t, c = self._condition(
-                time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
-                text_mask=text_mask, cond_drop_prob=cond_drop_prob,
-                force_text_drop_mask=force_text_drop_mask, generator=generator)
+        x = self.init_conv(x)
+        init_conv_residual = x if self.init_conv_to_final_conv_residual else None
 
-            if exists(self.init_resnet_block):
-                x = self.init_resnet_block(x, time_emb=t)
+        t, c = self._condition(
+            time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
+            text_mask=text_mask, cond_drop_prob=cond_drop_prob,
+            force_text_drop_mask=force_text_drop_mask, generator=generator)
 
-            hiddens = []
-            for (pre_downsample, init_block, resnet_blocks, attn_block,
-                 post_downsample) in self.downs:
-                if exists(pre_downsample):
-                    x = pre_downsample(x)
-                x = init_block(x, time_emb=t, cond=c)
-                for resnet_block in resnet_blocks:
-                    x = resnet_block(x, time_emb=t)
-                    hiddens.append(x)
-                if exists(attn_block):
-                    x = attn_block(x, context=c, generator=generator)
+        if exists(self.init_resnet_block):
+            x = self.init_resnet_block(x, time_emb=t)
+
+        hiddens = []
+        for (pre_downsample, init_block, resnet_blocks, attn_block,
+             post_downsample) in self.downs:
+            if exists(pre_downsample):
+                x = pre_downsample(x)
+            x = init_block(x, time_emb=t, cond=c)
+            for resnet_block in resnet_blocks:
+                x = resnet_block(x, time_emb=t)
                 hiddens.append(x)
-                if exists(post_downsample):
-                    x = post_downsample(x)
+            if exists(attn_block):
+                x = attn_block(x, context=c, generator=generator)
+            hiddens.append(x)
+            if exists(post_downsample):
+                x = post_downsample(x)
 
-            x = self.mid_block1(x, time_emb=t, cond=c)
-            if exists(self.mid_attn):
-                x = self.mid_attn(x)
-            x = self.mid_block2(x, time_emb=t, cond=c)
+        x = self.mid_block1(x, time_emb=t, cond=c)
+        if exists(self.mid_attn):
+            x = self.mid_attn(x)
+        x = self.mid_block2(x, time_emb=t, cond=c)
 
-            def add_skip(x):
-                return torch.cat((x, hiddens.pop() * self.skip_connect_scale), dim=-1)
+        def add_skip(x):
+            return torch.cat((x, hiddens.pop() * self.skip_connect_scale), dim=-1)
 
-            up_hiddens = []
-            for init_block, resnet_blocks, attn_block, upsample in self.ups:
-                x = init_block(add_skip(x), time_emb=t, cond=c)
-                for resnet_block in resnet_blocks:
-                    x = resnet_block(add_skip(x), time_emb=t)
-                if exists(attn_block):
-                    x = attn_block(x, context=c, generator=generator)
-                up_hiddens.append(x)
-                if exists(upsample):
-                    x = upsample(x)
+        up_hiddens = []
+        for init_block, resnet_blocks, attn_block, upsample in self.ups:
+            x = init_block(add_skip(x), time_emb=t, cond=c)
+            for resnet_block in resnet_blocks:
+                x = resnet_block(add_skip(x), time_emb=t)
+            if exists(attn_block):
+                x = attn_block(x, context=c, generator=generator)
+            up_hiddens.append(x)
+            if exists(upsample):
+                x = upsample(x)
 
-            x = self.upsample_combiner(x, up_hiddens)
+        x = self.upsample_combiner(x, up_hiddens)
 
-            if exists(init_conv_residual):
-                x = torch.cat((x, init_conv_residual), dim=-1)
+        if exists(init_conv_residual):
+            x = torch.cat((x, init_conv_residual), dim=-1)
 
-            if exists(self.final_res_block):
-                x = self.final_res_block(x, time_emb=t)
+        if exists(self.final_res_block):
+            x = self.final_res_block(x, time_emb=t)
 
-            if exists(lowres_cond_img):
-                x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+        if exists(lowres_cond_img):
+            x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
 
-            return self.final_conv(x)
+        return self.final_conv(x)
 
 
 class NullUnet(nn.Module):

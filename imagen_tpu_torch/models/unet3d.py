@@ -342,119 +342,133 @@ class Unet3D(ConditionedUnet):
         guidance). `ignore_time` skips every temporal module, so the net runs
         on each frame as an image net. `self_cond` (b, f, H, W, c) goes in on
         the channel axis before the low-res video; `cond_images` (b, h, w, c')
-        is repeated over every frame, prompt frames included, and resized."""
+        is repeated over every frame, prompt frames included, and resized.
+        An inference call on the card may replay a CUDA graph of this forward
+        (`models/unet_graphs.py`)."""
         with span('unet.forward'):
-            if x.ndim != 5:
-                raise ValueError('input to the 3D unet must be (batch, frames, h, w, channels)')
-            frames = x.shape[1]
-            if not ignore_time and frames % self.total_temporal_divisor:
-                raise ValueError(f'frames {frames} must divide by the total temporal divisor '
-                                 f'{self.total_temporal_divisor}')
+            return self._graphed(
+                self._forward, x=x, time=time, lowres_cond_img=lowres_cond_img,
+                lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
+                text_mask=text_mask, cond_images=cond_images, self_cond=self_cond,
+                cond_video_frames=cond_video_frames,
+                post_cond_video_frames=post_cond_video_frames, cond_drop_prob=cond_drop_prob,
+                force_text_drop_mask=force_text_drop_mask, ignore_time=ignore_time,
+                generator=generator)
 
-            if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
-                raise ValueError('low resolution conditioning video and noise times must be '
-                                 'present')
-            self._check_cond_images(cond_images, 4)
-            x = self._append_self_cond(x, self_cond)
-            if exists(lowres_cond_img):
-                x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
-                # prompt frames double their channels to match the (x ++ lowres) layout
-                if exists(cond_video_frames):
-                    lowres_cond_img = torch.cat((cond_video_frames, lowres_cond_img), dim=1)
-                    cond_video_frames = torch.cat((cond_video_frames, cond_video_frames), dim=-1)
-                if exists(post_cond_video_frames):
-                    lowres_cond_img = torch.cat((lowres_cond_img, post_cond_video_frames), dim=1)
-                    post_cond_video_frames = torch.cat(
-                        (post_cond_video_frames, post_cond_video_frames), dim=-1)
+    def _forward(self, x, time, *, lowres_cond_img, lowres_noise_times, text_embeds, text_mask,
+                 cond_images, self_cond, cond_video_frames, post_cond_video_frames,
+                 cond_drop_prob, force_text_drop_mask, ignore_time, generator=None):
+        if x.ndim != 5:
+            raise ValueError('input to the 3D unet must be (batch, frames, h, w, channels)')
+        frames = x.shape[1]
+        if not ignore_time and frames % self.total_temporal_divisor:
+            raise ValueError(f'frames {frames} must divide by the total temporal divisor '
+                             f'{self.total_temporal_divisor}')
 
-            # prompt frames: preceding ones prepended, succeeding ones appended
-            num_preceding_frames = num_succeeding_frames = 0
-            for frames_, before in ((cond_video_frames, True), (post_cond_video_frames, False)):
-                if not exists(frames_):
-                    continue
-                n = frames_.shape[1]
-                if n % self.total_temporal_divisor:
-                    raise ValueError(f'{n} conditioning frames must divide by the total temporal '
-                                     f'divisor {self.total_temporal_divisor}')
-                frames_ = resize_video_to(frames_, x.shape[-2]).to(x.dtype)   # nearest, as in JAX
-                if before:
-                    x = torch.cat((frames_, x), dim=1)
-                    num_preceding_frames = n
-                else:
-                    x = torch.cat((x, frames_), dim=1)
-                    num_succeeding_frames = n
+        if self.lowres_cond and not (exists(lowres_cond_img) and exists(lowres_noise_times)):
+            raise ValueError('low resolution conditioning video and noise times must be '
+                             'present')
+        self._check_cond_images(cond_images, 4)
+        x = self._append_self_cond(x, self_cond)
+        if exists(lowres_cond_img):
+            x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+            # prompt frames double their channels to match the (x ++ lowres) layout
+            if exists(cond_video_frames):
+                lowres_cond_img = torch.cat((cond_video_frames, lowres_cond_img), dim=1)
+                cond_video_frames = torch.cat((cond_video_frames, cond_video_frames), dim=-1)
+            if exists(post_cond_video_frames):
+                lowres_cond_img = torch.cat((lowres_cond_img, post_cond_video_frames), dim=1)
+                post_cond_video_frames = torch.cat(
+                    (post_cond_video_frames, post_cond_video_frames), dim=-1)
 
-            if exists(cond_images):   # over every frame, the prompt frames' too
-                frames_ = cond_images[:, None].expand(-1, x.shape[1], -1, -1, -1)
-                frames_ = resize_video_to(frames_, x.shape[-2], method=self.resize_mode)
-                x = torch.cat((frames_.to(x.dtype), x), dim=-1)
+        # prompt frames: preceding ones prepended, succeeding ones appended
+        num_preceding_frames = num_succeeding_frames = 0
+        for frames_, before in ((cond_video_frames, True), (post_cond_video_frames, False)):
+            if not exists(frames_):
+                continue
+            n = frames_.shape[1]
+            if n % self.total_temporal_divisor:
+                raise ValueError(f'{n} conditioning frames must divide by the total temporal '
+                                 f'divisor {self.total_temporal_divisor}')
+            frames_ = resize_video_to(frames_, x.shape[-2]).to(x.dtype)   # nearest, as in JAX
+            if before:
+                x = torch.cat((frames_, x), dim=1)
+                num_preceding_frames = n
+            else:
+                x = torch.cat((x, frames_), dim=1)
+                num_succeeding_frames = n
 
-            x = spatial(self.init_conv, x)
-            if not ignore_time:
-                x = temporal(self.init_temporal_peg, self.init_temporal_attn, x)
-            init_conv_residual = x if self.init_conv_to_final_conv_residual else None
+        if exists(cond_images):   # over every frame, the prompt frames' too
+            frames_ = cond_images[:, None].expand(-1, x.shape[1], -1, -1, -1)
+            frames_ = resize_video_to(frames_, x.shape[-2], method=self.resize_mode)
+            x = torch.cat((frames_.to(x.dtype), x), dim=-1)
 
-            t, c = self._condition(
-                time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
-                text_mask=text_mask, cond_drop_prob=cond_drop_prob,
-                force_text_drop_mask=force_text_drop_mask, generator=generator)
+        x = spatial(self.init_conv, x)
+        if not ignore_time:
+            x = temporal(self.init_temporal_peg, self.init_temporal_attn, x)
+        init_conv_residual = x if self.init_conv_to_final_conv_residual else None
 
-            if exists(self.init_resnet_block):
-                x = self.init_resnet_block(x, t, ignore_time=ignore_time)
+        t, c = self._condition(
+            time, lowres_noise_times=lowres_noise_times, text_embeds=text_embeds,
+            text_mask=text_mask, cond_drop_prob=cond_drop_prob,
+            force_text_drop_mask=force_text_drop_mask, generator=generator)
 
-            hiddens = []
-            for (pre, init_block, resnet_blocks, attn_block, temporal_peg, temporal_attn,
-                 temporal_down, post) in self.downs:
-                if exists(pre):
-                    x = spatial(pre, x)
-                x = init_block(x, t, c, ignore_time=ignore_time)
-                for resnet_block in resnet_blocks:
-                    x = resnet_block(x, t, ignore_time=ignore_time)
-                    hiddens.append(x)
-                if exists(attn_block):
-                    x = attn_block(x, context=c, generator=generator)
-                if not ignore_time:
-                    x = temporal(temporal_peg, temporal_attn, x)
+        if exists(self.init_resnet_block):
+            x = self.init_resnet_block(x, t, ignore_time=ignore_time)
+
+        hiddens = []
+        for (pre, init_block, resnet_blocks, attn_block, temporal_peg, temporal_attn,
+             temporal_down, post) in self.downs:
+            if exists(pre):
+                x = spatial(pre, x)
+            x = init_block(x, t, c, ignore_time=ignore_time)
+            for resnet_block in resnet_blocks:
+                x = resnet_block(x, t, ignore_time=ignore_time)
                 hiddens.append(x)
-                if exists(temporal_down) and not ignore_time:
-                    x = temporal_down(x)
-                if exists(post):
-                    x = spatial(post, x)
-
-            x = self.mid_block1(x, t, c, ignore_time=ignore_time)
-            if exists(self.mid_attn):
-                b, f, hh, ww, ch = x.shape
-                x = self.mid_attn(x.reshape(b, f * hh * ww, ch)).reshape(b, f, hh, ww, ch)
+            if exists(attn_block):
+                x = attn_block(x, context=c, generator=generator)
             if not ignore_time:
-                x = temporal(self.mid_temporal_peg, self.mid_temporal_attn, x)
-            x = self.mid_block2(x, t, c, ignore_time=ignore_time)
+                x = temporal(temporal_peg, temporal_attn, x)
+            hiddens.append(x)
+            if exists(temporal_down) and not ignore_time:
+                x = temporal_down(x)
+            if exists(post):
+                x = spatial(post, x)
 
-            def add_skip(x):
-                return torch.cat((x, hiddens.pop() * self.skip_connect_scale), dim=-1)
+        x = self.mid_block1(x, t, c, ignore_time=ignore_time)
+        if exists(self.mid_attn):
+            b, f, hh, ww, ch = x.shape
+            x = self.mid_attn(x.reshape(b, f * hh * ww, ch)).reshape(b, f, hh, ww, ch)
+        if not ignore_time:
+            x = temporal(self.mid_temporal_peg, self.mid_temporal_attn, x)
+        x = self.mid_block2(x, t, c, ignore_time=ignore_time)
 
-            up_hiddens = []
-            for (init_block, resnet_blocks, attn_block, temporal_peg, temporal_attn, temporal_up,
-                 upsample) in self.ups:
-                if exists(temporal_up) and not ignore_time:
-                    x = temporal_up(x)
-                x = init_block(add_skip(x), t, c, ignore_time=ignore_time)
-                for resnet_block in resnet_blocks:
-                    x = resnet_block(add_skip(x), t, ignore_time=ignore_time)
-                if exists(attn_block):
-                    x = attn_block(x, context=c, generator=generator)
-                if not ignore_time:
-                    x = temporal(temporal_peg, temporal_attn, x)
-                up_hiddens.append(x)
-                if exists(upsample):
-                    x = spatial(upsample, x)
+        def add_skip(x):
+            return torch.cat((x, hiddens.pop() * self.skip_connect_scale), dim=-1)
 
-            x = self.upsample_combiner(x, up_hiddens)
-            if exists(init_conv_residual):
-                x = torch.cat((x, init_conv_residual), dim=-1)
-            if exists(self.final_res_block):
-                x = self.final_res_block(x, t, ignore_time=ignore_time)
-            if exists(lowres_cond_img):
-                x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+        up_hiddens = []
+        for (init_block, resnet_blocks, attn_block, temporal_peg, temporal_attn, temporal_up,
+             upsample) in self.ups:
+            if exists(temporal_up) and not ignore_time:
+                x = temporal_up(x)
+            x = init_block(add_skip(x), t, c, ignore_time=ignore_time)
+            for resnet_block in resnet_blocks:
+                x = resnet_block(add_skip(x), t, ignore_time=ignore_time)
+            if exists(attn_block):
+                x = attn_block(x, context=c, generator=generator)
+            if not ignore_time:
+                x = temporal(temporal_peg, temporal_attn, x)
+            up_hiddens.append(x)
+            if exists(upsample):
+                x = spatial(upsample, x)
 
-            out = self.final_conv(x)
-            return out[:, num_preceding_frames:out.shape[1] - num_succeeding_frames]
+        x = self.upsample_combiner(x, up_hiddens)
+        if exists(init_conv_residual):
+            x = torch.cat((x, init_conv_residual), dim=-1)
+        if exists(self.final_res_block):
+            x = self.final_res_block(x, t, ignore_time=ignore_time)
+        if exists(lowres_cond_img):
+            x = torch.cat((x, lowres_cond_img.to(x.dtype)), dim=-1)
+
+        out = self.final_conv(x)
+        return out[:, num_preceding_frames:out.shape[1] - num_succeeding_frames]

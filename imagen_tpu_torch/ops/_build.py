@@ -10,8 +10,9 @@ the plain PyTorch versions.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, launches
 on that stream and returns `cudaGetLastError()`; `launch` raises when it is
-not 0. `LAUNCHES` counts the launches of each kernel by name. `plan` asks a
-C entry that computes its own tiling which one it takes.
+not 0. `LAUNCHES` counts the launches of each kernel by name; `REPLAYED`
+counts apart those that replays of CUDA graphs made. `plan` asks a C entry
+that computes its own tiling which one it takes.
 """
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ SMEM_LIMIT = 232448
 
 # Launches of each kernel, by name; a wrapper adds one where it launches.
 LAUNCHES: Counter = Counter()
+# Launches of each kernel made by CUDA graph replays, by name: a replay adds
+# the launches its capture recorded into the graph (`utils.profiling.Tape`).
+REPLAYED: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -181,6 +185,7 @@ def plan(name, *args):
 
 def reset_launches():
     LAUNCHES.clear()
+    REPLAYED.clear()
 
 
 @functools.lru_cache(maxsize=None)

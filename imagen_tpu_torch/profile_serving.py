@@ -14,15 +14,18 @@ with a server at batch 1 (a request of 1 prompt), or (`--sr1024`)
 `chip_smoke.py`'s SR-1024 tail, `NullUnet` + `SRUnet1024`, whose request
 is `Imagen.sample` from `start_at_unet_number=2` on a 256 px image, batch 1
 (the server takes no start image). Warms up, then times one request unprofiled, then one
-under `torch.profiler` (device activity only) inside a recording of the program's spans and
-counters (`utils.profiling.recording`). Prints both wall times, the summed device time of
-the kernels and the device idle share (1 - busy over the unprofiled request's wall time: the
+under `torch.profiler` (device activity only), each inside a recording of the program's
+spans and counters (`utils.profiling.recording`). Prints both wall times, the summed device
+time of the kernels and the device idle share (1 - busy over the unprofiled request's wall time: the
 profiler stretches the host's side of a request, not the device's work), device time by
 category (the port's CUDA kernels, cuDNN convs, GEMMs, elementwise, reductions, copies) and
 the top kernels by device time; then the profiled request's host self time by span name
 (`serve.generate`, `sample`, `sample.step`, `unet.forward`) and its route counters
 (`conv3x3`: `kernel` or `cudnn`; `attention`: `flash` or `plain`) by shape, with each
-counter's share of work on its kernel route, and its launches of the hand-written kernels.
+counter's share of work on its kernel route, and its launches of the hand-written kernels;
+and the unprofiled request's U-Net forwards by route (`unet_graph`: `replay` of a CUDA graph,
+`capture`, `eager`), since a profiler keeps every forward eager, with its kernel launches
+issued and replayed from graphs.
 Needs a GPU; imports no JAX.
 """
 import argparse
@@ -146,10 +149,11 @@ def main():
         request, label = server_request(*(video_server() if args.video
                                           else image_server(edm=args.edm)))
 
-    t0 = time.perf_counter()
-    request()
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with recording() as plain_rec:
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with recording() as rec, \
             torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -163,6 +167,12 @@ def main():
     print(f'request wall {plain_wall_ms:.1f} ms unprofiled, {wall_ms:.1f} ms profiled; '
           f'device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / plain_wall_ms:.3f} '
           '(of the unprofiled request)')
+    print('U-Net forwards of the unprofiled request by route (unet_graph): ' + ', '.join(
+        f'{route} x{n}' for route, (n, _) in sorted(plain_rec.routes('unet_graph').items()))
+        + f'; {plain_rec.share("unet_graph", "replay") or 0.:.1f}% of rows replayed '
+        f'(the profiled request runs eagerly); hand-written kernel launches '
+        f'{sum(plain_rec.launches.values())} issued, {sum(plain_rec.replayed.values())} '
+        'replayed from graphs')
     by_cat = defaultdict(float)
     for e in kernels:
         by_cat[category(e.key)] += device_us(e) / 1e3

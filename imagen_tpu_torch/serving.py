@@ -2,7 +2,9 @@
 
 - warms up every cascade stage at startup for the serving batch at each
   cond_scale in `cond_scales` (the first call builds the CUDA kernels and
-  lets cuDNN pick its algorithms; serving requests must not pay that),
+  lets cuDNN pick its algorithms, the second captures each U-Net's forward
+  into a CUDA graph that later steps replay; serving requests must not pay
+  that),
 - pads incoming requests to the serving batch and text length, so every
   request runs the same shapes,
 - serializes device access with a lock so several threads can call

@@ -26,11 +26,18 @@ The program's own spans and counters, and the recording that keeps them:
   `flash`, `plain`), `temporal_attention` (the video U-Net's attention over
   the frames of each pixel, routes `kernel`, `plain`) and `threshold`
   (routes `kernel`, `kthvalue`; its work is elements) are counted where
-  their routes are decided.
+  their routes are decided; `unet_graph` (routes `capture`, `replay`,
+  `eager`; key the U-Net's class and input shape; work its rows) counts
+  each U-Net forward by how it ran (`models/unet_graphs.py`).
+- `taping()`: within the block nothing is recorded; the counters' calls and
+  the kernel launches are kept on a `Tape`, whose `replay` counts the calls
+  again and the launches into `ops._build.REPLAYED`, once for each run of
+  what the block captured.
 - `recording()` (or `start_recording()` ... `stop_recording()`): turns the
   recording on for the block and yields its `Recording`: the spans, the
-  counters, and the launches of the hand-written kernels
-  (`ops._build.LAUNCHES`) made while it was on.
+  counters, the launches of the hand-written kernels
+  (`ops._build.LAUNCHES`) made while it was on, and apart from them those
+  that CUDA graph replays made (`ops._build.REPLAYED`).
 """
 from __future__ import annotations
 
@@ -146,8 +153,8 @@ class Recording:
     `spans` are the closed spans in the order they closed (a child before
     its parent); each thread nests its own. `counters` maps (name, route,
     key) to [calls, work].
-    `launches` are the kernel launches made while it was on (frozen when it
-    stops). `wall_ns` moves a span's host time onto the wall clock that the
+    `launches` are the kernel launches made while it was on and `replayed`
+    those that CUDA graph replays made (both frozen when it stops). `wall_ns` moves a span's host time onto the wall clock that the
     torch profiler stamps host events with: a Chrome trace event's `ts` x
     1000 + the trace's `baseTimeNanoseconds`."""
 
@@ -159,13 +166,20 @@ class Recording:
         self._open = {}
         self._next = 0
         self._launches0 = Counter(_build.LAUNCHES)
-        self._launches = None
+        self._replayed0 = Counter(_build.REPLAYED)
+        self._launches = self._replayed = None
 
     @property
     def launches(self):
         if self._launches is not None:
             return self._launches
         return Counter(_build.LAUNCHES) - self._launches0
+
+    @property
+    def replayed(self):
+        if self._replayed is not None:
+            return self._replayed
+        return Counter(_build.REPLAYED) - self._replayed0
 
     def wall_ns(self, clock_ns):
         return self.wall0_ns + clock_ns - self.clock0_ns
@@ -234,6 +248,7 @@ class _NoSpan:
 
 _NO_SPAN = _NoSpan()
 _recording: Optional[Recording] = None
+_tape: Optional['Tape'] = None
 
 
 class _Span:
@@ -270,7 +285,11 @@ def span(name: str):
 
 def count(name: str, route: str, key: tuple, work: int):
     """Count one call of gate `name` that took `route` at shape `key`, with
-    `work` operations; nothing unless a recording is on."""
+    `work` operations; nothing unless a recording is on (on the tape
+    instead inside `taping`)."""
+    if _tape is not None:
+        _tape.counts.append((name, route, key, work))
+        return
     rec = _recording
     if rec is None:
         return
@@ -297,13 +316,51 @@ def stop_recording() -> Recording:
     rec, _recording = _recording, None
     if rec is None:
         raise RuntimeError('no recording is on')
-    rec._launches = rec.launches
+    rec._launches, rec._replayed = rec.launches, rec.replayed
     return rec
 
 
 def active_recording() -> Optional[Recording]:
     """The recording that is on, or None."""
     return _recording
+
+
+class Tape:
+    """What a block counted and launched while `taping`: `counts` the
+    `count` calls in order, `launches` the kernel launches by name."""
+
+    def __init__(self):
+        self.counts = []
+        self.launches = Counter()
+
+    def replay(self):
+        """Count it all again: the counters into the recording that is on,
+        the launches into `ops._build.REPLAYED`."""
+        for entry in self.counts:
+            count(*entry)
+        _build.REPLAYED.update(self.launches)
+
+
+@contextlib.contextmanager
+def taping():
+    """Keep the block's counters and launches on the `Tape` it yields, out of
+    the recording and out of `ops._build.LAUNCHES` (a launch under capture
+    runs nothing); its spans are not recorded. For a block that captures
+    work a replay runs later: each replay then counts it with
+    `Tape.replay`."""
+    global _recording, _tape
+    if _tape is not None:
+        raise RuntimeError('a tape is already on')
+    tape, kept = Tape(), _recording
+    before = Counter(_build.LAUNCHES)
+    _recording, _tape = None, tape
+    try:
+        yield tape
+    finally:
+        _recording, _tape = kept, None
+        tape.launches = Counter(_build.LAUNCHES) - before
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(before)
 
 
 @contextlib.contextmanager

@@ -10,6 +10,8 @@ no JAX, so on a machine without JAX run them without the repo's conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -938,9 +940,10 @@ def test_offloaded_sr_cascade_samples_through_the_stem_kernel(cuda):
     emb = torch.randn((2, 16, 64), generator=g, device=cuda)
     start = torch.rand((2, 32, 32, 3), generator=g, device=cuda)
     kw = dict(text_embeds=emb, cond_scale=3., start_at_unet_number=2, start_image_or_video=start)
-    before = _build.LAUNCHES[stem.KERNEL]
+    before = _build.LAUNCHES[stem.KERNEL] + _build.REPLAYED[stem.KERNEL]
     on_card = imagen.sample(**kw, generator=torch.Generator(device=cuda).manual_seed(2))
-    assert _build.LAUNCHES[stem.KERNEL] - before == 3   # one per step
+    # one per step, issued or replayed from the U-Net's CUDA graph
+    assert _build.LAUNCHES[stem.KERNEL] + _build.REPLAYED[stem.KERNEL] - before == 3
     imagen.unets[1].to('cpu')
     assert imagen.device.type == 'cuda'
     offloaded = imagen.sample(**kw, offload_inactive_unets=True,
@@ -1019,3 +1022,137 @@ def test_threshold_x_start_on_the_card_matches_the_cpu(cuda, shape):
     b, n = shape[0], x[0].numel()
     assert rec.counters == {('threshold', 'kernel', (b, n)): [1, b * n],
                             ('threshold', 'kthvalue', (b, n)): [1, b * n]}
+
+
+# --- the U-Net forward replayed from a CUDA graph (models/unet_graphs.py) --------------
+
+GRAPH_UNETS = {
+    'unet': dict(dim=128, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=(False, True),
+                 layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
+                 text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
+                 dtype=BF16),
+    'unet3d': dict(dim=64, dim_mults=(1, 2), num_resnet_blocks=1, layer_attns=False,
+                   layer_cross_attns=(False, True), attn_heads=2, attn_dim_head=64,
+                   text_embed_dim=64, cond_dim=128, max_text_len=16, attn_pool_num_latents=8,
+                   dtype=BF16),
+}
+
+
+def _graph_case(cuda, kind, lowres):
+    """A small bf16 U-Net and one guided call's inputs: a prompt and its null
+    half as one doubled batch. The 2-D U-Net's shapes reach the conv, flash
+    and feedforward kernels; the video U-Net's the temporal kernel."""
+    torch.manual_seed(0)
+    cls = it.Unet3D if kind == 'unet3d' else it.Unet
+    unet = cls(**GRAPH_UNETS[kind], lowres_cond=lowres, device=cuda).eval()
+    with torch.no_grad():
+        unet.final_conv.weight.normal_(0., 0.02)
+
+    def inputs(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        shape = (2, 4, 32, 32, 3) if kind == 'unet3d' else (2, 128, 128, 3)
+        kw = dict(time=torch.rand((2,), generator=g, device=cuda),
+                  text_embeds=torch.randn((2, 16, 64), generator=g, device=cuda),
+                  text_mask=torch.rand((2, 16), generator=g, device=cuda) < 0.8,
+                  force_text_drop_mask=torch.tensor([False, True], device=cuda))
+        if lowres:
+            kw.update(lowres_cond_img=torch.randn(shape, generator=g, device=cuda),
+                      lowres_noise_times=torch.rand((2,), generator=g, device=cuda))
+        return torch.randn(shape, generator=g, device=cuda), kw
+    return unet, inputs
+
+
+def _eager_forward(unet, x, kw):
+    """The forward with a hook on a submodule, which keeps it off the graph route."""
+    handle = unet.final_conv.register_forward_hook(lambda *args: None)
+    try:
+        return unet(x, **kw)
+    finally:
+        handle.remove()
+
+
+def _graph_routes(rec):
+    return {route: calls for route, (calls, _) in rec.routes('unet_graph').items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lowres', [False, True], ids=['base', 'lowres'])
+@pytest.mark.parametrize('kind', ['unet', 'unet3d'])
+def test_replayed_unet_forward_equals_the_eager_call(cuda, kind, lowres):
+    unet, inputs = _graph_case(cuda, kind, lowres)
+    x, kw = inputs(1)
+    with torch.no_grad():
+        with recording() as first:
+            eager = unet(x, **kw)
+        with recording() as rec:
+            outs = [unet(x, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert _graph_routes(first) == {'eager': 1}
+        assert _graph_routes(rec) == {'capture': 1, 'replay': 2}
+        for out in outs:
+            assert torch.equal(out, eager)
+        # each replay counts the routes of the forward it holds, and its launches apart
+        assert {k: [3 * c, 3 * w] for k, (c, w) in first.counters.items()
+                if k[0] != 'unet_graph'} == {k: v for k, v in rec.counters.items()
+                                             if k[0] != 'unet_graph'}
+        assert rec.launches == Counter() and first.replayed == Counter()
+        assert rec.replayed == Counter({k: 3 * n for k, n in first.launches.items()})
+        kernels = {'unet': (c2d.KERNEL, fa.KERNEL, fn.KERNEL),
+                   'unet3d': (fa.TEMPORAL_KERNEL,)}[kind]
+        for name in kernels:
+            assert first.launches[name] > 0, name
+        # other values at the same signature
+        x2, kw2 = inputs(2)
+        replayed = unet(x2, **kw2)
+        assert torch.equal(replayed, _eager_forward(unet, x2, kw2))
+        assert not torch.equal(replayed, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['unet', 'unet3d'])
+def test_replay_follows_a_changed_weight(cuda, kind):
+    unet, inputs = _graph_case(cuda, kind, lowres=True)
+    x, kw = inputs(3)
+    # a weight the feedforward kernel reads from its kept bf16 copy, and a conv's
+    ff = next(m for m in unet.modules() if isinstance(m, blocks.FeedForward))
+    with torch.no_grad():
+        for _ in range(3):
+            before = unet(x, **kw)
+        with recording() as rec:
+            ff[1].weight.add_(0.05)
+            unet.final_conv.weight.add_(0.01)
+            outs = [unet(x, **kw) for _ in range(3)]
+        want = _eager_forward(unet, x, kw)
+    assert _graph_routes(rec) == {'eager': 1, 'capture': 1, 'replay': 1}
+    assert not torch.equal(want, before)
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_sample_is_the_same_with_and_without_a_submodule_hook(cuda):
+    torch.manual_seed(0)
+    cfg = dict(GRAPH_UNETS['unet'], device=cuda)
+    unets = (it.Unet(**cfg), it.Unet(**cfg, lowres_cond=True))
+    with torch.no_grad():
+        for unet in unets:
+            unet.final_conv.weight.normal_(0., 0.02)
+    imagen = it.Imagen(unets, image_sizes=(64, 128), text_embed_dim=64, timesteps=(4, 3),
+                       cond_drop_prob=0.1, device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    emb = torch.randn((2, 16, 64), generator=g, device=cuda)
+
+    def sample():
+        return imagen.sample(text_embeds=emb, cond_scale=3.,
+                             generator=torch.Generator(device=cuda).manual_seed(5))
+
+    with recording() as rec:
+        graphed = sample()
+    assert _graph_routes(rec) == {'eager': 2, 'capture': 2, 'replay': 3}
+    handles = [unet.final_conv.register_forward_hook(lambda *args: None) for unet in unets]
+    with recording() as rec:
+        eager = sample()
+    for handle in handles:
+        handle.remove()
+    assert _graph_routes(rec) == {'eager': 7}
+    assert torch.equal(graphed, eager)
