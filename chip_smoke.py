@@ -239,6 +239,7 @@ Exits non-zero if any phase fails. Needs a GPU and the imagen_tpu_torch
 package beside this file; imports no JAX.
 """
 import gc
+import importlib
 import json
 import math
 import re
@@ -3210,10 +3211,11 @@ def phase_kernels(torch, results):
 
 # --- small nets on both paths ----------------------------------------------------------
 
-GATES = ('blocks.conv2d_same_available', 'blocks.fused_feedforward_available',
-         'blocks.fused_film_available', 'blocks.stem_available',
-         'attention.flash_attention_available', 'video_blocks.flash_attention_available',
-         'video_blocks.grouped_temporal_available', 'video_blocks.temporal_layout_available')
+# each kernel gate once, in its `imagen_tpu_torch.ops` module: one patch closes every site
+GATES = ('conv2d.conv2d_same_available', 'fused_norm.fused_feedforward_available',
+         'fused_norm.fused_film_available', 'stem_conv.stem_available',
+         'flash_attention.flash_attention_available', 'flash_attention.grouped_temporal_available',
+         'temporal_layout.temporal_layout_available')
 
 
 @contextmanager
@@ -3236,11 +3238,9 @@ def open_or_closed(is_open, *names):
     after the module) closed, so the nets take those sites' plain PyTorch
     path; with it true, nothing changed. Either way the forwards run
     eagerly (`eager_forwards`), so both sides dispatch alike."""
-    from imagen_tpu_torch.models import blocks, video_blocks
-    import imagen_tpu_torch.ops.attention as attention
-    modules = dict(blocks=blocks, video_blocks=video_blocks, attention=attention)
     gates = [g.split('.') for g in GATES if g.split('.')[1] in names]
-    saved = [] if is_open else [(modules[m], n, getattr(modules[m], n)) for m, n in gates]
+    modules = [importlib.import_module(f'imagen_tpu_torch.ops.{m}') for m, _ in gates]
+    saved = [] if is_open else [(m, n, getattr(m, n)) for m, (_, n) in zip(modules, gates)]
     try:
         for m, n, _ in saved:
             setattr(m, n, lambda *a, **k: False)

@@ -40,27 +40,20 @@ from imagen_tpu_torch.ops.attention import (
     multihead_attention,
     multiquery_attention_packed,
 )
-from imagen_tpu_torch.ops.conv2d import conv2d_same, conv2d_same_available
+from imagen_tpu_torch.ops.conv2d import conv3x3
 from imagen_tpu_torch.ops.fused_norm import (
-    fused_feedforward,
-    fused_feedforward_available,
-    fused_film_available,
-    fused_film_norm,
+    chan_rms_norm,
+    feedforward,
     layernorm,
+    ln_eps,
     pack_ff_weights,
 )
-from imagen_tpu_torch.ops.stem_conv import cross_embed_stem, pack_stem_weights, stem_available
-from imagen_tpu_torch.ops.temporal_layout import fused_ln_transpose
-from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to, wants_grad
+from imagen_tpu_torch.ops.stem_conv import cross_embed, pack_stem_weights
+from imagen_tpu_torch.ops.tensor_utils import l2norm, masked_mean, resize_image_to
 from imagen_tpu_torch.parallel.rows import rows_of
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
-from imagen_tpu_torch.utils.profiling import count
 
 F32 = torch.float32
-
-
-def ln_eps(dtype):
-    return 1e-5 if dtype == F32 else 1e-3
 
 
 def remat_mode(remat):
@@ -203,24 +196,15 @@ class Conv2d(nn.Conv2d):
 
 
 class SameConv3x3(Conv2d):
-    """3x3 SAME conv; dispatches to the conv kernel (ops/conv2d.py) on the
-    shapes its gate admits, else to F.conv2d."""
+    """3x3 SAME conv: the conv kernel or F.conv2d, as `ops.conv2d.conv3x3`
+    routes the call."""
 
     def __init__(self, dim_in, dim_out, dtype=F32):
         super().__init__(dim_in, dim_out, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
-        dt = self.compute_dtype
-        x = x.to(dt)
-        cin, cout = self.in_channels, self.out_channels
-        w_shape = (3, 3, cin, cout)
-        kernel = conv2d_same_available(tuple(x.shape), w_shape, dt, x.device.type)
-        b, H, W = x.shape[:3]
-        count('conv3x3', 'kernel' if kernel else 'cudnn', (b, H, W, cin, cout),
-              18 * b * H * W * cin * cout)
-        if kernel:
-            return conv2d_same(x, self.weight.to(dt).permute(2, 3, 1, 0), self.bias)
-        return super().forward(x)
+        x = x.to(self.compute_dtype)
+        return conv3x3(x, self.weight, self.bias, lambda: Conv2d.forward(self, x))
 
 
 class DepthwiseConv3x3(nn.Conv2d):
@@ -241,22 +225,14 @@ class DepthwiseConv3x3(nn.Conv2d):
 # --- norms ------------------------------------------------------------------------------
 
 class LayerNorm(nn.Module):
-    """Bias-free LayerNorm (gain 'g'); eps 1e-5 in fp32, 1e-3 in half.
-
-    With `time_fold` it takes video (b, f, h, w, c) and returns the normalised
-    ((b h w), f, c) tokens of the temporal attention, through kernel 12
-    (ops/temporal_layout.py): the same math followed by the fold."""
+    """Bias-free LayerNorm (gain 'g'); eps 1e-5 in fp32, 1e-3 in half."""
 
     def __init__(self, dim, stable=False):
         super().__init__()
         self.stable = stable
         self.g = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x, time_fold=False):
-        if time_fold:
-            if x.ndim != 5 or self.stable:
-                raise ValueError('time_fold takes (b, f, h, w, c) input and stable=False')
-            return fused_ln_transpose(x, self.g, ln_eps(x.dtype))
+    def forward(self, x):
         if self.stable:
             x = x / x.amax(dim=-1, keepdim=True).detach()
         return layernorm(x, self.g, ln_eps(x.dtype))
@@ -276,12 +252,12 @@ class ChanLayerNorm(LayerNorm):
 
 class ChanRMSNorm(nn.Module):
     """Channel RMSNorm on NHWC's trailing axis, with the FiLM and SiLU that
-    follow it in Block applied in the same call.
+    follow it in Block applied in the same call (`ops.fused_norm.chan_rms_norm`).
 
-    With `fused`, a call with the SiLU whose shape `fused_film_available`
-    admits runs the whole norm -> FiLM -> SiLU chain as kernel 8
-    (ops/fused_norm.py), in fp32 with one rounding at the end: the JAX
-    `IMAGEN_TPU_FUSED_FILM=1` route. The parameter is the same either way."""
+    With `fused`, a call with the SiLU whose shape the gate admits runs the
+    whole norm -> FiLM -> SiLU chain as kernel 8, in fp32 with one rounding
+    at the end: the JAX `IMAGEN_TPU_FUSED_FILM=1` route. The parameter is the
+    same either way."""
 
     def __init__(self, dim, fused=False):
         super().__init__()
@@ -289,17 +265,7 @@ class ChanRMSNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim, 1, 1))
 
     def forward(self, x, scale_shift=None, fuse_silu=False):
-        dim = x.shape[-1]
-        if self.fused and fused_film_available(x.shape, x.dtype, x.device.type, fuse_silu):
-            scale, shift = scale_shift if exists(scale_shift) else (None, None)
-            return fused_film_norm(x, self.gamma, scale, shift)
-        out = l2norm(x, dim=-1) * (dim ** 0.5) * self.gamma.view(-1).to(x.dtype)
-        if exists(scale_shift):
-            scale, shift = scale_shift
-            out = out * (scale + 1) + shift
-        if fuse_silu:
-            out = F.silu(out)
-        return out
+        return chan_rms_norm(x, self.gamma, scale_shift, silu=fuse_silu, fused=self.fused)
 
 
 class TorchLayerNorm(nn.LayerNorm):
@@ -348,10 +314,10 @@ class KeepsPacked:
 class FeedForward(KeepsPacked, nn.Sequential):
     """LayerNorm -> Linear -> GELU -> LayerNorm -> Linear, no biases.
 
-    Where the gate admits the shape the whole chain runs as one kernel
-    (ops/fused_norm.py); the parameters are the same either way. Without a
-    gradient the kernel's bf16 weights are kept until a weight changes or the
-    module moves. With `chan` the parameters are lucidrains'
+    Where the gate admits the shape the whole chain runs as kernel 10
+    (`ops.fused_norm.feedforward`); the parameters are the same either way.
+    Without a gradient the kernel's bf16 weights are kept until a weight
+    changes or the module moves. With `chan` the parameters are lucidrains'
     ChanFeedForward's, gains (1, C, 1, 1) and 1x1 conv weights (O, I, 1, 1):
     on NHWC the same chain and route, as the JAX package's
     `ChanFeedForward = FeedForward`."""
@@ -368,25 +334,20 @@ class FeedForward(KeepsPacked, nn.Sequential):
         self.compute_dtype = dtype
 
     def _weights(self):
-        """The two weights as (out, in) matrices (views of the parameters)."""
-        return self[1].weight.flatten(1), self[4].weight.flatten(1)
+        """The gains as vectors and the weights as (out, in) matrices (views
+        of the parameters): (g0, w0, g1, w1)."""
+        return (self[0].g.reshape(-1), self[1].weight.flatten(1), self[3].g.reshape(-1),
+                self[4].weight.flatten(1))
 
     def _packed_weights(self):
         """`pack_ff_weights` of the two weights, kept (`KeepsPacked`)."""
         return self.kept((self[1].weight, self[4].weight),
-                         lambda: pack_ff_weights(*self._weights()))
+                         lambda: pack_ff_weights(*self._weights()[1::2]))
 
     def forward(self, x):
-        dt = self.compute_dtype
-        x = x.to(dt)
-        if fused_feedforward_available(x.numel() // self.dim, self.dim, self.hidden_dim, dt,
-                                       x.device.type):
-            w0, w1 = self._weights()
-            args = (x, self[0].g.reshape(-1), w0, self[3].g.reshape(-1), w1, ln_eps(dt))
-            if x.is_cuda and not wants_grad(x, *self.parameters()):
-                return fused_feedforward(*args, packed=self._packed_weights())
-            return fused_feedforward(*args)
-        return super().forward(x)
+        x = x.to(self.compute_dtype)
+        return feedforward(x, self.hidden_dim, self._weights, packed=self._packed_weights,
+                           plain=lambda: nn.Sequential.forward(self, x))
 
 
 # --- time embeddings --------------------------------------------------------------------
@@ -888,9 +849,9 @@ class Parallel(nn.Module):
 class CrossEmbedLayer(KeepsPacked, nn.Module):
     """Multi-kernel-size conv, channels split per scale, concatenated.
 
-    A stride-1 call whose shape `stem_available` admits runs every scale,
-    the concatenation and the bias as kernel 14 (ops/stem_conv.py); the
-    parameters are the same either way. Without a gradient the kernel's
+    A stride-1 call whose shape the gate admits runs every scale, the
+    concatenation and the bias as kernel 14 (`ops.stem_conv.cross_embed`);
+    the parameters are the same either way. Without a gradient the kernel's
     packed weights are kept until a parameter changes or the layer moves."""
 
     def __init__(self, dim_in, kernel_sizes, dim_out=None, stride=2, dtype=F32):
@@ -916,23 +877,20 @@ class CrossEmbedLayer(KeepsPacked, nn.Module):
               for conv, k in zip(self.convs, self.kernel_sizes)]
         return ws, torch.cat([conv.bias for conv in self.convs])
 
-    def _cached_stem_args(self, dt, device_type):
-        """`_stem_args` and the packed weights, kept (`KeepsPacked`)."""
+    def _kept_stem_args(self, dt):
+        """`_stem_args` with the bias in `dt`, and the packed weights, kept
+        (`KeepsPacked`)."""
         def make():
             ws, bias = self._stem_args(dt)
-            return ws, bias.to(dt), pack_stem_weights(ws) if device_type == 'cuda' else None
+            return ws, bias.to(dt), pack_stem_weights(ws)
         return self.kept(self.parameters(), make)
 
     def forward(self, x):
         dt = self.convs[0].compute_dtype
-        if self.stride == 1 and stem_available(tuple(x.shape), self.kernel_sizes, dt,
-                                               x.device.type):
-            x = x.to(dt)
-            if wants_grad(x, *self.parameters()):
-                return cross_embed_stem(x, *self._stem_args(dt))
-            ws, bias, packed = self._cached_stem_args(dt, x.device.type)
-            return cross_embed_stem(x, ws, bias, packed=packed)
-        return torch.cat([conv(x) for conv in self.convs], dim=-1)
+        return cross_embed(x, self.kernel_sizes, dt, self.stride, self.parameters(),
+                           weights=lambda: self._stem_args(dt),
+                           kept=lambda: self._kept_stem_args(dt),
+                           plain=lambda: torch.cat([conv(x) for conv in self.convs], dim=-1))
 
 
 class UpsampleCombiner(nn.Module):

@@ -43,21 +43,14 @@ from imagen_tpu_torch.models.blocks import (
     LinearAttention,
     SameConv3x3,
     TorchLayerNorm,
-    ln_eps,
     recomputed,
     unit_time,
 )
-from imagen_tpu_torch.ops.flash_attention import (
-    build_grouped_bias,
-    flash_attention_available,
-    flash_cosine_mqa_rows,
-    flash_grouped_cosine,
-    grouped_temporal_available,
-)
-from imagen_tpu_torch.ops.temporal_layout import fused_norm_untranspose, temporal_layout_available
-from imagen_tpu_torch.ops.tensor_utils import l2norm, resize_axes, resize_kernel
+from imagen_tpu_torch.ops.attention import video_attention
+from imagen_tpu_torch.ops.temporal_layout import temporal_residual
+from imagen_tpu_torch.ops.tensor_utils import resize_axes, resize_kernel
 from imagen_tpu_torch.utils.helpers import cast_tuple, default, exists
-from imagen_tpu_torch.utils.profiling import count, span
+from imagen_tpu_torch.utils.profiling import span
 
 
 # --- video resize helpers -------------------------------------------------------------------
@@ -209,19 +202,9 @@ class DynamicPositionBias(nn.Module):
 class VideoAttention(nn.Module):
     """Multi-query cosine-sim attention with optional causality, a relative
     position bias with a learned null-key bias, context tokens and a gain-only
-    output norm (zero at init with `init_zero`).
-
-    On (B, n, dim) tokens it takes one of three routes, as the JAX module
-    does: bias-free flat attention long enough for the flash gate goes to the
-    flash rows kernel (`mid_attn` over (f x y) tokens); per-pixel attention
-    (no context, no mask) goes to the temporal kernel when its gate admits
-    the shape; everything else runs the plain einsum path.
-
-    With `fused_ln` it takes the temporal case in the native (b, f, h, w, c)
-    layout: the norm folds to ((b h w), f, c) as it normalises (kernel 12),
-    and the out-norm unfolds back and adds `x` as the residual (kernel 13),
-    so the caller must not add it again.
-    """
+    output norm (zero at init with `init_zero`). `ops.attention.video_attention`
+    routes the attention, as the JAX module does: to the flash rows kernel,
+    to the temporal kernel or to the plain core."""
 
     def __init__(self, dim, dim_head=64, heads=8, causal=False, context_dim=None,
                  rel_pos_bias=False, rel_pos_bias_mlp_depth=2, init_zero=False, scale=8.,
@@ -247,31 +230,13 @@ class VideoAttention(nn.Module):
         if init_zero:
             nn.init.zeros_(self.to_out[1].g)
 
-    def _count(self, flash, grouped, b, n, nk, mask, bias):
-        """One call for the route counters, with QK^T and PV as its work
-        (4 b h n nk d): per-pixel attention over the frames (the temporal
-        kernel's calls, and every call with a relative position bias) under
-        `temporal_attention`, routes `kernel` and `plain`, keyed (pixels,
-        frames, heads, nk, d); the flat attention under `attention`, routes
-        `flash` and `plain`, keyed as `ops.attention` keys it."""
-        h, d = self.heads, self.dim_head
-        work = 4 * b * h * n * nk * d
-        if grouped or (not flash and exists(self.rel_pos_bias)):
-            count('temporal_attention', 'kernel' if grouped else 'plain', (b, n, h, nk, d), work)
-        else:
-            count('attention', 'flash' if flash else 'plain',
-                  (b, h, n, nk, d, exists(mask), exists(bias)), work)
+    def forward(self, x, context=None, mask=None):
+        return self.to_out(self.attend(self.norm(x), context, mask))
 
-    def forward(self, x, context=None, mask=None, fused_ln=False):
-        x_native = None
-        if fused_ln:
-            if exists(context) or exists(mask):
-                raise ValueError('fused_ln is the per-pixel temporal case only')
-            x_native, x = x, self.norm(x, time_fold=True)
-        else:
-            x = self.norm(x)
+    def attend(self, x, context=None, mask=None):
+        """The attention of normalised tokens x (B, n, dim), heads merged,
+        before the out projection: (B, n, heads * dim_head)."""
         b, n, _ = x.shape
-        h, dh = self.heads, self.dim_head
         q = self.to_q(x)
         k, v = self.to_kv(x).chunk(2, dim=-1)
         k = torch.cat((self.null_kv[0].to(k.dtype).expand(b, 1, -1), k), dim=-2)
@@ -287,51 +252,15 @@ class VideoAttention(nn.Module):
             num_prepended += ck.shape[-2]
 
         # per-pixel additive bias (heads, n, nk) with the null column first
-        bias_full = None
+        bias = None
         if exists(self.rel_pos_bias):
             rel = self.rel_pos_bias(n, x.device).float()
-            null = self.null_attn_bias.float()[:, None, None].expand(h, n, 1)
-            bias_full = torch.cat((null, rel), dim=-1)
-
-        nk = k.shape[-2]
+            null = self.null_attn_bias.float()[:, None, None].expand(self.heads, n, 1)
+            bias = torch.cat((null, rel), dim=-1)
         per_pixel = not (exists(context) or exists(mask))
-        plain = not (exists(bias_full) or self.causal or not per_pixel)
-        causal_mask = (torch.ones((n, nk), dtype=torch.bool, device=x.device)
-                       .triu(nk - n + 1) if self.causal else None)
-        flash = plain and flash_attention_available(n, dh, False, False, heads=h, dtype=q.dtype,
-                                                    device_type=q.device.type)
-        grouped = not flash and per_pixel and grouped_temporal_available(
-            n, h, nk, dh, q.dtype, q.device.type)
-        self._count(flash, grouped, b, n, nk, mask, bias_full)
-        if flash:
-            out = flash_cosine_mqa_rows(q.reshape(b, n * h, dh), k, v, self.q_scale,
-                                        self.k_scale, self.scale).reshape(b, n, h * dh)
-        elif grouped:
-            bias_hfj = bias_full if exists(bias_full) else torch.zeros(
-                (h, n, nk), device=x.device)
-            out = flash_grouped_cosine(q, k, v, self.q_scale, self.k_scale,
-                                       build_grouped_bias(bias_hfj, causal_mask),
-                                       self.scale, h)
-        else:
-            q = q.reshape(b, n, h, dh).transpose(1, 2)
-            q = l2norm(q) * self.q_scale.to(q.dtype)
-            k = l2norm(k) * self.k_scale.to(k.dtype)
-            sim = torch.einsum('bhid,bjd->bhij', q, k) * self.scale
-            if exists(bias_full):
-                sim = sim + bias_full[None].to(sim.dtype)
-            max_neg = -torch.finfo(sim.dtype).max
-            if exists(causal_mask):
-                sim = sim.masked_fill(causal_mask, max_neg)
-            if exists(mask):
-                mask = F.pad(mask, (num_prepended, 0), value=True)
-                sim = sim.masked_fill(~mask[:, None, None, :], max_neg)
-            attn = torch.softmax(sim.float(), dim=-1).to(sim.dtype)
-            out = torch.einsum('bhij,bjd->bhid', attn, v)
-            out = out.transpose(1, 2).reshape(b, n, h * dh)
-        if exists(x_native):
-            out = self.to_out[0](out)
-            return fused_norm_untranspose(out, x_native, self.to_out[1].g, ln_eps(out.dtype))
-        return self.to_out(out)
+        return video_attention(q, k, v, self.heads, scale=self.scale, q_scale=self.q_scale,
+                               k_scale=self.k_scale, per_pixel=per_pixel, causal=self.causal,
+                               bias=bias, mask=mask, null_tokens=num_prepended)
 
 
 class _TimeCentric(nn.Module):
@@ -361,11 +290,11 @@ class TemporalAttention(Residual):
     """Residual causal attention over frames, per pixel, with a relative
     position bias; zero-initialised output gain.
 
-    With `fused_ln`, a site whose shape `temporal_layout_available` admits
-    takes kernels 12 and 13 (see `VideoAttention`), which hold the fold, the
-    unfold and the residual; other sites, and every site without it, fold
-    and unfold around the attention here. The parameters are the same on
-    both routes."""
+    With `fused_ln`, a site whose shape the gate admits takes kernels 12
+    and 13 (`ops.temporal_layout.temporal_residual`): the in-norm folds to
+    ((b h w), f, c) as it normalises, and the out-norm unfolds and adds the
+    residual. Other sites, and every site without it, fold and unfold around
+    the attention here. The parameters are the same on both routes."""
 
     def __init__(self, dim, dim_head=64, heads=8, causal=True, rel_pos_bias_mlp_depth=2,
                  fused_ln=False, dtype=F32):
@@ -375,9 +304,10 @@ class TemporalAttention(Residual):
         self.fused_ln = fused_ln
 
     def forward(self, x):
-        if self.fused_ln and temporal_layout_available(x.shape, x.dtype, x.device.type):
-            return self.fn.fn(x, fused_ln=True)   # the residual is added in kernel 13
-        return super().forward(x)
+        attn = self.fn.fn
+        return temporal_residual(x, attn.norm.g, lambda t: attn.to_out[0](attn.attend(t)),
+                                 attn.to_out[1].g, plain=lambda: Residual.forward(self, x),
+                                 fused=self.fused_ln)
 
 
 class TemporalPeg(nn.Module):

@@ -12,9 +12,10 @@ how its design answers that.
 
 On a CPU tensor each runs its plain PyTorch version (the XLA references
 `_xla_reference` and `_xla_reference_cf` of the JAX package). On a CUDA
-tensor it launches its kernel or raises. No module calls `conv2d_same_cf`,
-as no module of the JAX package does: its gate admits no preset's final
-conv, whose cin is 131 in the SR unets.
+tensor it launches its kernel or raises. `SameConv3x3` calls `conv3x3`,
+which decides the route (kernel 6 or cuDNN) and counts it. No module calls
+`conv2d_same_cf`, as no module of the JAX package does: its gate admits no
+preset's final conv, whose cin is 131 in the SR unets.
 
 When a gradient is wanted `conv2d_same` is an autograd Function whose
 backward is the JAX package's: the linear transposes of the conv in its two factors
@@ -35,6 +36,7 @@ from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.ops._build import SMEM_LIMIT, SMS
 from imagen_tpu_torch.ops.fused_norm import recomputed_grads
 from imagen_tpu_torch.ops.tensor_utils import wants_grad
+from imagen_tpu_torch.utils.profiling import count
 
 KERNEL = 'conv2d_same_3x3_bf16'
 CF_KERNEL = 'conv2d_same_cf_bf16'
@@ -184,6 +186,20 @@ def conv2d_same(x, w, bias):
     if wants_grad(x, w, bias):
         return _Conv2dSame.apply(x, w, bias)
     return _conv_forward(x, w, bias)
+
+
+def conv3x3(x, w, bias, plain):
+    """A `models.blocks.SameConv3x3` call, w (cout, cin, 3, 3): kernel 6 where
+    the gate admits it, else `plain()` (cuDNN); counted under `conv3x3`,
+    keyed (b, H, W, cin, cout), with 18 b H W cin cout operations."""
+    b, H, W, _ = x.shape
+    cout, cin = w.shape[:2]
+    kernel = conv2d_same_available(tuple(x.shape), (3, 3, cin, cout), x.dtype, x.device.type)
+    count('conv3x3', 'kernel' if kernel else 'cudnn', (b, H, W, cin, cout),
+          18 * b * H * W * cin * cout)
+    if kernel:
+        return conv2d_same(x, w.to(x.dtype).permute(2, 3, 1, 0), bias)
+    return plain()
 
 
 # --- kernel 7: tiny cout, channel-first output --------------------------------------------

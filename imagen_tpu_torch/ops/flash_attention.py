@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
+from imagen_tpu_torch.ops.fused_norm import recomputed_grads
 from imagen_tpu_torch.ops.tensor_utils import wants_grad
 
 FLASH_MIN_SEQ = 1024
@@ -390,15 +391,10 @@ class _GroupedTemporal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            q, k, v, q_scale, k_scale, bias = inputs
-            out = temporal_attention_reference(q, l2norm_scale(k, k_scale), v, q_scale, bias,
-                                               ctx.scale, ctx.heads)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+        def chain(q, k, v, q_scale, k_scale, bias):
+            return temporal_attention_reference(q, l2norm_scale(k, k_scale), v, q_scale, bias,
+                                                ctx.scale, ctx.heads)
+        return (*recomputed_grads(ctx, chain, g), None, None)
 
 
 def flash_grouped_cosine(q, k, v, q_scale, k_scale, bias, scale, heads):

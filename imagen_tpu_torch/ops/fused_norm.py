@@ -21,6 +21,8 @@ Each CUDA source's header says what bounds its kernel on the H100 and how
 its design answers that. Weights are in the torch Linear layout (out, in),
 as the modules hold them; gains are (C,). The JAX package wires kernels 9 and
 11 nowhere and neither does the port: they have no site of their own.
+`FeedForward` and `ChanRMSNorm` call `feedforward` and `chan_rms_norm`,
+which decide each call's route: the kernel, or the module's plain chain.
 
 On a CPU tensor each wrapper runs its plain PyTorch version, the JAX
 package's XLA reference (`_ff_xla`, `_xla_reference`, `_ln_xla`,
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 
 from imagen_tpu_torch.ops import _build
 from imagen_tpu_torch.ops._build import SMEM_LIMIT, SMS
-from imagen_tpu_torch.ops.tensor_utils import aligned_contiguous, wants_grad
+from imagen_tpu_torch.ops.tensor_utils import aligned_contiguous, l2norm, wants_grad
 
 KERNEL = 'fused_feedforward_bf16'
 FILM_KERNEL = 'fused_film_norm_bf16'
@@ -274,6 +276,11 @@ def fused_lnmm_available(rows, k, n, dtype=torch.bfloat16, device_type='cuda'):
 
 
 # --- plain versions ---------------------------------------------------------------------
+
+def ln_eps(dtype):
+    """The LayerNorms' eps: 1e-5 in fp32, else 1e-3."""
+    return 1e-5 if dtype == torch.float32 else 1e-3
+
 
 def layernorm(t, g, eps):
     """Bias-free LayerNorm of `models.blocks.LayerNorm` (stable=False)."""
@@ -553,6 +560,34 @@ def fused_film_norm(x, gamma, scale=None, shift=None):
     if wants_grad(x, gamma, scale, shift):
         return _FilmNorm.apply(x, gamma, scale, shift)
     return _film_forward(x, gamma, scale, shift)
+
+
+# --- the modules' entries: each decides its call's route ------------------------------------
+
+def feedforward(x, hidden, weights, plain, packed):
+    """A `models.blocks.FeedForward` call: kernel 10 on `weights()` (g0, w0,
+    g1, w1) where the gate admits (rows, k, hidden), reading `packed()`, the
+    kept bf16 weights, on CUDA without a gradient; else `plain()`."""
+    k = x.shape[-1]
+    if not fused_feedforward_available(x.numel() // k, k, hidden, x.dtype, x.device.type):
+        return plain()
+    params = weights()
+    kept = packed() if x.is_cuda and not wants_grad(x, *params) else None
+    return fused_feedforward(x, *params, ln_eps(x.dtype), packed=kept)
+
+
+def chan_rms_norm(x, gamma, scale_shift=None, silu=False, fused=False):
+    """A `models.blocks.ChanRMSNorm` call: RMSNorm over NHWC's channels, then
+    FiLM and SiLU where asked; kernel 8 where `fused` and the gate admit it,
+    else the chain in x's dtype."""
+    if fused and fused_film_available(x.shape, x.dtype, x.device.type, silu):
+        scale, shift = scale_shift if scale_shift is not None else (None, None)
+        return fused_film_norm(x, gamma, scale, shift)
+    out = l2norm(x, dim=-1) * (x.shape[-1] ** 0.5) * gamma.view(-1).to(x.dtype)
+    if scale_shift is not None:
+        scale, shift = scale_shift
+        out = out * (scale + 1) + shift
+    return F.silu(out) if silu else out
 
 
 def fused_layernorm(x, g, stable=False, eps=1e-5):

@@ -15,7 +15,8 @@ On a CPU tensor `cross_embed_stem` runs `cross_embed_stem_reference`, the
 plain version (the JAX package's `_xla_reference`). On a CUDA tensor it
 launches the kernel or raises. When a gradient is wanted the call is an
 autograd Function whose backward is the JAX package's `_bwd`: the VJP of
-the plain version, recomputed from the saved inputs.
+the plain version, recomputed from the saved inputs. `CrossEmbedLayer`
+calls `cross_embed`, which decides each call's route.
 """
 from __future__ import annotations
 
@@ -233,3 +234,15 @@ def cross_embed_stem(x, ws, bias, packed=None):
     if wants_grad(x, bias, *ws):
         return _CrossEmbedStem.apply(x, bias, *ws)
     return _stem_forward(x, bias, *ws, packed=packed)
+
+
+def cross_embed(x, kernel_sizes, dtype, stride, params, weights, kept, plain):
+    """A `models.blocks.CrossEmbedLayer` call: kernel 14 where the stride is 1
+    and the gate admits x, on `weights()` (ws, bias) while a gradient is wanted
+    over x and `params`, else on `kept()` (ws, bias, packed); else `plain()`."""
+    if stride != 1 or not stem_available(tuple(x.shape), kernel_sizes, dtype, x.device.type):
+        return plain()
+    x = x.to(dtype)
+    if wants_grad(x, *params):
+        return cross_embed_stem(x, *weights())
+    return cross_embed_stem(x, *kept())

@@ -25,13 +25,14 @@ When a gradient is wanted each call is an autograd Function whose backward
 differentiates the unfused chain, recomputed (`_ln_t_bwd`, `_norm_ut_bwd`
 of the JAX package): permute, then `layernorm` in the input's dtype, and for
 kernel 13 the residual add. Only the inputs are kept between the passes.
+`TemporalAttention` calls `temporal_residual`, which decides each call's route.
 """
 from __future__ import annotations
 
 import torch
 
 from imagen_tpu_torch.ops import _build
-from imagen_tpu_torch.ops.fused_norm import layernorm, recomputed_grads
+from imagen_tpu_torch.ops.fused_norm import layernorm, ln_eps, recomputed_grads
 from imagen_tpu_torch.ops.tensor_utils import aligned_contiguous, wants_grad
 
 LN_T_KERNEL = 'ln_transpose_bf16'
@@ -172,3 +173,14 @@ def fused_norm_untranspose(out, res, g, eps):
     if wants_grad(out, res, g):
         return _NormUntranspose.apply(out, res, g, eps)
     return _norm_ut_forward(out, res, g, eps)
+
+
+def temporal_residual(x, g_in, attend, g_out, plain, fused=False):
+    """A `models.video_blocks.TemporalAttention` call on x (b, f, h, w, c).
+    Where `fused` and the gate admit x, kernel 12 normalises (gain `g_in`)
+    and folds x to ((b h w), f, c) for `attend`, and kernel 13 normalises
+    (gain `g_out`), unfolds and adds x; else `plain()`."""
+    if not (fused and temporal_layout_available(x.shape, x.dtype, x.device.type)):
+        return plain()
+    out = attend(fused_ln_transpose(x, g_in, ln_eps(x.dtype)))
+    return fused_norm_untranspose(out, x, g_out, ln_eps(out.dtype))

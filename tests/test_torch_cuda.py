@@ -168,7 +168,7 @@ def test_same_conv_module_runs_the_kernel_right(cuda, monkeypatch):
         assert _build.LAUNCHES[c2d.KERNEL] == before + 1
         w, bias = (v.to(BF16).float() for v in (conv.weight, conv.bias))
         truth = c2d.conv2d_same_reference(x.float(), w.permute(2, 3, 1, 0), bias)
-        monkeypatch.setattr(blocks, 'conv2d_same_available', lambda *a, **k: False)
+        monkeypatch.setattr(c2d, 'conv2d_same_available', lambda *a, **k: False)
         plain = conv(x)
     assert _build.LAUNCHES[c2d.KERNEL] == before + 1
     assert max_abs(out.float(), truth) <= _bound(max_abs(plain.float(), truth))
@@ -257,7 +257,7 @@ def test_feedforward_modules_run_the_kernel_right(cuda, monkeypatch, which):
         out = fast(x.to(BF16))
         assert _build.LAUNCHES[fn.KERNEL] > before
         assert torch.equal(fast(x.to(BF16)), out)
-        monkeypatch.setattr(blocks, 'fused_feedforward_available', lambda *a, **k: False)
+        monkeypatch.setattr(fn, 'fused_feedforward_available', lambda *a, **k: False)
         plain = fast(x.to(BF16))
     assert max_abs(out.float(), truth) <= _bound(max_abs(plain.float(), truth))
 

@@ -165,13 +165,13 @@ def fused_film_env(monkeypatch):
     """The JAX fused route on, and a count of the port's fused norm calls."""
     monkeypatch.setenv('IMAGEN_TPU_FUSED_FILM', '1')
     calls = []
-    real = blocks.fused_film_norm
+    real = fn.fused_film_norm
 
     def counted(x, gamma, scale, shift):
         calls.append(x.shape)
         return real(x, gamma, scale, shift)
 
-    monkeypatch.setattr(blocks, 'fused_film_norm', counted)
+    monkeypatch.setattr(fn, 'fused_film_norm', counted)
     return calls
 
 

@@ -141,7 +141,7 @@ def test_attention_block_matches_jax(monkeypatch):
     ref = jax.jit(mod.apply)(jparams(p), jnp.asarray(x), context=jnp.asarray(ctx))
     mine = load_block(blocks.Attention(32, dim_head=16, heads=2, context_dim=16), p,
                       'mid_attn/attn_0', 'mid_attn.layers.0.0.')
-    calls = _spy(monkeypatch, attention, 'flash_cosine_mqa_rows')
+    calls = _spy(monkeypatch, flash_attention, 'flash_cosine_mqa_rows')
     with torch.no_grad():
         out = mine(t(x), context=t(ctx))
     assert calls, 'the 32x32 attention did not take the flash route'
@@ -155,7 +155,7 @@ def test_feedforward_block_matches_jax(monkeypatch):
     ref = jax.jit(mod.apply)(jparams(p), jnp.asarray(x))
     mine = load_block(blocks.FeedForward(128, mult=2.), p, 'mid_attn/ff_0',
                       'mid_attn.layers.0.1.')
-    calls = _spy(monkeypatch, blocks, 'fused_feedforward')
+    calls = _spy(monkeypatch, fused_norm, 'fused_feedforward')
     with torch.no_grad():
         out = mine(t(x))
     assert calls, 'the feedforward did not take the fused route'
@@ -172,7 +172,7 @@ def test_resnet_block_matches_jax(monkeypatch):
     ref = jax.jit(mod.apply)(jparams(p), jnp.asarray(x), time_emb=jnp.asarray(temb))
     mine = load_block(blocks.ResnetBlock(256, 128, time_cond_dim=32, use_gca=True), p,
                       'mid_block1', 'mid_block1.')
-    calls = _spy(monkeypatch, blocks, 'conv2d_same')
+    calls = _spy(monkeypatch, conv2d, 'conv2d_same')
     with torch.no_grad():
         out = mine(t(x), time_emb=t(temb))
     assert len(calls) == 2, 'the 3x3 convs did not take the kernel route'
@@ -186,7 +186,7 @@ def test_perceiver_resampler_matches_jax(monkeypatch):
     ref = jax.jit(mod.apply)(jparams(p), jnp.asarray(x))
     mine = load_block(blocks.PerceiverResampler(128, depth=2, dim_head=16, heads=2,
                                                 num_latents=4), p, 'attn_pool', 'attn_pool.')
-    calls = _spy(monkeypatch, blocks, 'fused_feedforward')
+    calls = _spy(monkeypatch, fused_norm, 'fused_feedforward')
     with torch.no_grad():
         out = mine(t(x))
     assert len(calls) == 2, 'the resampler feedforwards did not take the fused route'

@@ -132,20 +132,20 @@ def test_gates_match_the_jax_shape_conditions(monkeypatch):
 
 def _count_stem_calls(monkeypatch):
     calls = []
-    kernel_route = blocks.cross_embed_stem
+    kernel_route = stem.cross_embed_stem
 
     def spy(x, ws, bias, packed=None):
         calls.append(tuple(x.shape))
         return kernel_route(x, ws, bias, packed=packed)
 
-    monkeypatch.setattr(blocks, 'cross_embed_stem', spy)
+    monkeypatch.setattr(stem, 'cross_embed_stem', spy)
     return calls
 
 
 def _plain_route(monkeypatch, fn):
     """fn() with the stem gate closed: the layer's three F.conv2d and the cat."""
     with monkeypatch.context() as m:
-        m.setattr(blocks, 'stem_available', lambda *a, **k: False)
+        m.setattr(stem, 'stem_available', lambda *a, **k: False)
         return fn()
 
 

@@ -28,7 +28,7 @@ from imagen_tpu.models.unet3d import Unet3D as JUnet3D
 
 import imagen_tpu_torch as it
 from imagen_tpu_torch.diffusion.imagen import _per_sample_random_crop
-from imagen_tpu_torch.models import video_blocks as vb
+from imagen_tpu_torch.ops import temporal_layout as tl
 from imagen_tpu_torch.utils.port_weights import state_dict_from_jax
 
 CPU = 'cpu'
@@ -54,12 +54,12 @@ def _text(r, b):
 
 def _count_fused(monkeypatch):
     calls = []
-    fused = vb.fused_norm_untranspose
+    fused = tl.fused_norm_untranspose
 
     def counted(*args):
         calls.append(args[1].shape)
         return fused(*args)
-    monkeypatch.setattr(vb, 'fused_norm_untranspose', counted)
+    monkeypatch.setattr(tl, 'fused_norm_untranspose', counted)
     return calls
 
 
